@@ -1,0 +1,114 @@
+"""Batched gate bootstrapping on torch tensors (counterpart of
+oece_tpu.fhe.boot, GINX rev2 path).
+
+eval_bin_gate_batch = prepare_gates -> q->2N mod switch -> accumulator init
+-> blind rotation (fhe/rot.py, the one kernel) -> sample extract -> Q->Q_ks
+mod switch -> key switch -> Q_ks->q.  Every stage is exact integer
+arithmetic, so given the same keys and ciphertexts the result is
+bit-identical to the JAX package's and to golden.bootstrap(form="rot").
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from . import modmath
+from .keys import BootKeys
+from .rot import (  # noqa: F401  (re-export: the gadget helpers live with the rotation)
+    acc_gadget_digits_dev,
+    blind_rotate_rot,
+    gadget_digits_approx_dev,
+    gadget_digits_dev,
+    monomial_rotate,
+)
+
+# gate_prepare weights (golden.gate_prepare): prep = w1*c1 + w2*c2 mod q.
+PREP_WEIGHTS = np.array(
+    [[1, 1], [1, 1], [1, 1], [1, 1], [2, -2], [2, -2]], dtype=np.int32
+)
+
+
+def signed_digits_dev(x: torch.Tensor, B: int, d: int) -> torch.Tensor:
+    """All-signed base-B digits (key switching); golden.signed_digits."""
+    log_b = int(math.log2(B))
+    half = B // 2
+    digs = []
+    cur = x
+    for _ in range(d):
+        r = cur & (B - 1)
+        r = r - B * (r >= half).to(r.dtype)
+        digs.append(r.to(torch.int8))
+        cur = (cur - r) >> log_b
+    return torch.stack(digs, dim=-1)
+
+
+def acc_init(tv_sel: torch.Tensor, b2N: torch.Tensor, N: int, Q: int) -> torch.Tensor:
+    """ACC = (0, tv * X^{b~}) as int32 [B, 2, N]."""
+    rot = monomial_rotate(tv_sel, b2N, N, Q)
+    return torch.stack([torch.zeros_like(rot), rot], dim=1)
+
+
+def sample_extract(acc: torch.Tensor, Q: int) -> torch.Tensor:
+    """RLWE [B, 2, N] -> LWE [B, N+1] mod Q (coefficient 0)."""
+    a = acc[:, 0]
+    rest = a[:, 1:].flip(-1)
+    neg = torch.where(rest == 0, 0, Q - rest)
+    return torch.cat([a[:, :1], neg, acc[:, 1, :1]], dim=1)
+
+
+def key_switch_dev(ct_N: torch.Tensor, keys: BootKeys) -> torch.Tensor:
+    """LWE [B, N+1] mod Q_ks -> [B, n+1] mod Q_ks.  The int8 product runs in
+    float32, exact because |sum| <= N*d_ks * 2 * 128 = 2**21 < 2**24 (torch
+    has no integer matmul on CUDA); TF32 would round it, so it must be off."""
+    p = keys.params
+    Qks, N, n = p.Q_ks, p.N, p.n
+    if ct_N.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("key_switch_dev needs torch.backends.cuda.matmul.allow_tf32 = False")
+    B = ct_N.shape[0]
+    digs = signed_digits_dev(ct_N[:, :N], p.B_ks, p.d_ks).reshape(B, N * p.d_ks)
+    ksk = keys.ksk.reshape(N * p.d_ks, (n + 1) * 2)
+    prod = (digs.to(torch.float32) @ ksk.to(torch.float32)).to(torch.int32)
+    prod = prod.reshape(B, n + 1, 2)
+    out = -(prod[..., 0] + (prod[..., 1] << 8))
+    out[:, n] += ct_N[:, N]
+    return out & (Qks - 1)
+
+
+def mod_switch_pow2(x: torch.Tensor, from_log2: int, to_log2: int) -> torch.Tensor:
+    if to_log2 >= from_log2:
+        return (x << (to_log2 - from_log2)) & ((1 << to_log2) - 1)
+    sh = from_log2 - to_log2
+    return ((x + (1 << (sh - 1))) >> sh) & ((1 << to_log2) - 1)
+
+
+def bootstrap_batch(prep: torch.Tensor, gate_ids: torch.Tensor, keys: BootKeys) -> torch.Tensor:
+    """Bootstrap prepared LWE cts [B, n+1] mod q -> fresh cts [B, n+1]."""
+    p = keys.params
+    Q, N, q, Qks = p.Q, p.N, p.q, p.Q_ks
+    log_q, log_qks = int(math.log2(q)), int(math.log2(Qks))
+    ct2N = mod_switch_pow2(prep, log_q, int(math.log2(2 * N)))
+    a2N = ct2N[:, :-1].contiguous()
+    acc = acc_init(keys.tv_table[gate_ids.long()], ct2N[:, -1], N, Q)
+    acc = blind_rotate_rot(acc, keys.rev2, a2N, p)
+    ct_N = sample_extract(acc, Q)
+    ct_N[:, -1] = (ct_N[:, -1] + Q // 8) % Q
+    ct_ks = modmath.mod_switch_from_q27(ct_N, log_qks, Q)
+    return mod_switch_pow2(key_switch_dev(ct_ks, keys), log_qks, log_q)
+
+
+def prepare_gates(ct1: torch.Tensor, ct2: torch.Tensor, gate_ids: torch.Tensor, q: int) -> torch.Tensor:
+    """Per-gate linear combination w1*c1 + w2*c2 mod q (golden.gate_prepare)."""
+    w = torch.from_numpy(PREP_WEIGHTS).to(ct1.device)[gate_ids.long()]
+    y = w[:, :1] * ct1 + w[:, 1:] * ct2
+    return (y + 4 * q) & (q - 1)
+
+
+def eval_bin_gate_batch(
+    keys: BootKeys, gate_ids: torch.Tensor, ct1: torch.Tensor, ct2: torch.Tensor
+) -> torch.Tensor:
+    """Batched EvalBinGate: one bootstrap per lane."""
+    prep = prepare_gates(ct1, ct2, gate_ids, keys.params.q)
+    return bootstrap_batch(prep, gate_ids, keys)
