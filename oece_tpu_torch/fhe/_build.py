@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-At first use, ``nvcc`` compiles every source under ``oece_tpu_torch/csrc``
-into one shared library with a plain C interface, named by a hash of the
-sources and flags, in ``build/oece_tpu_torch/`` of the checkout (listed in
-.gitignore).  The library is loaded with ctypes; pointers and the stream are
-passed as ``c_void_p``.  Nothing is built at import time.
+At first use, ``nvcc`` compiles every ``*.cu`` source under
+``oece_tpu_torch/csrc`` (one process per source, all started together) and
+links the objects into one shared library with a plain C interface, named
+by a hash of the sources (headers included) and flags, in
+``build/oece_tpu_torch/`` of the checkout (listed in .gitignore).  The
+library is loaded with ctypes; pointers and the stream are passed as
+``c_void_p``.  Nothing is built at import time.
 """
 
 from __future__ import annotations
@@ -20,13 +22,11 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "oece_tpu_torch"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
-BUILD_SECONDS = 0.0  # wall time of the nvcc run of this process (0 if cached)
+BUILD_SECONDS = 0.0  # wall time of the nvcc runs of this process (0 if cached)
 BUILD_LOG = ""  # nvcc's output (register and shared-memory use per kernel)
 
 
@@ -57,6 +57,39 @@ def library_path() -> Path:
     return BUILD_DIR / f"liboece_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
+def _build(so: Path) -> str:
+    """Compile the .cu sources in parallel, link them into ``so``; returns
+    nvcc's output.  Temporaries carry the pid, so concurrent builds of one
+    hash do not collide."""
+    nvcc, tag = _nvcc(), str(os.getpid())
+    objs, procs = [], []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    logs = [p.communicate()[0] for p in procs]
+    log = "".join(logs)
+    try:
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        tmp = so.with_suffix(f".{tag}.tmp")
+        link = subprocess.run(
+            [nvcc, *GENCODE, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True,
+        )
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+        os.replace(tmp, so)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return log
+
+
 def load() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     global _lib, BUILD_SECONDS, BUILD_LOG
@@ -65,21 +98,15 @@ def load() -> ctypes.CDLL:
     so = library_path()
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-        cmd += [str(s) for s in _sources() if s.suffix == ".cu"]
         t0 = time.time()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        BUILD_LOG = _build(so)
         BUILD_SECONDS = time.time() - t0
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
-        os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
-    lib.oece_blind_rotate_rot.restype = ctypes.c_int
-    lib.oece_blind_rotate_rot.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p
-    ]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.oece_blind_rotate_rot.restype = i32
+    lib.oece_blind_rotate_rot.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
+    lib.oece_blind_rotate_ap.restype = i32
+    lib.oece_blind_rotate_ap.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
     lib.oece_error_string.restype = ctypes.c_char_p
     lib.oece_error_string.argtypes = [ctypes.c_int]
     _lib = lib

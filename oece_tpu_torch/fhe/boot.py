@@ -1,11 +1,12 @@
 """Batched gate bootstrapping on torch tensors (counterpart of
-oece_tpu.fhe.boot, GINX rev2 path).
+oece_tpu.fhe.boot: the GINX rev2 path and the binary-base AP path).
 
 eval_bin_gate_batch = prepare_gates -> q->2N mod switch -> accumulator init
--> blind rotation (fhe/rot.py, the one kernel) -> sample extract -> Q->Q_ks
-mod switch -> key switch -> Q_ks->q.  Every stage is exact integer
-arithmetic, so given the same keys and ciphertexts the result is
-bit-identical to the JAX package's and to golden.bootstrap(form="rot").
+-> blind rotation (fhe/rot.py for GINX keys, fhe/ap.py for AP keys: one
+kernel each) -> sample extract -> Q->Q_ks mod switch -> key switch ->
+Q_ks->q.  Every stage is exact integer arithmetic, so given the same keys
+and ciphertexts the result is bit-identical to the JAX package's and to
+golden.bootstrap (form="rot" for GINX).
 """
 
 from __future__ import annotations
@@ -15,7 +16,10 @@ import math
 import numpy as np
 import torch
 
+from oece_tpu.fhe.params import BinFHEMethod
+
 from . import modmath
+from .ap import blind_rotate_ap
 from .keys import BootKeys
 from .rot import (  # noqa: F401  (re-export: the gadget helpers live with the rotation)
     acc_gadget_digits_dev,
@@ -92,7 +96,10 @@ def bootstrap_batch(prep: torch.Tensor, gate_ids: torch.Tensor, keys: BootKeys) 
     ct2N = mod_switch_pow2(prep, log_q, int(math.log2(2 * N)))
     a2N = ct2N[:, :-1].contiguous()
     acc = acc_init(keys.tv_table[gate_ids.long()], ct2N[:, -1], N, Q)
-    acc = blind_rotate_rot(acc, keys.rev2, a2N, p)
+    if keys.method == BinFHEMethod.AP:
+        acc = blind_rotate_ap(acc, keys.ap_ext, a2N, p)
+    else:
+        acc = blind_rotate_rot(acc, keys.rev2, a2N, p)
     ct_N = sample_extract(acc, Q)
     ct_N[:, -1] = (ct_N[:, -1] + Q // 8) % Q
     ct_ks = modmath.mod_switch_from_q27(ct_N, log_qks, Q)

@@ -1,11 +1,16 @@
-"""GINX bootstrap key generation on the device (counterpart of
-oece_tpu.fhe.devkeygen, layout "rev2").
+"""Bootstrap key generation on the device (counterpart of
+oece_tpu.fhe.devkeygen): GINX keys in the "rev2" layout, binary-base AP keys
+in the ``ap_ext`` layout.
 
 Split in two so the arithmetic can be checked bit for bit against the JAX
-package: ``sample`` draws the secrets, masks and noise from a
-``torch.Generator`` (torch's generator is not threefry, so its draws differ
-from JAX's); ``assemble`` is a deterministic function of those draws and,
-fed JAX's own draws, returns JAX's rev2 and ksk exactly.
+package: ``sample`` / ``sample_ap`` draw the secrets, masks and noise from
+``torch.Generator``s (torch's generator is not threefry, so its draws differ
+from JAX's); ``assemble`` / ``assemble_ap`` are deterministic functions of
+those draws and, fed JAX's own draws, return JAX's keys exactly.
+
+As in the JAX package, every draw comes from one of eight named streams
+(``STREAMS``), each seeded from the same 8 seed words: one seed gives the
+GINX and the AP keygen the same LWE secret, ring secret and key-switch key.
 
 The two plain products of keygen run in float64, which is exact here:
 the negacyclic product A ⊛ z has |sum| <= N*Q < 2**37 and the key-switch
@@ -16,31 +21,40 @@ from __future__ import annotations
 
 import hashlib
 import os
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from oece_tpu.fhe import golden
-from oece_tpu.fhe.params import BinFHEParams
+from oece_tpu.fhe.params import BinFHEMethod, BinFHEParams
 
 from . import keys as keys_mod
 from . import modmath
 
+# The JAX keygen's PRF split order (oece_tpu.fhe.devkeygen._prf_root_and_secrets):
+# LWE secret, ring secret, GINX masks and noise, AP masks and noise,
+# key-switch masks and noise.
+STREAMS = ("s", "z", "ba", "be", "aa", "ae", "ka", "ke")
 
-def seed_generator(seed_words: Optional[np.ndarray], device) -> torch.Generator:
-    """A torch.Generator on ``device`` seeded from 8 uint32 words (or from
-    OS entropy when ``seed_words`` is None, the production default).  The
-    generator takes a 64-bit seed: the words are folded with SHA-256."""
+
+def seed_generators(seed_words: Optional[np.ndarray], device) -> Dict[str, torch.Generator]:
+    """One torch.Generator on ``device`` per stream of ``STREAMS``, each
+    seeded with SHA-256 of the 8 uint32 seed words and the stream's index
+    (OS entropy replaces the words when ``seed_words`` is None, the
+    production default)."""
     words = (
         np.frombuffer(os.urandom(32), dtype=np.uint32)
         if seed_words is None
         else np.asarray(seed_words, dtype=np.uint32).reshape(8)
     )
-    digest = hashlib.sha256(words.tobytes()).digest()
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int.from_bytes(digest[:8], "little"))
-    return gen
+    gens = {}
+    for k, name in enumerate(STREAMS):
+        digest = hashlib.sha256(words.tobytes() + k.to_bytes(4, "little")).digest()
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int.from_bytes(digest[:8], "little"))
+        gens[name] = gen
+    return gens
 
 
 def _gauss(sigma: float, shape, gen: torch.Generator) -> torch.Tensor:
@@ -49,25 +63,34 @@ def _gauss(sigma: float, shape, gen: torch.Generator) -> torch.Tensor:
     return torch.round(sigma * x).to(torch.int32)
 
 
-def sample(params: BinFHEParams, gen: torch.Generator):
-    """Draw (s, z, A, E, Aks, Eks), int32 tensors on the generator's device:
-    s [n] and z [N] ternary; A [n, 2, 2d, N] uniform mod Q and E Gaussian of
-    the same shape (refresh keys); Aks [N*d_ks, n] uniform mod Q_ks and Eks
-    [N*d_ks] Gaussian (key-switch key)."""
-    p = params
-    d = p.d_g_used
-    dev = gen.device
+def _randint(lo: int, hi: int, shape, gen: torch.Generator) -> torch.Tensor:
+    return torch.randint(lo, hi, shape, generator=gen, device=gen.device, dtype=torch.int32)
 
-    def randint(lo, hi, shape):
-        return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int32)
 
-    s = randint(-1, 2, (p.n,))
-    z = randint(-1, 2, (p.N,))
-    A = randint(0, p.Q, (p.n, 2, 2 * d, p.N))
-    E = _gauss(p.sigma, (p.n, 2, 2 * d, p.N), gen)
-    Aks = randint(0, p.Q_ks, (p.N * p.d_ks, p.n))
-    Eks = _gauss(p.sigma, (p.N * p.d_ks,), gen)
+def _sample_streams(p: BinFHEParams, gens, key_shape, a: str, e: str):
+    s = _randint(-1, 2, (p.n,), gens["s"])
+    z = _randint(-1, 2, (p.N,), gens["z"])
+    A = _randint(0, p.Q, key_shape, gens[a])
+    E = _gauss(p.sigma, key_shape, gens[e])
+    Aks = _randint(0, p.Q_ks, (p.N * p.d_ks, p.n), gens["ka"])
+    Eks = _gauss(p.sigma, (p.N * p.d_ks,), gens["ke"])
     return s, z, A, E, Aks, Eks
+
+
+def sample(params: BinFHEParams, gens):
+    """GINX draws (s, z, A, E, Aks, Eks), int32 tensors on the generators'
+    device: s [n] and z [N] ternary; A [n, 2, 2d, N] uniform mod Q and E
+    Gaussian of the same shape (refresh keys); Aks [N*d_ks, n] uniform mod
+    Q_ks and Eks [N*d_ks] Gaussian (key-switch key)."""
+    p = params
+    return _sample_streams(p, gens, (p.n, 2, 2 * p.d_g_used, p.N), "ba", "be")
+
+
+def sample_ap(params: BinFHEParams, gens):
+    """AP draws: as ``sample``, with A and E [n*d_r, 2d, N] from the AP
+    streams (one RGSW key per rotation step)."""
+    p = params
+    return _sample_streams(p, gens, (p.n * p.d_r, 2 * p.d_g_used, p.N), "aa", "ae")
 
 
 def negacyclic_by_ternary(A: torch.Tensor, z: torch.Tensor, Q: int) -> torch.Tensor:
@@ -93,39 +116,81 @@ def _keyswitch_key(params: BinFHEParams, s, z, Aks, Eks) -> torch.Tensor:
     return keys_mod.ksk_limbs(ksk, p.Q_ks)
 
 
+def _gadget(p: BinFHEParams, device) -> torch.Tensor:
+    """Gadget values (B_g**j << g_shift) mod Q, int32 [d]."""
+    return torch.tensor(
+        [(pow(p.B_g, j, p.Q) << p.g_shift) % p.Q for j in range(p.d_g_used)],
+        dtype=torch.int32, device=device,
+    )
+
+
+def _rgsw_rows(p: BinFHEParams, z, A, E, mg) -> torch.Tensor:
+    """RGSW rows with the message-times-gadget term mg [..., d, N] < Q:
+    golden.rgsw_encrypt layout (rows j < d add mg to the a slot, rows d+j
+    to the b slot).  A, E [..., 2d, N] -> [..., 2d, out=2, N] mod Q."""
+    Q = p.Q
+    Bv = modmath.mod_q(negacyclic_by_ternary(A, z, Q) + E + 2 * Q, Q)
+    zero = torch.zeros_like(mg)
+    a_slot = modmath.mod_q(A + torch.cat([mg, zero], dim=-2), Q)
+    b_slot = modmath.mod_q(Bv + torch.cat([zero, mg], dim=-2), Q)
+    return torch.stack([a_slot, b_slot], dim=-2)
+
+
 def refresh_keys(params: BinFHEParams, s, z, A, E) -> torch.Tensor:
     """GINX refresh keys brk int32 [n, part=2, 2d, out=2, N] mod Q:
-    RGSW(s == 1) and RGSW(s == -1), golden.rgsw_encrypt row layout (rows
-    j < d add m*g to the a slot, rows d+j to the b slot)."""
+    RGSW(s == 1) and RGSW(s == -1); the message is a scalar, so only
+    coefficient 0 carries the gadget term."""
     p = params
-    Q, N, d = p.Q, p.N, p.d_g_used
-    Bv = modmath.mod_q(negacyclic_by_ternary(A, z, Q) + E + 2 * Q, Q)
     m = torch.stack([s == 1, s == -1], dim=1).to(torch.int32)  # [n, 2]
-    g = torch.tensor(
-        [(pow(p.B_g, j, Q) << p.g_shift) % Q for j in range(d)],
-        dtype=torch.int32, device=A.device,
-    )
-    mg = m[:, :, None] * g[None, None, :]  # [n, 2, d]
-    zero = torch.zeros_like(mg)
-    coeff0 = torch.zeros(N, dtype=torch.int32, device=A.device)
-    coeff0[0] = 1  # the message is a scalar
-    add_a = torch.cat([mg, zero], dim=2)[..., None] * coeff0
-    add_b = torch.cat([zero, mg], dim=2)[..., None] * coeff0
-    a_slot = modmath.mod_q(A + add_a, Q)
-    b_slot = modmath.mod_q(Bv + add_b, Q)
-    return torch.stack([a_slot, b_slot], dim=3)
+    mg = m[:, :, None] * _gadget(p, A.device)[None, None, :]  # [n, 2, d]
+    coeff0 = torch.zeros(p.N, dtype=torch.int32, device=A.device)
+    coeff0[0] = 1
+    return _rgsw_rows(p, z, A, E, mg[..., None] * coeff0)
+
+
+def ap_refresh_keys(params: BinFHEParams, s, z, A, E) -> torch.Tensor:
+    """Binary-base AP refresh keys int32 [n*d_r, 2d, out=2, N] mod Q: step
+    i*d_r + j holds RGSW(X^c) with c = (s_i * 2**j) mod 2N, the monomial
+    ±1 at c mod N (negative when c >= N).  The gadget term is formed
+    without the int32-overflowing product (Q-1)*g."""
+    p = params
+    Q, N = p.Q, p.N
+    c = (s[:, None].to(torch.int64) * 2 ** torch.arange(p.d_r, device=s.device)) % (2 * N)
+    c = c.reshape(-1)  # [n*d_r], floor mod: s_i = -1 lands in [N, 2N)
+    at_c = torch.arange(N, device=s.device)[None, :] == (c % N)[:, None]  # [steps, N]
+    pos = (at_c & (c < N)[:, None])[:, None, :]
+    neg = (at_c & (c >= N)[:, None])[:, None, :]
+    g = _gadget(p, A.device)[None, :, None]  # [1, d, 1]
+    mg = pos * g + neg * (Q - g)  # [steps, d, N], < Q
+    return _rgsw_rows(p, z, A, E, mg.to(torch.int32))
 
 
 def assemble(params: BinFHEParams, s, z, A, E, Aks, Eks) -> keys_mod.BootKeys:
-    """Deterministic key assembly from the sampled material."""
+    """Deterministic GINX key assembly from the sampled material."""
     p = params
-    brk = refresh_keys(p, s, z, A, E)
     return keys_mod.BootKeys(
         params=p,
-        rev2=keys_mod.build_rev2(brk, p.Q),
         ksk=_keyswitch_key(p, s, z, Aks, Eks),
         tv_table=keys_mod.tv_table(p, device=A.device),
+        method=BinFHEMethod.GINX,
+        rev2=keys_mod.build_rev2(refresh_keys(p, s, z, A, E), p.Q),
     )
+
+
+def assemble_ap(params: BinFHEParams, s, z, A, E, Aks, Eks) -> keys_mod.BootKeys:
+    """Deterministic binary-base AP key assembly from the sampled material."""
+    p = params
+    return keys_mod.BootKeys(
+        params=p,
+        ksk=_keyswitch_key(p, s, z, Aks, Eks),
+        tv_table=keys_mod.tv_table(p, device=A.device),
+        method=BinFHEMethod.AP,
+        ap_ext=keys_mod.ap_ext_planes(ap_refresh_keys(p, s, z, A, E), p.Q),
+    )
+
+
+def _secret_key(params: BinFHEParams, s: torch.Tensor) -> golden.LWESecretKey:
+    return golden.LWESecretKey(s=s.cpu().numpy().astype(np.int64), params=params)
 
 
 def device_keygen(params: BinFHEParams, seed_words=None, device="cpu"):
@@ -134,8 +199,17 @@ def device_keygen(params: BinFHEParams, seed_words=None, device="cpu"):
     encryption and decryption; the keys stay on the device."""
     if params.N % keys_mod.TILE:
         raise ValueError("rev2 keys need N % 128 == 0")
-    gen = seed_generator(seed_words, device)
-    s, z, A, E, Aks, Eks = sample(params, gen)
-    bkeys = assemble(params, s, z, A, E, Aks, Eks)
-    sk = golden.LWESecretKey(s=s.cpu().numpy().astype(np.int64), params=params)
-    return sk, bkeys
+    draws = sample(params, seed_generators(seed_words, device))
+    return _secret_key(params, draws[0]), assemble(params, *draws)
+
+
+def device_keygen_ap(params: BinFHEParams, seed_words=None, device="cpu"):
+    """Generate binary-base AP keys on ``device``; returns (sk_host, keys)
+    as ``device_keygen`` does.  The same seed words give the same LWE
+    secret and key-switch key as ``device_keygen``."""
+    if params.B_r != 2:
+        raise ValueError(f"device AP keygen needs the binary rotation base, got B_r={params.B_r}")
+    if params.N % keys_mod.TILE:
+        raise ValueError("AP keys need N % 128 == 0")
+    draws = sample_ap(params, seed_generators(seed_words, device))
+    return _secret_key(params, draws[0]), assemble_ap(params, *draws)

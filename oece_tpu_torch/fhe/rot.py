@@ -83,42 +83,54 @@ def monomial_rotate(P: torch.Tensor, c: torch.Tensor, N: int, Q: int) -> torch.T
     return torch.where(wrap, torch.where(x == 0, 0, Q - x), x)
 
 
+def tile_digits(x: torch.Tensor, p: BinFHEParams) -> torch.Tensor:
+    """Gadget digits of x int32 [B, 2, N], int8 [B, nt*R*T] at column
+    j*RT + (poly*d_used + digit)*T + u for coefficient j*T + u."""
+    B, _, N = x.shape
+    digs = acc_gadget_digits_dev(x, p)  # [B, poly, N, digit]
+    digs = digs.reshape(B, 2, N // TILE, TILE, p.d_g_used).permute(0, 2, 1, 4, 3)
+    return digs.reshape(B, -1)
+
+
 def rot_diff_digits(acc: torch.Tensor, a_col: torch.Tensor, p: BinFHEParams) -> torch.Tensor:
     """Digits of both parts' rotated differences, int8 [B, nt*2R*T] at
     column j*2RT + part*RT + (poly*d_used + digit)*T + u for coefficient
     j*T + u (the rev2 row order)."""
     B, _, N = acc.shape
-    Q, d = p.Q, p.d_g_used
-    nt = N // TILE
+    Q = p.Q
     c_pos = (2 * N - a_col) & (2 * N - 1)
     parts = []
     for c in (c_pos, a_col):
         diff = monomial_rotate(acc, c, N, Q) - acc
         diff = torch.where(diff < 0, diff + Q, diff)
-        digs = acc_gadget_digits_dev(diff, p)  # [B, poly, N, digit]
-        digs = digs.reshape(B, 2, nt, TILE, d).permute(0, 2, 1, 4, 3)
-        parts.append(digs.reshape(B, nt, 2 * d, TILE))
-    return torch.stack(parts, dim=2).reshape(B, nt * 2 * 2 * d * TILE)
+        parts.append(tile_digits(diff, p).reshape(B, N // TILE, -1))
+    return torch.stack(parts, dim=2).reshape(B, -1)
+
+
+def tile_products(dig: torch.Tensor, rev: torch.Tensor, Q: int) -> torch.Tensor:
+    """Plain twin of int8_mm_kernel's product and limb combine: digits int8
+    [B, K] against reversed diagonals int8 [(2nt-1)*K/nt, 8T], output tile
+    k contracting rows [(nt-1-k)*K/nt, +K).  Returns int32 [B, out=2, N]
+    mod Q.  The contraction runs in float64, exact because
+    |sum| <= K * 128 * 128 <= 2**27 < 2**53 (torch has no integer matmul
+    on CUDA)."""
+    B, K = dig.shape
+    rows = 2 * K - rev.shape[0]  # per diagonal: nt*rows = K, (2nt-1)*rows = len(rev)
+    nt = K // rows
+    x = dig.to(torch.float64)
+    out = torch.empty((B, 2, nt * TILE), dtype=torch.int32, device=dig.device)
+    for k in range(nt):
+        w = rev[(nt - 1 - k) * rows : (nt - 1 - k) * rows + K].to(torch.float64)
+        res = (x @ w).to(torch.int32).reshape(B, 2, 4, TILE)  # [b, out, limb, t]
+        out[:, :, k * TILE : (k + 1) * TILE] = combine_limbs_mod_q(res.movedim(2, -1), Q)
+    return out
 
 
 def rot_step_plain(
     acc: torch.Tensor, a_col: torch.Tensor, rev2_i: torch.Tensor, p: BinFHEParams
 ) -> torch.Tensor:
-    """One step.  The contraction runs in float64, exact because
-    |sum| <= K * 128 * 128 = 2**27 < 2**53 (torch has no integer matmul
-    on CUDA)."""
-    B, _, N = acc.shape
-    nt = N // TILE
-    rt2 = 2 * 2 * p.d_g_used * TILE
-    dig = rot_diff_digits(acc, a_col, p).to(torch.float64)
-    out = torch.empty_like(acc)
-    for k in range(nt):
-        w = rev2_i[(nt - 1 - k) * rt2 : (2 * nt - 1 - k) * rt2].to(torch.float64)
-        res = (dig @ w).to(torch.int32).reshape(B, 2, 4, TILE)  # [b, out, limb, t]
-        comb = combine_limbs_mod_q(res.movedim(2, -1), p.Q)
-        sl = slice(k * TILE, (k + 1) * TILE)
-        out[:, :, sl] = red31(acc[:, :, sl] + comb, p.Q)
-    return out
+    """One step: red31(acc + both parts' products)."""
+    return red31(acc + tile_products(rot_diff_digits(acc, a_col, p), rev2_i, p.Q), p.Q)
 
 
 def blind_rotate_rot_plain(
@@ -133,25 +145,29 @@ def blind_rotate_rot_plain(
     return acc
 
 
-def _check(acc, rev2_all, a2N, p: BinFHEParams) -> None:
-    if acc.dtype != torch.int32 or a2N.dtype != torch.int32 or rev2_all.dtype != torch.int8:
+def check_operands(name: str, acc, key, a2N) -> None:
+    """What both rotation wrappers require: int32 acc [B, 2, N] and a2N,
+    an int8 key, one device, contiguous memory."""
+    if acc.dtype != torch.int32 or a2N.dtype != torch.int32 or key.dtype != torch.int8:
         raise TypeError(
-            f"blind_rotate_rot: want int32 acc/a2N and int8 rev2, got "
-            f"{acc.dtype}, {a2N.dtype}, {rev2_all.dtype}"
+            f"{name}: want int32 acc/a2N and an int8 key, got "
+            f"{acc.dtype}, {a2N.dtype}, {key.dtype}"
         )
-    if not (acc.device == rev2_all.device == a2N.device):
-        raise ValueError("blind_rotate_rot: tensors on different devices")
-    if not (acc.is_contiguous() and rev2_all.is_contiguous() and a2N.is_contiguous()):
-        raise ValueError("blind_rotate_rot: tensors must be contiguous")
-    B, two, N = acc.shape
+    if not (acc.device == key.device == a2N.device):
+        raise ValueError(f"{name}: tensors on different devices")
+    if not (acc.is_contiguous() and key.is_contiguous() and a2N.is_contiguous()):
+        raise ValueError(f"{name}: tensors must be contiguous")
+    if acc.ndim != 3 or acc.shape[1] != 2 or acc.shape[2] % TILE:
+        raise ValueError(f"{name}: bad accumulator shape {tuple(acc.shape)}")
+
+
+def _check(acc, rev2_all, a2N, p: BinFHEParams) -> None:
+    check_operands("blind_rotate_rot", acc, rev2_all, a2N)
+    B, _, N = acc.shape
     nt = N // TILE
     rows = (2 * nt - 1) * 2 * 2 * p.d_g_used * TILE
     n = rev2_all.shape[0]
-    if (
-        two != 2 or N != p.N or N % TILE
-        or rev2_all.shape[1:] != (rows, 8 * TILE)
-        or a2N.shape != (B, n)
-    ):
+    if N != p.N or rev2_all.shape[1:] != (rows, 8 * TILE) or a2N.shape != (B, n):
         raise ValueError(
             f"blind_rotate_rot: bad shapes acc {tuple(acc.shape)}, rev2 "
             f"{tuple(rev2_all.shape)}, a2N {tuple(a2N.shape)} for N={p.N}"

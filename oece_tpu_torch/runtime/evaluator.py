@@ -14,12 +14,14 @@ SetInput, then one call covering all W*T lanes of a level whenever any
 lane of that level needs a verify repair.  Given the same keys and
 generator state, a run reproduces the JAX package's ciphertexts bit for bit.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-setRecovery(True) and the automatic recovery of pure-encrypted runs,
-xor_mode="compound", method="AP", and circuits with DFF state.  A
-pure-encrypted Clock() (encrypted without verify) therefore raises unless
-setRecovery(False) was called, which is the JAX package's own
-recovery-off configuration.
+Both blind-rotation methods run: GINX, and AP with the binary rotation
+base (B_r = 2, as STD128 and STD128_OPT have it), each on device-generated
+keys.  Not ported yet (each raises NotImplementedError naming its ROADMAP
+item): the generic-base AP method (B_r != 2), setRecovery(True) and the
+automatic recovery of pure-encrypted runs, xor_mode="compound", and
+circuits with DFF state.  A pure-encrypted Clock() (encrypted without
+verify) therefore raises unless setRecovery(False) was called, which is
+the JAX package's own recovery-off configuration.
 """
 
 from __future__ import annotations
@@ -69,10 +71,11 @@ class Circuit:
     """Parity class for the reference's Circuit.
 
     ``device`` is explicit: "cuda" needs a CUDA device and builds the
-    rotation kernel at construction (raising if either fails); "cpu" runs
-    the kernels' plain torch versions.  Keys are generated on ``device``
-    from ``seed`` (None draws OS entropy), or injected with ``keys``, ``sk``
-    and ``rng`` (the generator for host encryption).
+    rotation kernels at construction (raising if either fails); "cpu" runs
+    the kernels' plain torch versions.  Keys of ``method`` are generated on
+    ``device`` from ``seed`` (None draws OS entropy), or injected with
+    ``keys`` (of the same method), ``sk`` and ``rng`` (the generator for
+    host encryption).
     """
 
     def __init__(
@@ -92,8 +95,14 @@ class Circuit:
             method if isinstance(method, BinFHEMethod)
             else BinFHEMethod[str(method).upper()]
         )
-        if self.method != BinFHEMethod.GINX:
-            raise _not_ported("method='AP'", "the AP method")
+        if self.method == BinFHEMethod.AP and (self.params.B_r != 2 or self.params.N % 128):
+            raise _not_ported(
+                f"method='AP' with B_r={self.params.B_r}, N={self.params.N} "
+                "(only the binary rotation base with N % 128 == 0 is ported)",
+                "the generic-base AP method",
+            )
+        if keys is not None and keys.method != self.method:
+            raise ValueError(f"keys are {keys.method.name} keys, the circuit is {self.method.name}")
         if xor_mode != "native":
             raise _not_ported(f"xor_mode={xor_mode!r}", "compound XOR")
         self.xor_mode = xor_mode
@@ -102,7 +111,7 @@ class Circuit:
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError("Circuit(device='cuda'): CUDA is not available")
-            _build.load()  # build the rotation kernel now; raises on failure
+            _build.load()  # build the rotation kernels now; raises on failure
         elif self.device.type != "cpu":
             raise ValueError(f"unsupported device {self.device}")
         if self.params.name in ("TOY", "MICRO"):
@@ -118,7 +127,11 @@ class Circuit:
                 np.asarray(self._rng.integers(0, 2**32, size=8), dtype=np.uint32)
                 if seed is not None else None
             )
-            self.sk, self.keys = devkeygen.device_keygen(self.params, words, self.device)
+            keygen = (
+                devkeygen.device_keygen_ap if self.method == BinFHEMethod.AP
+                else devkeygen.device_keygen
+            )
+            self.sk, self.keys = keygen(self.params, words, self.device)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.keygen_s = time.time() - t0

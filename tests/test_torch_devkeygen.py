@@ -79,3 +79,24 @@ def test_own_sampling_gives_working_keys(params):
     out2 = boot.eval_bin_gate_batch(kt, torch.from_numpy(gids), out, c1)
     want2 = np.array([TRUTH[g](int(a), int(b)) for g, a, b in zip(gids, want, m1)])
     np.testing.assert_array_equal(jlwe.decrypt_bits(sk, out2.numpy()), want2)
+
+
+def test_ap_and_ginx_keygen_share_secrets():
+    """One seed gives the GINX and the AP keygen the same LWE secret, ring
+    secret and key-switch key: each draws from its own named streams
+    (tests/test_devkeygen.py::test_device_keygen_ap_shares_secrets_with_ginx
+    pins the same for the JAX package)."""
+    p = dataclasses.replace(MICRO_A, name="MICRO_AP2", B_r=2)
+    words = np.array([13, 0, 0, 0, 0, 0, 0, 7], dtype=np.uint32)
+    g = devkeygen.sample(p, devkeygen.seed_generators(words, "cpu"))
+    a = devkeygen.sample_ap(p, devkeygen.seed_generators(words, "cpu"))
+    for x, y in zip(g[:2] + g[4:], a[:2] + a[4:]):  # s, z, Aks, Eks
+        assert torch.equal(x, y)
+    assert g[2].shape != a[2].shape  # the refresh-key masks differ by method
+    sk_g, kt_g = devkeygen.device_keygen(p, words, "cpu")
+    sk_a, kt_a = devkeygen.device_keygen_ap(p, words, "cpu")
+    np.testing.assert_array_equal(sk_g.s, sk_a.s)
+    assert torch.equal(kt_g.ksk, kt_a.ksk)
+    assert kt_a.rev2 is None and kt_g.ap_ext is None
+    other = devkeygen.sample(p, devkeygen.seed_generators(words + 1, "cpu"))
+    assert not torch.equal(other[1], g[1])

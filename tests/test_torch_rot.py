@@ -135,7 +135,7 @@ def test_kernel_build_location(monkeypatch):
     repo = _build.PKG_DIR.parent
     assert so.parent == repo / "build" / "oece_tpu_torch"
     assert "build/" in (repo / ".gitignore").read_text().split()
-    assert [s.name for s in _build._sources()] == ["rot_step.cu"]
+    assert [s.name for s in _build._sources()] == ["ap_step.cu", "rot_step.cu", "int8_mm.cuh"]
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     monkeypatch.setattr(_build.os.path, "isfile", lambda path: False)
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
