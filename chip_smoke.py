@@ -29,9 +29,30 @@ before the result lines):
              output decrypted and checked.
   7. ap-circuit  phase 4 with method="AP": adder_32bit verify, T=4, sums
              == a+b, the AP rotation through its kernel only.
+  8. std-kernel  the standard-form GINX rotation (csrc/std_step.cu: the
+             diagonal build of Pallas kernel #1, the digits, the matmul and
+             limb combine of #4, the CMUX epilogue) against its plain torch
+             version on the card, bit-exact: STD128_OPT (n=8) at B = 1, 37,
+             256, and one STD128_OPT step at B=2048; STD128 (exact gadget,
+             R=8) n=2 and MICRO / TOY with n cut at B=37; random int8
+             ginx_ext bytes, a=0 lanes.  Times the B=2048 step (CUDA
+             events) and each of its kernels (device time per launch in
+             that step, torch.profiler) beside their plain versions, their
+             bounds, and for #1 its library form (one torch.take).
+  9. context BinFHEContext(device="cuda") at STD128_OPT GINX, seed 0:
+             KeyGen and BTKeyGen (golden's host keys, ginx_ext), then 24
+             single EvalBinGate calls (6 gates x 4 input pairs) and EvalNOT,
+             and 3 chained EvalBinGateBatch calls of 2048 random gates;
+             every output decrypted and checked; only the std kernel ran.
+ 10. std-circuit Circuit(set="STD128_OPT", seed=0, device="cuda") under
+             OECE_HOST_KEYGEN=1 runs adder_32bit verify at T=4: sums == a+b,
+             the rotation through the std kernel only.
 
-The last two lines are the kernels' JSON record and
-{"ok": true, "device": {...}}.  JAX is blocked from being imported.
+Each main-path run (phases 4, 7, 9 and 10) sets every launch count to 0
+just before it and reads the counts just after: the rotation calls that
+reached each version, and each CUDA kernel's launches (one per step).  The
+last two lines are the kernels' JSON record and {"ok": true, "device":
+{...}}.  JAX and the JAX package are blocked from being imported.
 """
 
 from __future__ import annotations
@@ -48,6 +69,10 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 ADDER = os.path.join(REPO, "examples", "old_bristol_ckts", "arith", "adder_32bit.txt")
 
+# One NVIDIA H100 SXM (data sheet, dense): int8 tensor-core peak and HBM rate.
+INT8_OPS_PER_S = 1979e12
+HBM_BYTES_PER_S = 3.35e12
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
@@ -56,6 +81,76 @@ def fail(msg: str) -> None:
 
 def log(phase: str, t0: float, msg: str) -> None:
     print(f"[{phase}] {time.time() - t0:.2f}s {msg}", flush=True)
+
+
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """The least time the card could take (ms) and what bounds it: int8
+    operations at the tensor-core peak or bytes at the HBM rate."""
+    t_ops, t_bytes = ops / INT8_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def reset_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from oece_tpu_torch.fhe import ap, rot, std
+
+    for m in (ap, rot, std):
+        m.LAUNCHES = 0
+        m.PLAIN_LAUNCHES = 0
+        m.STEP_LAUNCHES = 0
+
+
+def read_counts() -> dict:
+    """Rotation calls that launched each CUDA step loop, and plain calls."""
+    from oece_tpu_torch.fhe import ap, rot, std
+
+    return {
+        "rot": rot.LAUNCHES, "ap": ap.LAUNCHES, "std": std.LAUNCHES,
+        "plain": rot.PLAIN_LAUNCHES + ap.PLAIN_LAUNCHES + std.PLAIN_LAUNCHES,
+    }
+
+
+def read_step_launches(kernel: str) -> int:
+    """Launches of each CUDA kernel of one rotation's step loop."""
+    from oece_tpu_torch.fhe import ap, rot, std
+
+    return {"rot": rot, "ap": ap, "std": std}[kernel].STEP_LAUNCHES
+
+
+def check_only(phase: str, counts: dict, kernel: str) -> int:
+    """Fail unless ``kernel`` launched and nothing else did; returns the
+    launches of each of its CUDA kernels."""
+    others = {k: v for k, v in counts.items() if k != kernel and v}
+    if counts[kernel] == 0 or others:
+        fail(f"{phase}: launches {counts}: want {kernel} only")
+    return read_step_launches(kernel)
+
+
+def device_ms(fn, reps: int, *kernels: str) -> list[float]:
+    """Device time per call of fn spent in the CUDA kernels whose name
+    contains each of ``kernels`` (torch.profiler): for kernels shorter than
+    the host's launch overhead, where back-to-back CUDA events time the
+    host instead."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    totals = [0.0] * len(kernels)
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        us = us if us is not None else ev.self_cuda_time_total
+        for k, name in enumerate(kernels):
+            if name in ev.key:
+                totals[k] += us
+    for name, us in zip(kernels, totals):
+        if us <= 0:
+            fail(f"the profiler saw no device time for {name}")
+    return [us / 1e3 / reps for us in totals]
 
 
 def cuda_time_ms(fn, reps: int) -> float:
@@ -112,8 +207,8 @@ def _rot_inputs(p, B, n, seed):
 
 def phase_kernel():
     import torch
-    from oece_tpu.fhe.params import MICRO_A, STD128_OPT, TOY
     from oece_tpu_torch.fhe import rot
+    from oece_tpu_torch.fhe.params import MICRO_A, STD128_OPT, TOY
 
     t0 = time.time()
     cases = [
@@ -140,7 +235,10 @@ def phase_kernel():
     kernel_ms = cuda_time_ms(lambda: rot.blind_rotate_rot(acc, rev2, a2N, p), reps=20)
     plain_ms = cuda_time_ms(lambda: rot.blind_rotate_rot_plain(acc, rev2, a2N, p), reps=5)
     log("kernel", t0, f"one STD128_OPT step at B=2048: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return max_err, kernel_ms, plain_ms
+    nt, K = p.N // 128, p.N // 128 * 4 * p.d_g_used * 128
+    ops = 2.0 * 2048 * nt * K * 8 * 128
+    nbytes = 2 * acc.numel() * 4 + rev2[0].numel() + a2N.numel() * 4
+    return max_err, kernel_ms, plain_ms, bound(ops, nbytes)
 
 
 def _ap_inputs(p, B, seed, any_a=False):
@@ -166,8 +264,8 @@ def _ap_inputs(p, B, seed, any_a=False):
 
 def phase_ap_kernel():
     import torch
-    from oece_tpu.fhe.params import MICRO_A, STD128_OPT, TOY
     from oece_tpu_torch.fhe import ap
+    from oece_tpu_torch.fhe.params import MICRO_A, STD128_OPT, TOY
 
     t0 = time.time()
     std2 = dataclasses.replace(STD128_OPT, n=2)
@@ -197,14 +295,20 @@ def phase_ap_kernel():
     kernel_ms = cuda_time_ms(lambda: ap.blind_rotate_ap(acc, ext, a2N, p), reps=10) / p.d_r
     plain_ms = cuda_time_ms(lambda: ap.blind_rotate_ap_plain(acc, ext, a2N, p), reps=3) / p.d_r
     log("ap-kernel", t0, f"one STD128_OPT AP step at B=2048: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return max_err, kernel_ms, plain_ms
+    # the products this run's select bits need, per step: 33.6 M MACs per
+    # live gate; the step key (64 KB) and the accumulator in and out
+    live = int(ap.ap_bits(a2N, p).sum())
+    nt, K = p.N // 128, p.N // 128 * 2 * p.d_g_used * 128
+    ops = 2.0 * live * nt * K * 8 * 128 / p.d_r
+    nbytes = ext[0].numel() + 2 * acc.numel() * 4 + a2N.numel() * 4 / p.d_r
+    return max_err, kernel_ms, plain_ms, bound(ops, nbytes)
 
 
 def phase_gates(phase="gates", method="GINX", B=2048, K=3):
     """Keygen at full STD128_OPT, then K chained batches of B gates."""
     import torch
-    from oece_tpu.fhe.params import STD128_OPT
     from oece_tpu_torch.fhe import boot, devkeygen, lwe
+    from oece_tpu_torch.fhe.params import STD128_OPT
 
     p = STD128_OPT
     t0 = time.time()
@@ -246,16 +350,21 @@ def phase_gates(phase="gates", method="GINX", B=2048, K=3):
     torch.cuda.empty_cache()
 
 
-def phase_circuit(phase="circuit", method="GINX"):
-    """adder_32bit in verify mode; returns the launches of the method's
-    rotation kernel in the Clock."""
+def phase_circuit(phase="circuit", method="GINX", host_keys=False):
+    """adder_32bit in verify mode on device keys, or on golden's host keys
+    (OECE_HOST_KEYGEN=1); returns the launches of each kernel of the
+    rotation's step loop in the Clock."""
     import torch
-    from oece_tpu_torch.fhe import ap, rot
     from oece_tpu_torch.runtime.evaluator import Circuit
 
-    kernel = ap if method == "AP" else rot
+    kernel = "ap" if method == "AP" else "std" if host_keys else "rot"
     t0 = time.time()
-    c = Circuit(set="STD128_OPT", method=method, seed=0, device="cuda")
+    if host_keys:
+        os.environ["OECE_HOST_KEYGEN"] = "1"
+    try:
+        c = Circuit(set="STD128_OPT", method=method, seed=0, device="cuda")
+    finally:
+        os.environ.pop("OECE_HOST_KEYGEN", None)
     log(phase, t0, f"Circuit keygen {c.keygen_s:.1f}s")
     c.ReadFile(ADDER)
     c.setVerify(True)
@@ -264,24 +373,187 @@ def phase_circuit(phase="circuit", method="GINX"):
     b = rng.integers(0, 1 << 32, 4, dtype=np.uint64)
     bits = lambda v, w: ((v[:, None] >> np.arange(w, dtype=np.uint64)) & np.uint64(1)).astype(np.int64)
     c.SetInput([bits(a, 32), bits(b, 32)])
-    for m in (ap, rot):
-        m.LAUNCHES = 0
-        m.PLAIN_LAUNCHES = 0
+    reset_counts()
     ts = time.time()
     c.Clock()
     torch.cuda.synchronize()
     wall = time.time() - ts
-    launches, plain = kernel.LAUNCHES, kernel.PLAIN_LAUNCHES
-    other = (rot if method == "AP" else ap).LAUNCHES
+    counts = read_counts()
     (out,) = c.GetOutput()
     sums = (out.astype(np.uint64) << np.arange(out.shape[1], dtype=np.uint64)).sum(1)
     if not np.array_equal(sums, a + b):
-        fail(f"{method} adder_32bit sums {sums} != {a + b}")
-    if launches == 0 or plain != 0 or other != 0:
-        fail(f"{method} rotation launches: kernel {launches}, plain {plain}, other method's kernel {other}")
+        fail(f"{phase} adder_32bit sums {sums} != {a + b}")
+    launches = check_only(phase, counts, kernel)
     log(phase, t0, f"{method} adder_32bit verify T=4: sums == a+b; wall {wall:.2f}s; "
         f"bad_gate_counts {c.bad_gate_counts}; trace {c.trace.summary()}; "
-        f"kernel launches {launches}, plain {plain}")
+        f"rotation calls {counts}, {launches} launches of each {kernel} kernel")
+    return launches
+
+
+def _std_inputs(p, B, n, seed):
+    """Random accumulator, random int8 ginx_ext bytes (the kernel must agree
+    with the plain version on any key bytes) and rotation amounts of the
+    q -> 2N mod switch with a=0 lanes: lane 0 all steps, one step in five
+    everywhere."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    R = 2 * p.d_g_used
+    acc = torch.randint(0, p.Q, (B, 2, p.N), generator=g, device="cuda", dtype=torch.int32)
+    ext = torch.randint(-128, 128, (n, R, 16, 2 * p.N), generator=g, device="cuda", dtype=torch.int8)
+    scale = 2 * p.N // p.q
+    a2N = scale * torch.randint(0, p.q, (B, n), generator=g, device="cuda", dtype=torch.int32)
+    a2N[0] = 0
+    a2N[:, ::5] = 0
+    return acc, ext, a2N.contiguous()
+
+
+def _max_err(got, want) -> tuple[int, int]:
+    """(mismatches, max |got - want|) of two integer tensors."""
+    return int((got != want).sum()), int((got.long() - want.long()).abs().max())
+
+
+def take_index(N: int, R: int, device):
+    """The flat index that makes #1 one torch.take of a step's ginx_ext
+    [R, 16, 2N]: entry [d'*RT + r*T + u, m*T + t] is
+    (r*16 + m)*2N + keys.rev_index(N)[d', u, t]."""
+    import torch
+    from oece_tpu_torch.fhe import keys
+
+    idx = keys.rev_index(N, device)  # [2nt-1, u, t]
+    plane = torch.arange(R * 16, device=device).view(R, 16) * (2 * N)
+    flat = plane[None, :, None, :, None] + idx[:, None, :, None, :]  # [d', r, u, m, t]
+    return flat.reshape(idx.shape[0] * R * 128, 16 * 128)
+
+
+def phase_std_kernel():
+    """The standard-form rotation kernel against its plain version, then
+    one STD128_OPT step at B=2048: checked, timed whole and kernel by
+    kernel (device time inside the rotation call), with bounds."""
+    import torch
+    from oece_tpu_torch.fhe import keys, rot, std
+    from oece_tpu_torch.fhe.params import MICRO, STD128, STD128_OPT, TOY
+
+    t0 = time.time()
+    std8 = dataclasses.replace(STD128_OPT, n=8)
+    std1 = dataclasses.replace(STD128_OPT, n=1)
+    cases = [
+        (std8, 1), (std8, 37), (std8, 256),
+        (dataclasses.replace(STD128, n=2), 37),
+        (dataclasses.replace(MICRO, n=4), 37),
+        (dataclasses.replace(TOY, n=3), 37),
+        (std1, 2048),
+    ]
+    for i, (p, B) in enumerate(cases):
+        acc, ext, a2N = _std_inputs(p, B, p.n, seed=300 + i)
+        got = std.blind_rotate_std(acc, ext, a2N, p)
+        want = std.blind_rotate_std_plain(acc, ext, a2N, p)
+        torch.cuda.synchronize()
+        bad, err = _max_err(got, want)
+        log("std-kernel", t0, f"{p.name} N={p.N} R={2 * p.d_g_used} n={p.n} B={B}: "
+            f"mismatches {bad}, max |err| {err}")
+        if bad:
+            fail(f"std kernel != plain at {p.name} B={B}: {bad} mismatches")
+        if not torch.equal(got[0], acc[0]):
+            fail(f"std kernel changed the a=0 lane at {p.name} B={B}")
+
+    # the B=2048 step of the last case, whole and kernel by kernel
+    p = std1
+    nt, R = p.N // 128, 2 * p.d_g_used
+    idx = keys.rev_index(p.N, "cuda")
+    block = std.build_diagonals_plain(ext[0], idx)
+    flat = take_index(p.N, R, "cuda")
+    if not torch.equal(torch.take(ext[0], flat), block):
+        fail("torch.take through take_index != the plain std build")
+    dig = rot.tile_digits(acc, p)
+    P4 = std.diag_matmul_combine_plain(dig, block, p.Q)
+    a_col = a2N[:, 0].contiguous()
+    step = lambda: std.blind_rotate_std(acc, ext, a2N, p)
+    res = {"step": {"max_abs_err": err, "ms": cuda_time_ms(step, reps=20),
+                    "plain_ms": cuda_time_ms(lambda: std.blind_rotate_std_plain(acc, ext, a2N, p), reps=3)}}
+    names = {"build": "rev_build_kernel", "matmul": "int8_mm_kernel", "cmux": "std_cmux_kernel"}
+    dev = dict(zip(names, device_ms(step, 20, *names.values())))
+    plain = {
+        "build": lambda: std.build_diagonals_plain(ext[0], idx),
+        "matmul": lambda: std.diag_matmul_combine_plain(dig, block, p.Q),
+        "cmux": lambda: std.cmux_epilogue_plain(acc, P4, a_col, p.Q),
+    }
+    for name in names:  # each kernel is held to its plain twin by the step's check
+        res[name] = {"max_abs_err": err, "ms": dev[name], "plain_ms": cuda_time_ms(plain[name], reps=3)}
+    res["build"]["library_ms"] = cuda_time_ms(lambda: torch.take(ext[0], flat), reps=20)
+    ops_mm = 2.0 * B * nt * (nt * R * 128) * 16 * 128
+    bounds = {  # (int8 operations, bytes) the function needs
+        "build": (0.0, ext[0].numel() + block.numel()),
+        "matmul": (ops_mm, dig.numel() + block.numel() + P4.numel() * 4),
+        "cmux": (0.0, 2 * acc.numel() * 4 + P4.numel() * 4 + a_col.numel() * 4),
+        "step": (ops_mm, ext[0].numel() + 2 * acc.numel() * 4 + a2N.numel() * 4),
+    }
+    for name, r in res.items():
+        r["bound_ms"], r["bound_by"] = bound(*bounds[name])
+        lib = f", torch.take {r['library_ms']:.4f} ms" if "library_ms" in r else ""
+        log("std-kernel", t0, f"STD128_OPT B={B} {name}: kernel {r['ms']:.4f} ms"
+            f"{' on the device' if name in names else ''}, plain {r['plain_ms']:.4f} ms{lib}, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return res
+
+
+TRUTH = {
+    "AND": lambda a, b: a & b, "OR": lambda a, b: a | b, "NAND": lambda a, b: 1 - (a & b),
+    "NOR": lambda a, b: 1 - (a | b), "XOR": lambda a, b: a ^ b, "XNOR": lambda a, b: 1 - (a ^ b),
+}
+
+
+def phase_context(B=2048, K=3):
+    """BinFHEContext at full STD128_OPT GINX: keygen, single gates, chained
+    batches; returns the launches of each std kernel."""
+    import torch
+    from oece_tpu_torch.fhe.context import BinFHEContext
+
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    cc = BinFHEContext(device="cuda").GenerateBinFHEContext("STD128_OPT", "GINX", seed=0)
+    sk = cc.KeyGen()
+    tk = time.time()
+    cc.BTKeyGen(sk)
+    torch.cuda.synchronize()
+    log("context", t0, f"BTKeyGen {time.time() - tk:.2f}s, ginx_ext "
+        f"{tuple(cc.keys.ginx_ext.shape)}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    reset_counts()
+    ts = time.time()
+    for gate, fn in TRUTH.items():
+        for a in (0, 1):
+            for b in (0, 1):
+                out = cc.EvalBinGate(gate, cc.Encrypt(sk, a), cc.Encrypt(sk, b))
+                if cc.Decrypt(sk, out) != fn(a, b):
+                    fail(f"context EvalBinGate {gate}({a}, {b}) decrypts wrong")
+    if cc.Decrypt(sk, cc.EvalNOT(out)) != 1 - fn(1, 1):
+        fail("context EvalNOT decrypts wrong")
+    log("context", t0, f"24 single EvalBinGate + EvalNOT decrypt correctly, "
+        f"{1e3 * (time.time() - ts) / 24:.1f} ms per gate")
+    rng = np.random.default_rng(1)
+    m1, m2 = rng.integers(0, 2, B), rng.integers(0, 2, B)
+    x1, x2 = cc.EncryptBatch(sk, m1), cc.EncryptBatch(sk, m2)
+    names = list(TRUTH)
+    times = []
+    for it in range(K):
+        gates = [names[g] for g in rng.integers(0, 6, B)]
+        ts = time.time()
+        out = cc.EvalBinGateBatch(gates, x1, x2)
+        torch.cuda.synchronize()
+        times.append(time.time() - ts)
+        want = np.array([TRUTH[g](int(a), int(b)) for g, a, b in zip(gates, m1, m2)])
+        nbad = int((cc.DecryptBatch(sk, out) != want).sum())
+        if nbad:
+            fail(f"context batch {it}: {nbad} of {B} outputs decrypt wrong")
+        x1, x2 = out, torch.roll(torch.as_tensor(x1, device="cuda"), 1, dims=0)
+        m1, m2 = want, np.roll(m1, 1)
+    launches = check_only("context", read_counts(), "std")
+    ms = 1e3 * float(np.mean(times[1:]))
+    log("context", t0, f"{K} chained EvalBinGateBatch of {B}, all decrypt correctly; first "
+        f"{1e3 * times[0]:.1f} ms, then {ms:.1f} ms/batch = {B / ms * 1e3:.1f} bootstraps/s; "
+        f"{launches} launches of each std kernel")
     return launches
 
 
@@ -290,6 +562,7 @@ def main() -> None:
         fail("run from the root of a checkout: oece_tpu_torch/ is missing")
     sys.path.insert(0, REPO)
     sys.modules["jax"] = None  # the port must never import JAX
+    sys.modules["oece_tpu"] = None  # nor anything of the JAX package
     import torch
 
     if not torch.cuda.is_available():
@@ -297,32 +570,34 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     t_all = time.time()
     phase_build()
-    max_err, kernel_ms, plain_ms = phase_kernel()
+    rot_res = phase_kernel()
     phase_gates()
     launches = phase_circuit()
-    ap_err, ap_ms, ap_plain_ms = phase_ap_kernel()
+    ap_res = phase_ap_kernel()
     phase_gates("ap-gates", "AP", B=1024, K=2)
     ap_launches = phase_circuit("ap-circuit", "AP")
+    std_res = phase_std_kernel()
+    std_launches = phase_context() + phase_circuit("std-circuit", "GINX", host_keys=True)
     print(f"total {time.time() - t_all:.1f}s", flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "rot_step",
-        "route": "cuda",
-        "source": "oece_tpu_torch/csrc/rot_step.cu",
-        "replaces": "oece_tpu/fhe/pallas_kernels.py:1262",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }, {
-        "name": "ap_step",
-        "route": "cuda",
-        "source": "oece_tpu_torch/csrc/ap_step.cu",
-        "replaces": "oece_tpu/fhe/pallas_kernels.py:1457",
-        "launches": ap_launches,
-        "max_abs_err": ap_err,
-        "ms": ap_ms,
-        "plain_ms": ap_plain_ms,
-    }]}), flush=True)
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None):
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": f"oece_tpu/fhe/pallas_kernels.py:{replaces}", "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": library_ms,
+        }
+
+    print(json.dumps({"kernels": [
+        entry("rot_step", "oece_tpu_torch/csrc/rot_step.cu", 1262, launches, *rot_res),
+        entry("ap_step", "oece_tpu_torch/csrc/ap_step.cu", 1457, ap_launches, *ap_res),
+        # #1 is one torch.take; no one PyTorch call computes #4, #12 or #13
+        # (each fuses the limb combine, and #12 and #13 their epilogues)
+        *[entry(f"std_{k}", "oece_tpu_torch/csrc/std_step.cu", line, std_launches,
+                std_res[k]["max_abs_err"], std_res[k]["ms"], std_res[k]["plain_ms"],
+                (std_res[k]["bound_ms"], std_res[k]["bound_by"]), std_res[k].get("library_ms"))
+          for k, line in (("build", 71), ("matmul", 147))],
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,44 +1,60 @@
 """oece_tpu_torch — the PyTorch/CUDA port of oece_tpu for NVIDIA Hopper.
 
 The JAX package ``oece_tpu`` is the reference; this package grows beside it
-with the same layout (``fhe/``, ``runtime/``) and never imports JAX.
+with the same layout (``fhe/``, ``runtime/``, ``circuits/``, ``utils/``) and
+imports neither JAX nor anything of ``oece_tpu``
+(tests/test_torch_nojax.py scans the sources).
 
 Ported: the STD128_OPT verify-mode circuit path with either blind-rotation
-method, GINX or binary-base AP (B_r = 2, as STD128 and STD128_OPT have it):
+method, GINX or binary-base AP (B_r = 2, as STD128 and STD128_OPT have it),
+on device-generated or golden host keys, and the ``BinFHEContext`` entry
+point:
+  fhe/params.py      the parameter sets (copy of oece_tpu.fhe.params)
+  fhe/golden.py      golden's samplers, LWE secret, BootstrapKey record and
+                     test vectors (the part of oece_tpu.fhe.golden the
+                     port calls)
   fhe/modmath.py     int32 modular arithmetic
-  fhe/keys.py        the key record (GINX rev2 diagonals or AP ap_ext limb
-                     planes); converters from JAX keys and from NumPy
-                     golden keys
+  fhe/keys.py        the key record: GINX ginx_ext limb planes (standard
+                     form) or rev2 diagonals (rotated form), AP ap_ext limb
+                     planes; packers of golden keys, converters of JAX keys
   fhe/devkeygen.py   key generation on the device for both methods (sample
                      from eight named generator streams, then assemble)
-  fhe/rot.py         the GINX rotation: a plain torch version and the
-                     wrapper of the hand-written CUDA kernel
+  fhe/hostkeygen.py  golden's host keys: its draws from one numpy
+                     generator, the ring products on the device
+  fhe/rot.py         the GINX rotation, rotated-difference form (device
+                     keys): plain torch version and the wrapper of
                      csrc/rot_step.cu (replaces the Pallas _rot_megakernel)
-  fhe/ap.py          the AP rotation: a plain torch version and the wrapper
-                     of the hand-written CUDA kernel csrc/ap_step.cu
-                     (replaces the Pallas _ap_megakernel); both kernels
-                     share the int8 matmul of csrc/int8_mm.cuh and are
-                     built by fhe/_build.py with nvcc at first use
-  fhe/boot.py        batched gate bootstrapping around the rotation
-  fhe/lwe.py         device-side NOT, decryption and phase margin
+  fhe/std.py         the GINX rotation, standard form (host keys): plain
+                     twins and the wrapper of csrc/std_step.cu (replaces
+                     the Pallas _build_diag_kernel and
+                     _diag_matmul_combine_kernel, with the CMUX epilogue)
+  fhe/ap.py          the AP rotation: plain torch version and the wrapper of
+                     csrc/ap_step.cu (replaces the Pallas _ap_megakernel);
+                     the kernels share csrc/int8_mm.cuh and are built by
+                     fhe/_build.py with nvcc at first use
+  fhe/boot.py        batched gate bootstrapping; the key layout selects the
+                     rotation
+  fhe/lwe.py         host encryption and decryption; device NOT, decryption
+                     and phase margin
+  fhe/context.py     ``BinFHEContext``, the OpenFHE binfhe surface
   runtime/evaluator.py   ``Circuit`` in plaintext and verify modes
-
-Reused unchanged from oece_tpu (none of them imports JAX):
-  fhe.params, fhe.golden, the host encrypt_bits/decrypt_bits of fhe.lwe,
-  circuits.{netlist, bristol, asm, lut, native, gen}, utils.trace,
-  harness.models.
+  circuits/{netlist,bristol,asm,lut}.py, utils/trace.py   copies of the
+                     JAX package's pure-NumPy modules (no native C++ fast
+                     paths)
 
 Deferred (ROADMAP.md queue 1): setRecovery and the automatic recovery of
 pure-encrypted runs, compound XOR, DFF state, checkpointing, OECE_BAD_TRACE
 lanes, device meshes, the generic-base AP method (B_r != 2),
-fhe/context.py, fhe/ntt_dev.py, the key cache, and the TB command line and
-testlib.  ``Circuit`` raises NotImplementedError for each feature it
-reaches.
+fhe/ntt_dev.py, the key cache, circuits.gen, and the TB command line and
+testlib.  ``Circuit`` and ``BinFHEContext`` raise NotImplementedError for
+each feature they reach.
 
-Device rule: every function takes its device from its tensors, and
-``Circuit`` takes an explicit ``device``.  A kernel wrapper runs its plain
-torch version only for tensors on the CPU; for CUDA tensors it launches the
-kernel or raises.  Nothing falls back from the card to the CPU.
+Device rule: every function takes its device from its tensors, and the
+entry points (``Circuit``, ``BinFHEContext``, the key generators and
+packers) take an explicit ``device`` that defaults to "cuda".  A kernel
+wrapper runs its plain torch version only for tensors on the CPU; for CUDA
+tensors it launches the kernel or raises.  Nothing falls back from the card
+to the CPU.
 """
 
 __version__ = "0.1.0"

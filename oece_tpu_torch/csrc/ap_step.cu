@@ -6,11 +6,12 @@
 // step, looped over the n*d_r steps on the host side of this file.  Step
 // s = i*d_r + j, for gate b, with neg_a = (2N - a2N[b, i]) mod 2N:
 //
-//   ap_build_kernel            expands step s of the compact key ap_ext
+//   rev_build_kernel<8>        expands step s of the compact key ap_ext
 //       [R, 8, 2N] into reversed diagonals, int8 scratch
 //       rev[d'*RT + r*T + u, m*T + t] = ap_ext[s, r, m, ((nt-1-d')*T + t - u) mod 2N]
-//   ap_decompose_kernel        gadget digits of the accumulator itself, int8
+//   decompose_kernel           gadget digits of the accumulator itself, int8
 //       scratch dig[b, j'*RT + (poly*d_used + g)*T + u] for coefficient j'*T + u
+//       (both shared with std_step.cu through int8_mm.cuh)
 //   int8_mm_kernel<ApSelect>   for each output tile k: P = dig x rev, the
 //       limb combine mod Q, then acc' = bit(b) ? P : acc with
 //       bit(b) = (neg_a >> j) & 1.  P replaces acc: no sum, no red31.
@@ -41,50 +42,12 @@
 
 namespace {
 
-// One thread per 16 output bytes of the step's reversed-diagonal block.
-__global__ void ap_build_kernel(const int8_t* __restrict__ ext,
-                                int8_t* __restrict__ rev, int N, int R) {
-  const int RT = R * T, nt = N / T, MT = 8 * T;
-  const int per_row = MT / 16;
-  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= (long long)(2 * nt - 1) * RT * per_row) return;
-  const int row = (int)(gid / per_row), c16 = (int)(gid % per_row);
-  const int dp = row / RT, r = (row / T) % R, u = row % T;
-  const int m = c16 / (T / 16), t0 = (c16 % (T / 16)) * 16;
-  const uint8_t* src = (const uint8_t*)ext + ((long long)r * 8 + m) * 2 * N;
-  const int base = (nt - 1 - dp) * T + t0 - u;  // > -2N; 2N is a power of 2
-  const int mask = 2 * N - 1;
-  uint32_t w[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    w[q] = 0;
-#pragma unroll
-    for (int bb = 0; bb < 4; ++bb)
-      w[q] |= (uint32_t)src[(base + 4 * q + bb) & mask] << (8 * bb);
-  }
-  *(int4*)(rev + (long long)row * MT + m * T + t0) =
-      make_int4((int)w[0], (int)w[1], (int)w[2], (int)w[3]);
-}
-
-// One thread per (gate b, accumulator poly pp, coefficient m).
-__global__ void ap_decompose_kernel(const int* __restrict__ acc,
-                                    int8_t* __restrict__ dig, int B, int N,
-                                    int d_used, int log_bg, int shift, int Q) {
-  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= (long long)B * 2 * N) return;
-  const int m = (int)(gid % N);
-  const int pp = (int)((gid / N) & 1);
-  const long long b = gid / (2 * N);
-  const int RT = 2 * d_used * T;
-  const long long K = (long long)(N / T) * RT;
-  int8_t* out = dig + b * K + (m / T) * RT + pp * d_used * T + (m % T);
-  gadget_digits(acc[gid], out, d_used, log_bg, shift, Q);
-}
-
 // AP epilogue: gate b takes the product where digit j of its -a_i is 1
 // and keeps its accumulator where it is 0 (the identity rotation).
 struct ApSelect {
   static constexpr bool kSelect = true;
+  static constexpr bool kReadsOld = true;
+  static constexpr int kPolys = 2;
   const int* a2N;
   int n, i, j, two_n;
   __device__ bool live(int b) const {
@@ -114,17 +77,16 @@ extern "C" int oece_blind_rotate_ap(void* acc0, void* acc1, void* dig,
   const int R = 2 * d_used;
   const int K = nt * R * T;
   const long long ext_elems = (long long)R * 8 * 2 * N;
-  const long long build_threads = (long long)(2 * nt - 1) * R * T * (8 * T / 16);
-  const int blocks_build = (int)((build_threads + 255) / 256);
-  const int blocks_dec = (int)(((long long)B * 2 * N + 255) / 256);
+  const int blocks_build = blocks_for((long long)(2 * nt - 1) * R * T * (8 * T / 16));
+  const int blocks_dec = blocks_for((long long)B * 2 * N);
   const dim3 grid_mm((B + BM - 1) / BM, nt * 2 * (T / TT));
   int* bufs[2] = {(int*)acc0, (int*)acc1};
   for (int i = 0; i < n; ++i) {
     for (int j = 0; j < d_r; ++j) {
       const int s = i * d_r + j;
-      ap_build_kernel<<<blocks_build, 256, 0, st>>>(
+      rev_build_kernel<8><<<blocks_build, 256, 0, st>>>(
           (const int8_t*)ap_ext + s * ext_elems, (int8_t*)rev, N, R);
-      ap_decompose_kernel<<<blocks_dec, 256, 0, st>>>(
+      decompose_kernel<<<blocks_dec, 256, 0, st>>>(
           bufs[s & 1], (int8_t*)dig, B, N, d_used, log_bg, shift, Q);
       int8_mm_kernel<ApSelect><<<grid_mm, THREADS, 0, st>>>(
           (const int8_t*)dig, (const int8_t*)rev, bufs[s & 1],

@@ -1,16 +1,22 @@
-// Shared pieces of the port's blind-rotation kernels (rot_step.cu for GINX,
-// ap_step.cu for the binary-base AP method), for Hopper (sm_90a):
+// Shared pieces of the port's blind-rotation kernels (rot_step.cu for the
+// rotated GINX form, std_step.cu for the standard GINX form, ap_step.cu for
+// the binary-base AP method), for Hopper (sm_90a):
 //
 //   * the modular helpers of oece_tpu/fhe/modmath.py (red31, mod_q,
 //     mul_pow8_mod) and the gadget decomposition of one coefficient
 //     (pallas_kernels.py::_decompose_lanes, exact or approximate);
+//   * decompose_kernel, the gadget digits of an accumulator in the row
+//     order of the reversed diagonals (std and AP);
+//   * rev_build_kernel<M>, which expands one step's compact key [R, M, 2N]
+//     into its reversed-diagonal block (std and AP);
 //   * int8_mm_kernel, the int8 contraction of one step:
 //       res[b, col] = sum_x dig[b, x] * key[(nt-1-k)*(K/nt) + x, col]
 //     for each output tile k, followed by the Horner combine of the 4 key
-//     limbs mod Q and an epilogue that writes the new accumulator.  The
-//     key block is row-major [(2nt-1)*(K/nt), 8T] reversed diagonals
-//     (K/nt = 2RT for GINX's part-interleaved rev2, RT for AP), columns
-//     (out, limb, t) at (out*4 + limb)*T + t.
+//     limbs mod Q and an epilogue that writes P polynomials per gate.  The
+//     key block is row-major [(2nt-1)*(K/nt), 4P*T] reversed diagonals
+//     (K/nt = 2RT for GINX's part-interleaved rev2, RT for std and AP),
+//     columns (poly, limb, t) at (poly*4 + limb)*T + t; P = 2 (out) for
+//     rot and AP, 4 (part, out) for std.
 //
 // The contraction is exact in int32: |sum| <= K * 128 * 128 <= 2**27.
 // Design: mma.sync m16n8k32 s8 tiles of 64 gates x 128 columns,
@@ -91,12 +97,14 @@ __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Grid: x = gate tiles of BM; y = (output tile k, out poly o, coefficient
+// Grid: x = gate tiles of BM; y = (output tile k, poly o, coefficient
 // chunk of TT).  Each block contracts its gates' full digit rows against
 // the 4 limb planes of its TT coefficients, applies the limb combine and
 // writes acc_out = epi(b, acc_in, combined).  An Epilogue with kSelect
 // writes either the combined value or acc_in per gate (epi.live(b)); a
 // block none of whose gates is live copies its tile and skips the product.
+// Epilogue::kPolys is P; an Epilogue with kReadsOld gets acc_in[at] as
+// `old`, others get 0 and acc_in may be null.
 template <class Epilogue>
 __global__ void __launch_bounds__(THREADS) int8_mm_kernel(
     const int8_t* __restrict__ dig, const int8_t* __restrict__ key_step,
@@ -107,12 +115,13 @@ __global__ void __launch_bounds__(THREADS) int8_mm_kernel(
   uint32_t* Bs = (uint32_t*)(smem + BM * A_PITCH);         // [BN][BK/4]
   int* Cs = (int*)smem;                                    // [BM][C_PITCH]
 
-  const int MT = 8 * T;
+  constexpr int P = Epilogue::kPolys;
+  const int MT = P * 4 * T;
   const int nt = N / T;
   const int chunks = T / TT;
   const int tchunk = blockIdx.y % chunks;
-  const int o = (blockIdx.y / chunks) & 1;
-  const int k = blockIdx.y / (2 * chunks);
+  const int o = (blockIdx.y / chunks) % P;
+  const int k = blockIdx.y / (P * chunks);
   const int b0 = blockIdx.x * BM;
   const int t0 = tchunk * TT;
   const int tid = threadIdx.x;
@@ -123,7 +132,7 @@ __global__ void __launch_bounds__(THREADS) int8_mm_kernel(
       for (int e = tid; e < BM * TT; e += THREADS) {
         const int b = b0 + e / TT;
         if (b >= B) continue;
-        const long long at = ((long long)b * 2 + o) * N + k * T + t0 + e % TT;
+        const long long at = ((long long)b * P + o) * N + k * T + t0 + e % TT;
         acc_out[at] = acc_in[at];
       }
       return;
@@ -226,9 +235,60 @@ __global__ void __launch_bounds__(THREADS) int8_mm_kernel(
       comb = mul_pow8_mod(comb, Q) + mod_q(cr[l * TT], Q);
       if (comb >= Q) comb -= Q;
     }
-    const long long at = ((long long)b * 2 + o) * N + k * T + t0 + tt;
-    acc_out[at] = epi(b, acc_in[at], comb, Q);
+    const long long at = ((long long)b * P + o) * N + k * T + t0 + tt;
+    int old = 0;
+    if constexpr (Epilogue::kReadsOld) old = acc_in[at];
+    acc_out[at] = epi(b, old, comb, Q);
   }
 }
+
+// One thread per (gate b, accumulator poly pp, coefficient m): the gadget
+// digits of acc, int8 dig[b, j'*RT + (pp*d_used + g)*T + u] for coefficient
+// m = j'*T + u (RT = 2*d_used*T).
+__global__ void decompose_kernel(const int* __restrict__ acc,
+                                 int8_t* __restrict__ dig, int B, int N,
+                                 int d_used, int log_bg, int shift, int Q) {
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (gid >= (long long)B * 2 * N) return;
+  const int m = (int)(gid % N);
+  const int pp = (int)((gid / N) & 1);
+  const long long b = gid / (2 * N);
+  const int RT = 2 * d_used * T;
+  const long long K = (long long)(N / T) * RT;
+  int8_t* out = dig + b * K + (m / T) * RT + pp * d_used * T + (m % T);
+  gadget_digits(acc[gid], out, d_used, log_bg, shift, Q);
+}
+
+// One step's compact key ext [R, M, 2N] -> reversed diagonals, int8
+// rev[d'*RT + r*T + u, m*T + t] = ext[r, m, ((nt-1-d')*T + t - u) mod 2N],
+// [(2nt-1)*R*T, M*T].  One thread per 16 output bytes.
+template <int M>
+__global__ void rev_build_kernel(const int8_t* __restrict__ ext,
+                                 int8_t* __restrict__ rev, int N, int R) {
+  constexpr int MT = M * T;
+  constexpr int per_row = MT / 16;
+  const int RT = R * T, nt = N / T;
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (gid >= (long long)(2 * nt - 1) * RT * per_row) return;
+  const int row = (int)(gid / per_row), c16 = (int)(gid % per_row);
+  const int dp = row / RT, r = (row / T) % R, u = row % T;
+  const int m = c16 / (T / 16), t0 = (c16 % (T / 16)) * 16;
+  const uint8_t* src = (const uint8_t*)ext + ((long long)r * M + m) * 2 * N;
+  const int base = (nt - 1 - dp) * T + t0 - u;  // > -2N; 2N is a power of 2
+  const int mask = 2 * N - 1;
+  uint32_t w[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    w[q] = 0;
+#pragma unroll
+    for (int bb = 0; bb < 4; ++bb)
+      w[q] |= (uint32_t)src[(base + 4 * q + bb) & mask] << (8 * bb);
+  }
+  *(int4*)(rev + (long long)row * MT + m * T + t0) =
+      make_int4((int)w[0], (int)w[1], (int)w[2], (int)w[3]);
+}
+
+// Blocks of 256 threads covering `threads`.
+inline int blocks_for(long long threads) { return (int)((threads + 255) / 256); }
 
 }  // namespace

@@ -69,6 +69,8 @@ __global__ void rot_diff_decompose_kernel(
 // GINX epilogue: acc' = red31(acc + combined) for every gate.
 struct RotAdd {
   static constexpr bool kSelect = false;
+  static constexpr bool kReadsOld = true;
+  static constexpr int kPolys = 2;
   __device__ int operator()(int, int old, int comb, int Q) const {
     return red31(old + comb, Q);
   }

@@ -1,0 +1,130 @@
+// GINX blind rotation, standard (non-rotated) form, for Hopper (sm_90a).
+//
+// Replaces, on the host-key GINX path of oece_tpu/fhe/boot.py
+// (_external_cmux_pallas, one lax.scan step per key step), the TPU kernels
+// of oece_tpu/fhe/pallas_kernels.py:
+//   #1 _build_diag_kernel (build_diagonals_pallas): byte-phase key windows
+//      -> the step's 2nt-1 dense negacyclic diagonal blocks;
+//   #4 _diag_matmul_combine_kernel (diag_matmul_combine_pallas): digits x
+//      diagonal blocks with the Horner combine of the 4 key limbs fused;
+// and the jnp epilogue around them (boot.py:358-363), which is the same
+// function as the TPU kernels #6 and #10.  For each step i and gate b, with
+// a = a2N[b, i] (T = 128, nt = N/T, R = 2*d_used, RT = R*T):
+//
+//   rev_build_kernel<16>  (#1) expands ginx_ext[i] [R, 16, 2N] (plane
+//       (part*2 + out)*4 + limb, over v then -v mod Q) into int8 scratch
+//       rev[d'*RT + r*T + u, m*T + t] = ginx_ext[i, r, m, ((nt-1-d')*T + t - u) mod 2N]
+//       [(2nt-1)*RT, 16T].  The port writes true column order and the
+//       reversed diagonal order (rev[d'] = dense[2nt-2-d']) that the matmul
+//       reads; the TPU kernel wrote forward order with plane-permuted
+//       columns (byte j of word w at column 32j + w), undone only on the
+//       combined output (pallas_kernels.py:401-402).
+//   decompose_kernel      gadget digits of the accumulator, int8 scratch
+//       dig[b, j*RT + (poly*d_used + g)*T + u] for coefficient j*T + u.
+//   int8_mm_kernel<StdStore>  (#4) for each output tile k, the contraction
+//       of K = nt*RT digits against rows [(nt-1-k)*RT, +K) of rev, the
+//       limb combine mod Q, written as P4[b, part*2 + out, k*T + t] in [0, Q).
+//   std_cmux_kernel       acc <- red31(acc + X^{2N-a} P0 + X^a P1 + 2Q - P0 - P1)
+//       where P_part = P4[b, part, :, :]; each sum is below 5Q < 2**31.  A
+//       gate with a = 0 gets acc back unchanged (golden skips that step).
+//
+// Bounds on the H100.  A step contracts nt * K * 16T = 67.1 M int8 MACs per
+// gate at STD128_OPT (nt = 8, K = 4,096), the same as a rotated-form step:
+// at B = 2048, 275 G ops, 139 us at the 1,979 TOPS int8 peak, so the matmul
+// is tensor-core bound at large batches (its mma.sync issue rate, as for
+// rot_step.cu).  The build writes a 15.7 MB block per step whatever the
+// batch (4.7 us of HBM bandwidth; the block fits the 50 MB L2, where the
+// matmul then finds it), and the epilogue moves 4 ints per gate and
+// coefficient (50 MB at B = 2048, 15 us).  At circuit batches (4-8 gates)
+// the matmul grid has 128 blocks (nt * 4 polys * 4 column chunks) walking
+// K = 4,096, against 64 blocks walking 8,192 for rot_step.
+//
+// The design is the simple one: four launches per step, the step loop on
+// the host side of this file, scratch allocated by the wrapper.  The
+// accumulator is updated in place by the epilogue (each thread reads and
+// writes only its own element; the rotations read P4).  Left undone: the
+// Toeplitz tiles built in shared memory from the 131 KB compact key (no
+// block, no build launch), wgmma with TMA-fed stages, the epilogue fused
+// into the matmul (it needs whole rows of P4: a rotation crosses tiles),
+// and a CUDA graph of the step loop.
+
+#include "int8_mm.cuh"
+
+namespace {
+
+// #4's epilogue: write the combined product; no accumulator is read.
+struct StdStore {
+  static constexpr bool kSelect = false;
+  static constexpr bool kReadsOld = false;
+  static constexpr int kPolys = 4;
+  __device__ int operator()(int, int, int comb, int) const { return comb; }
+};
+
+// P(X) * X^c at coefficient m, c in [0, 2N): a cyclic rotation by c mod N
+// and the negacyclic sign (boot.monomial_rotate).
+__device__ __forceinline__ int rotated(const int* __restrict__ poly, int c,
+                                       int m, int N, int Q) {
+  const int cp = c & (N - 1);
+  const int src = poly[(m - cp) & (N - 1)];
+  const bool wrap = (m < cp) != (c >= N);
+  return wrap ? (src == 0 ? 0 : Q - src) : src;
+}
+
+// One thread per (gate b, out poly o, coefficient m), in place: a thread
+// reads and writes only its own element of acc.
+__global__ void std_cmux_kernel(int* __restrict__ acc,
+                                const int* __restrict__ P4,
+                                const int* __restrict__ a2N, int a_stride,
+                                int step, int B, int N, int Q) {
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (gid >= (long long)B * 2 * N) return;
+  const int m = (int)(gid % N);
+  const int o = (int)((gid / N) & 1);
+  const long long b = gid / (2 * N);
+  const int a = a2N[b * a_stride + step];
+  const int two_n = 2 * N;
+  const int* p0 = P4 + ((b * 2 + 0) * 2 + o) * N;
+  const int* p1 = P4 + ((b * 2 + 1) * 2 + o) * N;
+  int y = acc[gid] + 2 * Q;
+  y += rotated(p0, (two_n - a) & (two_n - 1), m, N, Q) - p0[m];
+  y += rotated(p1, a, m, N, Q) - p1[m];
+  acc[gid] = red31(y, Q);
+}
+
+int check_launch() { return (int)cudaGetLastError(); }
+
+}  // namespace
+
+// The whole rotation: n steps of (build, decompose, matmul, epilogue), the
+// accumulator acc int32 [B, 2, N] updated in place.  dig is int8 scratch
+// [B, nt*R*T], rev int8 scratch [(2nt-1)*R*T, 16T], P4 int32 scratch
+// [B, 4, N], ginx_ext int8 [n, R, 16, 2N], a2N int32 [B, n].  Returns 0 or
+// the first cudaError_t of a launch.
+extern "C" int oece_blind_rotate_std(void* acc, void* dig, void* rev, void* P4,
+                                     const void* ginx_ext, const void* a2N,
+                                     int B, int n, int N, int d_used,
+                                     int log_bg, int shift, int Q,
+                                     void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int nt = N / T;
+  const int R = 2 * d_used;
+  const int K = nt * R * T;
+  const long long ext_elems = (long long)R * 16 * 2 * N;
+  const int blocks_build = blocks_for((long long)(2 * nt - 1) * R * T * (16 * T / 16));
+  const int blocks_acc = blocks_for((long long)B * 2 * N);
+  const dim3 grid_mm((B + BM - 1) / BM, nt * 4 * (T / TT));
+  for (int i = 0; i < n; ++i) {
+    rev_build_kernel<16><<<blocks_build, 256, 0, st>>>(
+        (const int8_t*)ginx_ext + i * ext_elems, (int8_t*)rev, N, R);
+    decompose_kernel<<<blocks_acc, 256, 0, st>>>(
+        (const int*)acc, (int8_t*)dig, B, N, d_used, log_bg, shift, Q);
+    int8_mm_kernel<StdStore><<<grid_mm, THREADS, 0, st>>>(
+        (const int8_t*)dig, (const int8_t*)rev, nullptr, (int*)P4, B, N, K,
+        Q, StdStore{});
+    std_cmux_kernel<<<blocks_acc, 256, 0, st>>>(
+        (int*)acc, (const int*)P4, (const int*)a2N, n, i, B, N, Q);
+    const int e = check_launch();
+    if (e != 0) return e;
+  }
+  return 0;
+}

@@ -107,6 +107,8 @@ def load() -> ctypes.CDLL:
     lib.oece_blind_rotate_rot.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
     lib.oece_blind_rotate_ap.restype = i32
     lib.oece_blind_rotate_ap.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
+    lib.oece_blind_rotate_std.restype = i32
+    lib.oece_blind_rotate_std.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
     lib.oece_error_string.restype = ctypes.c_char_p
     lib.oece_error_string.argtypes = [ctypes.c_int]
     _lib = lib

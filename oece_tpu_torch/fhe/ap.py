@@ -11,7 +11,7 @@ Step s = i*d_r + j, for gate b, with neg_a = (2N - a2N[b, i]) mod 2N:
 where K_s = RGSW(X^{2^j s_i}) is shared by every gate and ⊡ is the
 external product: gadget digits of acc, one int8 contraction per
 128-coefficient output tile against the step's reversed diagonals
-(expanded from ``ap_ext``), then the Horner combine of the 4 key limbs.
+(expanded from ``ap_ext`` by ``keys.rev_block``), then the Horner combine of the 4 key limbs.
 golden.blind_rotate_ap is the same function (it skips v = 0 steps).
 
 ``blind_rotate_ap`` dispatches on the device of its tensors: CPU tensors
@@ -26,14 +26,14 @@ import math
 
 import torch
 
-from oece_tpu.fhe.params import BinFHEParams
-
 from . import _build
-from .keys import TILE, rev_index
+from .keys import TILE, rev_block, rev_index
+from .params import BinFHEParams
 from .rot import check_operands, tile_digits, tile_products
 
 LAUNCHES = 0  # calls that launched the CUDA kernel (one per rotation)
 PLAIN_LAUNCHES = 0  # calls that ran the plain torch version
+STEP_LAUNCHES = 0  # launches of each kernel of the CUDA step loop (one per step)
 
 
 def ap_bits(a2N: torch.Tensor, p: BinFHEParams) -> torch.Tensor:
@@ -45,23 +45,13 @@ def ap_bits(a2N: torch.Tensor, p: BinFHEParams) -> torch.Tensor:
     return ((neg_a[:, :, None] >> j) & 1).reshape(a2N.shape[0], -1)
 
 
-def ap_rev_block(ext_s: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """One step's key int8 [R, 8, 2N] -> reversed diagonals int8
-    [(2nt-1)*R*T, 8T]: rev[d'*RT + r*T + u, m*T + t] =
-    ext_s[r, m, ((nt-1-d')*T + t - u) mod 2N] (idx = keys.rev_index)."""
-    R = ext_s.shape[0]
-    ndiag = idx.shape[0]
-    g = ext_s[:, :, idx]  # [R, 8, ndiag, u, t]
-    return g.permute(2, 0, 3, 1, 4).reshape(ndiag * R * TILE, 8 * TILE)
-
-
 def ap_step_plain(
     acc: torch.Tensor, bit: torch.Tensor, ext_s: torch.Tensor, idx: torch.Tensor,
     p: BinFHEParams,
 ) -> torch.Tensor:
     """One step: the product of the accumulator's own digits with the
     step key where bit is 1, the accumulator unchanged where it is 0."""
-    prod = tile_products(tile_digits(acc, p), ap_rev_block(ext_s, idx), p.Q)
+    prod = tile_products(tile_digits(acc, p), rev_block(ext_s, idx), p.Q)
     return torch.where(bit[:, None, None] != 0, prod, acc)
 
 
@@ -95,7 +85,7 @@ def _check(acc, ap_ext, a2N, p: BinFHEParams) -> None:
 
 
 def _blind_rotate_ap_cuda(acc, ap_ext, a2N, p: BinFHEParams) -> torch.Tensor:
-    global LAUNCHES
+    global LAUNCHES, STEP_LAUNCHES
     B, _, N = acc.shape
     steps = ap_ext.shape[0]
     if B == 0 or steps == 0:
@@ -117,6 +107,7 @@ def _blind_rotate_ap_cuda(acc, ap_ext, a2N, p: BinFHEParams) -> torch.Tensor:
             f"ap_step.cu launch failed: {lib.oece_error_string(rc).decode()}"
         )
     LAUNCHES += 1
+    STEP_LAUNCHES += steps
     return bufs[steps % 2]
 
 

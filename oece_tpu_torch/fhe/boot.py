@@ -1,12 +1,14 @@
 """Batched gate bootstrapping on torch tensors (counterpart of
-oece_tpu.fhe.boot: the GINX rev2 path and the binary-base AP path).
+oece_tpu.fhe.boot: the GINX paths and the binary-base AP path).
 
 eval_bin_gate_batch = prepare_gates -> q->2N mod switch -> accumulator init
--> blind rotation (fhe/rot.py for GINX keys, fhe/ap.py for AP keys: one
-kernel each) -> sample extract -> Q->Q_ks mod switch -> key switch ->
-Q_ks->q.  Every stage is exact integer arithmetic, so given the same keys
-and ciphertexts the result is bit-identical to the JAX package's and to
-golden.bootstrap (form="rot" for GINX).
+-> blind rotation -> sample extract -> Q->Q_ks mod switch -> key switch ->
+Q_ks->q.  The key layout selects the rotation: ginx_ext the standard GINX
+form (fhe/std.py; host-generated keys), rev2 the rotated-difference form
+(fhe/rot.py; device keygen), ap_ext the AP method (fhe/ap.py).  Every stage
+is exact integer arithmetic, so given the same keys and ciphertexts the
+result is bit-identical to the JAX package's and to golden.bootstrap
+(form="std" for ginx_ext, form="rot" for rev2).
 """
 
 from __future__ import annotations
@@ -15,8 +17,6 @@ import math
 
 import numpy as np
 import torch
-
-from oece_tpu.fhe.params import BinFHEMethod
 
 from . import modmath
 from .ap import blind_rotate_ap
@@ -28,6 +28,7 @@ from .rot import (  # noqa: F401  (re-export: the gadget helpers live with the r
     gadget_digits_dev,
     monomial_rotate,
 )
+from .std import blind_rotate_std
 
 # gate_prepare weights (golden.gate_prepare): prep = w1*c1 + w2*c2 mod q.
 PREP_WEIGHTS = np.array(
@@ -88,6 +89,18 @@ def mod_switch_pow2(x: torch.Tensor, from_log2: int, to_log2: int) -> torch.Tens
     return ((x + (1 << (sh - 1))) >> sh) & ((1 << to_log2) - 1)
 
 
+def blind_rotation(acc: torch.Tensor, a2N: torch.Tensor, keys: BootKeys) -> torch.Tensor:
+    """The rotation that the keys' layout selects."""
+    p = keys.params
+    if keys.ap_ext is not None:
+        return blind_rotate_ap(acc, keys.ap_ext, a2N, p)
+    if keys.ginx_ext is not None:
+        return blind_rotate_std(acc, keys.ginx_ext, a2N, p)
+    if keys.rev2 is not None:
+        return blind_rotate_rot(acc, keys.rev2, a2N, p)
+    raise ValueError("keys hold no rotation key (ap_ext, ginx_ext or rev2)")
+
+
 def bootstrap_batch(prep: torch.Tensor, gate_ids: torch.Tensor, keys: BootKeys) -> torch.Tensor:
     """Bootstrap prepared LWE cts [B, n+1] mod q -> fresh cts [B, n+1]."""
     p = keys.params
@@ -96,10 +109,7 @@ def bootstrap_batch(prep: torch.Tensor, gate_ids: torch.Tensor, keys: BootKeys) 
     ct2N = mod_switch_pow2(prep, log_q, int(math.log2(2 * N)))
     a2N = ct2N[:, :-1].contiguous()
     acc = acc_init(keys.tv_table[gate_ids.long()], ct2N[:, -1], N, Q)
-    if keys.method == BinFHEMethod.AP:
-        acc = blind_rotate_ap(acc, keys.ap_ext, a2N, p)
-    else:
-        acc = blind_rotate_rot(acc, keys.rev2, a2N, p)
+    acc = blind_rotation(acc, a2N, keys)
     ct_N = sample_extract(acc, Q)
     ct_N[:, -1] = (ct_N[:, -1] + Q // 8) % Q
     ct_ks = modmath.mod_switch_from_q27(ct_N, log_qks, Q)

@@ -26,11 +26,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from oece_tpu.fhe import golden
-from oece_tpu.fhe.params import BinFHEMethod, BinFHEParams
-
+from . import golden, modmath
 from . import keys as keys_mod
-from . import modmath
+from .params import BinFHEMethod, BinFHEParams
 
 # The JAX keygen's PRF split order (oece_tpu.fhe.devkeygen._prf_root_and_secrets):
 # LWE secret, ring secret, GINX masks and noise, AP masks and noise,
@@ -103,7 +101,7 @@ def negacyclic_by_ternary(A: torch.Tensor, z: torch.Tensor, Q: int) -> torch.Ten
     return (prod.to(torch.int64) % Q).to(torch.int32).reshape(A.shape)
 
 
-def _keyswitch_key(params: BinFHEParams, s, z, Aks, Eks) -> torch.Tensor:
+def keyswitch_key(params: BinFHEParams, s, z, Aks, Eks) -> torch.Tensor:
     p = params
     gk = torch.tensor(
         [pow(p.B_ks, j, p.Q_ks) for j in range(p.d_ks)], dtype=torch.int64,
@@ -170,7 +168,7 @@ def assemble(params: BinFHEParams, s, z, A, E, Aks, Eks) -> keys_mod.BootKeys:
     p = params
     return keys_mod.BootKeys(
         params=p,
-        ksk=_keyswitch_key(p, s, z, Aks, Eks),
+        ksk=keyswitch_key(p, s, z, Aks, Eks),
         tv_table=keys_mod.tv_table(p, device=A.device),
         method=BinFHEMethod.GINX,
         rev2=keys_mod.build_rev2(refresh_keys(p, s, z, A, E), p.Q),
@@ -182,7 +180,7 @@ def assemble_ap(params: BinFHEParams, s, z, A, E, Aks, Eks) -> keys_mod.BootKeys
     p = params
     return keys_mod.BootKeys(
         params=p,
-        ksk=_keyswitch_key(p, s, z, Aks, Eks),
+        ksk=keyswitch_key(p, s, z, Aks, Eks),
         tv_table=keys_mod.tv_table(p, device=A.device),
         method=BinFHEMethod.AP,
         ap_ext=keys_mod.ap_ext_planes(ap_refresh_keys(p, s, z, A, E), p.Q),
@@ -193,8 +191,9 @@ def _secret_key(params: BinFHEParams, s: torch.Tensor) -> golden.LWESecretKey:
     return golden.LWESecretKey(s=s.cpu().numpy().astype(np.int64), params=params)
 
 
-def device_keygen(params: BinFHEParams, seed_words=None, device="cpu"):
-    """Generate GINX rev2 keys on ``device``.  Returns (sk_host, keys): the
+def device_keygen(params: BinFHEParams, seed_words=None, device="cuda"):
+    """Generate GINX rev2 keys on ``device`` (the card unless the caller
+    asks for the CPU).  Returns (sk_host, keys): the
     LWE secret comes back to the host (n int8 values) for host-side
     encryption and decryption; the keys stay on the device."""
     if params.N % keys_mod.TILE:
@@ -203,7 +202,7 @@ def device_keygen(params: BinFHEParams, seed_words=None, device="cpu"):
     return _secret_key(params, draws[0]), assemble(params, *draws)
 
 
-def device_keygen_ap(params: BinFHEParams, seed_words=None, device="cpu"):
+def device_keygen_ap(params: BinFHEParams, seed_words=None, device="cuda"):
     """Generate binary-base AP keys on ``device``; returns (sk_host, keys)
     as ``device_keygen`` does.  The same seed words give the same LWE
     secret and key-switch key as ``device_keygen``."""

@@ -1,25 +1,40 @@
-"""Bootstrap key tensors of the GINX and the binary-base AP rotations.
+"""Bootstrap key tensors of the three blind rotations.
 
 Counterpart of ``oece_tpu.fhe.boot.DeviceBootKeys`` restricted to what the
-port's two rotations read (T = 128, nt = N/T, R = 2*d_g_used):
+port's rotations read (T = 128, nt = N/T, R = 2*d_g_used, L = 4 limbs):
 
-  rev2     : GINX only.  int8 [n, (2*nt-1)*2*R*T, 8*T]  part-interleaved
-             prebuilt reversed diagonals of every step's RGSW key pair; row
-             (d', part, r, u) sits at d'*2RT + part*RT + r*T + u, column
-             (out, limb, t) at (out*4 + limb)*T + t.  The layout of
-             oece_tpu's devkeygen "rev2".
+  ginx_ext : GINX, standard form (fhe/std.py).  int8 [n, R, 16, 2N]  the
+             limb planes, plane = (part*2 + out)*4 + limb, of each step's
+             RGSW pair (part 0: RGSW(s+_i), part 1: RGSW(s-_i)) over v,
+             then over -v mod Q: the array oece_tpu's ``pack_bootstrap_key``
+             builds before the TPU's byte-phase window packing (the
+             ``ginx_pallas`` layout).  65.8 MB at STD128_OPT, 134 MB at
+             STD128.
+  rev2     : GINX, rotated-difference form (fhe/rot.py).  int8
+             [n, (2*nt-1)*2*R*T, 8*T]  part-interleaved prebuilt reversed
+             diagonals of every step's RGSW key pair; row (d', part, r, u)
+             sits at d'*2RT + part*RT + r*T + u, column (out, limb, t) at
+             (out*4 + limb)*T + t.  The layout of oece_tpu's devkeygen
+             "rev2".  7.9 GB at STD128_OPT.
   ap_ext   : AP (B_r = 2) only.  int8 [n*d_r, R, 8, 2N]  the limb planes
-             (plane = out*4 + limb) of each v=1 step key followed by those
-             of its negation mod Q: oece_tpu's ``_ext_limb_planes`` form,
-             before the TPU's byte-phase window packing.  The rotation
-             expands one step at a time into reversed diagonals.
+             (plane = out*4 + limb) of each v=1 step key, over v then -v
+             mod Q: oece_tpu's ``_ext_limb_planes`` form, before the TPU's
+             window packing.  362 MB at STD128_OPT.
   ksk      : int8 [N*d_ks, n+1, 2]  centred base-256 limbs of the key-switch
              key mod Q_ks.
   tv_table : int32 [6, N]  test vectors mod Q, in GATE_ORDER.
 
-``from_jax`` carries keys generated by the JAX package across (numpy
-copies; AP windows are unpacked); ``from_golden`` builds them from a NumPy
-golden ``BootstrapKey`` with the same layout rules.
+The two GINX forms give different ciphertext bits for the same golden keys
+(golden.blind_rotate_ginx against blind_rotate_ginx_rot), so each key
+layout selects its own rotation (fhe/boot.py).
+
+``pack_bootstrap_key`` packs a golden ``BootstrapKey`` (the port's
+``fhe/golden.py`` record) as the JAX package does on an accelerator (GINX
+-> ginx_ext, binary-base AP -> ap_ext); ``pack_rotated_form`` packs GINX
+golden keys into rev2 instead.  ``from_jax`` carries keys made by the JAX
+package across (numpy copies; the TPU's windows are unpacked), translating
+its params by field and its method by name: it is the one place where a
+record of the JAX package enters the port.
 """
 
 from __future__ import annotations
@@ -30,10 +45,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from oece_tpu.fhe import golden
-from oece_tpu.fhe.params import BinFHEMethod, BinFHEParams, BinGate
-
-from . import modmath
+from . import golden, modmath
+from .params import BinFHEMethod, BinFHEParams, BinGate
 
 TILE = 128
 
@@ -52,6 +65,7 @@ class BootKeys:
     method: BinFHEMethod = BinFHEMethod.GINX
     rev2: Optional[torch.Tensor] = None
     ap_ext: Optional[torch.Tensor] = None
+    ginx_ext: Optional[torch.Tensor] = None
 
     def to(self, device) -> "BootKeys":
         def move(t):
@@ -59,7 +73,7 @@ class BootKeys:
 
         return dataclasses.replace(
             self, ksk=move(self.ksk), tv_table=move(self.tv_table),
-            rev2=move(self.rev2), ap_ext=move(self.ap_ext),
+            rev2=move(self.rev2), ap_ext=move(self.ap_ext), ginx_ext=move(self.ginx_ext),
         )
 
 
@@ -77,6 +91,14 @@ def ksk_limbs(ksk: torch.Tensor, Q_ks: int) -> torch.Tensor:
     return torch.stack([l0, l1], dim=-1).to(torch.int8)
 
 
+def ext_planes(polys: torch.Tensor, Q: int) -> torch.Tensor:
+    """Polynomials int32 [..., N] mod Q -> int8 [..., L=4, 2N]: the limbs of
+    v, then of -v mod Q (boot._poly_ext_limbs)."""
+    neg = torch.where(polys == 0, 0, Q - polys)
+    ext = torch.cat([polys, neg], dim=-1)
+    return modmath.to_limbs_i8(ext).movedim(-1, -2)
+
+
 def rev_index(N: int, device) -> torch.Tensor:
     """[2nt-1, T(u), T(t)] int64: ((nt-1-d')*T + t - u) mod 2N."""
     nt = N // TILE
@@ -86,14 +108,23 @@ def rev_index(N: int, device) -> torch.Tensor:
     return ((nt - 1 - dp) * TILE + t - u) % (2 * N)
 
 
+def rev_block(ext_s: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """One step's compact key int8 [R, M, 2N] -> reversed diagonals int8
+    [(2nt-1)*R*T, M*T]: rev[d'*RT + r*T + u, m*T + t] =
+    ext_s[r, m, ((nt-1-d')*T + t - u) mod 2N] (idx = rev_index).  Output
+    tile k contracts rows [(nt-1-k)*RT, (2nt-1-k)*RT)."""
+    R, M = ext_s.shape[:2]
+    ndiag = idx.shape[0]
+    g = ext_s[:, :, idx]  # [R, M, ndiag, u, t]
+    return g.permute(2, 0, 3, 1, 4).reshape(ndiag * R * TILE, M * TILE)
+
+
 def rev2_step(brk_i: torch.Tensor, Q: int, idx: torch.Tensor) -> torch.Tensor:
     """One step's RGSW pair int32 [part=2, R, out=2, N] mod Q -> its rev2
     block int8 [(2nt-1)*2*R*T, 8*T]."""
     _, R, _, N = brk_i.shape
     ndiag = idx.shape[0]
-    neg = torch.where(brk_i == 0, 0, Q - brk_i)
-    ext = torch.cat([brk_i, neg], dim=-1)  # [2, R, 2, 2N]: v, then -v mod Q
-    perm = modmath.to_limbs_i8(ext).movedim(-1, -2).reshape(2, R * 8, 2 * N)
+    perm = ext_planes(brk_i, Q).reshape(2, R * 8, 2 * N)
     g = perm[:, :, idx]  # [part, R*8, ndiag, u, t]
     g = g.reshape(2, R, 8, ndiag, TILE, TILE).permute(3, 0, 1, 4, 2, 5)
     return g.reshape(ndiag * 2 * R * TILE, 8 * TILE)
@@ -115,19 +146,24 @@ def build_rev2(brk: torch.Tensor, Q: int) -> torch.Tensor:
     return out
 
 
+def ginx_ext_planes(brk: torch.Tensor, Q: int) -> torch.Tensor:
+    """GINX refresh keys int32 [n, part=2, R, out=2, N] mod Q -> ginx_ext
+    int8 [n, R, 16, 2N], plane (part*2 + out)*4 + limb."""
+    n, _, R, _, N = brk.shape
+    planes = ext_planes(brk, Q)  # [n, part, R, out, L, 2N]
+    return planes.permute(0, 2, 1, 3, 4, 5).reshape(n, R, 16, 2 * N).contiguous()
+
+
 def ap_ext_planes(rows: torch.Tensor, Q: int) -> torch.Tensor:
     """AP step keys int32 [steps, R, out=2, N] mod Q -> ap_ext int8
     [steps, R, 8, 2N]: limb planes of v, then of -v mod Q."""
     steps, R, _, N = rows.shape
-    neg = torch.where(rows == 0, 0, Q - rows)
-    ext = torch.cat([rows, neg], dim=-1)  # [steps, R, 2, 2N]
-    planes = modmath.to_limbs_i8(ext).movedim(-1, -2)  # [steps, R, 2, L, 2N]
-    return planes.reshape(steps, R, 8, 2 * N).contiguous()
+    return ext_planes(rows, Q).reshape(steps, R, 8, 2 * N).contiguous()
 
 
-def unpack_ap_windows(wins: np.ndarray, R: int, N: int) -> torch.Tensor:
-    """oece_tpu's ``ap_pallas`` windows int32 [steps, 2nt-1, 4, R*8*64] ->
-    ap_ext int8 [steps, R, 8, 2N].
+def unpack_windows(wins: np.ndarray, R: int, M: int, N: int) -> torch.Tensor:
+    """oece_tpu's byte-phase key windows int32 [steps, 2nt-1, 4, R*M*64]
+    (``pack_keys_for_pallas`` of each step) -> int8 [steps, R, M, 2N].
 
     Window d at byte phase 0 holds the 256 bytes of the cyclic 2N sequence
     that start at ((d - nt)*T) mod 2N, four per little-endian int32 word.
@@ -135,48 +171,82 @@ def unpack_ap_windows(wins: np.ndarray, R: int, N: int) -> torch.Tensor:
     are the sequence rolled by N."""
     steps, ndiag = wins.shape[:2]
     by = np.ascontiguousarray(wins[:, :, 0]).view(np.int8)  # little-endian bytes
-    by = by.reshape(steps, ndiag, R * 8, 2 * TILE)
+    by = by.reshape(steps, ndiag, R * M, 2 * TILE)
     seq = np.concatenate(
         [by[:, d, :, :TILE] for d in range(ndiag)] + [by[:, -1, :, TILE:]], axis=-1
     )
     ext = np.roll(seq, N, axis=-1)  # seq[k] = ext[(k + N) mod 2N]
-    return torch.from_numpy(np.ascontiguousarray(ext.reshape(steps, R, 8, 2 * N)))
+    return torch.from_numpy(np.ascontiguousarray(ext.reshape(steps, R, M, 2 * N)))
 
 
 def from_jax(dkeys) -> BootKeys:
-    """Numpy copies of a JAX ``DeviceBootKeys``: GINX keys with the rev2
-    layout, or binary-base AP keys with the ``ap_pallas`` windows."""
-    p = dkeys.params
+    """Numpy copies of a JAX ``DeviceBootKeys``: GINX keys in the rev2
+    layout or the ``ginx_pallas`` windows, or binary-base AP keys in the
+    ``ap_pallas`` windows."""
+    p = BinFHEParams(**{f.name: getattr(dkeys.params, f.name)
+                        for f in dataclasses.fields(BinFHEParams)})
+    method = BinFHEMethod[dkeys.method.name]
+    R = 2 * p.d_g_used
     common = dict(
-        params=p, method=dkeys.method,
+        params=p, method=method,
         ksk=torch.from_numpy(np.array(dkeys.ksk, dtype=np.int8)),
         tv_table=torch.from_numpy(np.array(dkeys.tv_table, dtype=np.int32)),
     )
-    if dkeys.method == BinFHEMethod.AP:
+    if method == BinFHEMethod.AP:
         if dkeys.ap_pallas is None:
             raise ValueError("from_jax needs binary-base AP keys in the ap_pallas layout")
         wins = np.array(dkeys.ap_pallas, dtype=np.int32)
-        return BootKeys(**common, ap_ext=unpack_ap_windows(wins, 2 * p.d_g_used, p.N))
-    if dkeys.ginx_rev2 is None:
-        raise ValueError("from_jax needs keys generated with layout='rev2'")
-    return BootKeys(**common, rev2=torch.from_numpy(np.array(dkeys.ginx_rev2, dtype=np.int8)))
+        return BootKeys(**common, ap_ext=unpack_windows(wins, R, 8, p.N))
+    if dkeys.ginx_rev2 is not None:
+        return BootKeys(**common, rev2=torch.from_numpy(np.array(dkeys.ginx_rev2, dtype=np.int8)))
+    if dkeys.ginx_pallas is not None:
+        wins = np.array(dkeys.ginx_pallas, dtype=np.int32)
+        return BootKeys(**common, ginx_ext=unpack_windows(wins, R, 16, p.N))
+    raise ValueError("from_jax needs GINX keys in the rev2 or ginx_pallas layout")
 
 
-def from_golden(bk: golden.BootstrapKey) -> BootKeys:
-    """Pack a NumPy golden ``BootstrapKey``: GINX refresh keys into the
-    rev2 layout, binary-base AP keys (their v=1 entries) into ap_ext."""
-    p = bk.params
+def _ksk_and_tv(bk, p: BinFHEParams, device) -> dict:
     ksk = np.asarray(bk.ksk, dtype=np.int64).reshape(p.N * p.d_ks, p.n + 1) % p.Q_ks
-    common = dict(
-        params=p, method=bk.method, ksk=ksk_limbs(torch.from_numpy(ksk), p.Q_ks),
-        tv_table=tv_table(p),
+    return dict(
+        ksk=ksk_limbs(torch.from_numpy(ksk), p.Q_ks).to(device),
+        tv_table=tv_table(p, device),
     )
-    if bk.method == BinFHEMethod.AP:
-        if p.B_r != 2:
-            raise ValueError(f"from_golden packs binary-base AP keys only, got B_r={p.B_r}")
-        rows = bk.ak[:, :, 1].reshape(p.n * p.d_r, 2 * p.d_g_used, 2, p.N) % p.Q
-        return BootKeys(
-            **common, ap_ext=ap_ext_planes(torch.from_numpy(rows.astype(np.int32)), p.Q)
-        )
+
+
+def _port_record(bk: golden.BootstrapKey) -> tuple[BinFHEParams, BinFHEMethod]:
+    if not isinstance(bk.params, BinFHEParams) or not isinstance(bk.method, BinFHEMethod):
+        raise TypeError("want a BootstrapKey with the port's params and method "
+                        "(keys made by the JAX package go through from_jax)")
+    return bk.params, bk.method
+
+
+def _brk(bk, p: BinFHEParams, device) -> torch.Tensor:
     brk = np.stack([bk.brk_pos, bk.brk_neg], axis=1) % p.Q  # [n, 2, R, 2, N]
-    return BootKeys(**common, rev2=build_rev2(torch.from_numpy(brk.astype(np.int32)), p.Q))
+    return torch.from_numpy(brk.astype(np.int32)).to(device)
+
+
+def pack_bootstrap_key(bk: golden.BootstrapKey, device="cuda") -> BootKeys:
+    """Pack a golden ``BootstrapKey`` on ``device`` (boot.pack_bootstrap_key
+    on an accelerator): GINX refresh keys into ginx_ext (the standard
+    form), binary-base AP keys (their v=1 entries) into ap_ext."""
+    p, method = _port_record(bk)
+    common = dict(params=p, method=method, **_ksk_and_tv(bk, p, device))
+    if method == BinFHEMethod.AP:
+        if p.B_r != 2:
+            raise ValueError(f"only binary-base AP keys are packed, got B_r={p.B_r}")
+        rows = bk.ak[:, :, 1].reshape(p.n * p.d_r, 2 * p.d_g_used, 2, p.N) % p.Q
+        rows = torch.from_numpy(rows.astype(np.int32)).to(device)
+        return BootKeys(**common, ap_ext=ap_ext_planes(rows, p.Q))
+    return BootKeys(**common, ginx_ext=ginx_ext_planes(_brk(bk, p, device), p.Q))
+
+
+def pack_rotated_form(bk: golden.BootstrapKey, device="cuda") -> BootKeys:
+    """Pack GINX golden keys into rev2, for the rotated-difference form
+    (golden.bootstrap(form="rot") is its twin)."""
+    p, method = _port_record(bk)
+    if method != BinFHEMethod.GINX:
+        raise ValueError("the rotated form is a GINX key layout")
+    return BootKeys(
+        params=p, method=method, **_ksk_and_tv(bk, p, device),
+        rev2=build_rev2(_brk(bk, p, device), p.Q),
+    )

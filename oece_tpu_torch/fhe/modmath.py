@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from oece_tpu.fhe.params import Q27
+from .params import Q27
 
 N_LIMBS = 4
 

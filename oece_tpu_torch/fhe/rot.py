@@ -21,15 +21,15 @@ import math
 
 import torch
 
-from oece_tpu.fhe.params import BinFHEParams
-
 from . import _build
 from .modmath import combine_limbs_mod_q, red31
+from .params import BinFHEParams
 
 TILE = 128
 
 LAUNCHES = 0  # calls that launched the CUDA kernel (one per rotation)
 PLAIN_LAUNCHES = 0  # calls that ran the plain torch version
+STEP_LAUNCHES = 0  # launches of each kernel of the CUDA step loop (one per step)
 
 
 def gadget_digits_dev(x: torch.Tensor, B: int, d: int) -> torch.Tensor:
@@ -109,19 +109,20 @@ def rot_diff_digits(acc: torch.Tensor, a_col: torch.Tensor, p: BinFHEParams) -> 
 
 def tile_products(dig: torch.Tensor, rev: torch.Tensor, Q: int) -> torch.Tensor:
     """Plain twin of int8_mm_kernel's product and limb combine: digits int8
-    [B, K] against reversed diagonals int8 [(2nt-1)*K/nt, 8T], output tile
-    k contracting rows [(nt-1-k)*K/nt, +K).  Returns int32 [B, out=2, N]
-    mod Q.  The contraction runs in float64, exact because
-    |sum| <= K * 128 * 128 <= 2**27 < 2**53 (torch has no integer matmul
-    on CUDA)."""
+    [B, K] against reversed diagonals int8 [(2nt-1)*K/nt, P*4*T], output
+    tile k contracting rows [(nt-1-k)*K/nt, +K).  Returns int32 [B, P, N]
+    mod Q, one polynomial per 4 limb planes.  The contraction runs in
+    float64, exact because |sum| <= K * 128 * 128 <= 2**27 < 2**53 (torch
+    has no integer matmul on CUDA)."""
     B, K = dig.shape
     rows = 2 * K - rev.shape[0]  # per diagonal: nt*rows = K, (2nt-1)*rows = len(rev)
     nt = K // rows
+    polys = rev.shape[1] // (4 * TILE)
     x = dig.to(torch.float64)
-    out = torch.empty((B, 2, nt * TILE), dtype=torch.int32, device=dig.device)
+    out = torch.empty((B, polys, nt * TILE), dtype=torch.int32, device=dig.device)
     for k in range(nt):
         w = rev[(nt - 1 - k) * rows : (nt - 1 - k) * rows + K].to(torch.float64)
-        res = (x @ w).to(torch.int32).reshape(B, 2, 4, TILE)  # [b, out, limb, t]
+        res = (x @ w).to(torch.int32).reshape(B, polys, 4, TILE)  # [b, poly, limb, t]
         out[:, :, k * TILE : (k + 1) * TILE] = combine_limbs_mod_q(res.movedim(2, -1), Q)
     return out
 
@@ -175,7 +176,7 @@ def _check(acc, rev2_all, a2N, p: BinFHEParams) -> None:
 
 
 def _blind_rotate_rot_cuda(acc, rev2_all, a2N, p: BinFHEParams) -> torch.Tensor:
-    global LAUNCHES
+    global LAUNCHES, STEP_LAUNCHES
     B, _, N = acc.shape
     n = rev2_all.shape[0]
     if B == 0 or n == 0:
@@ -196,6 +197,7 @@ def _blind_rotate_rot_cuda(acc, rev2_all, a2N, p: BinFHEParams) -> torch.Tensor:
             f"rot_step.cu launch failed: {lib.oece_error_string(rc).decode()}"
         )
     LAUNCHES += 1
+    STEP_LAUNCHES += n
     return bufs[n % 2]
 
 

@@ -16,7 +16,12 @@ generator state, a run reproduces the JAX package's ciphertexts bit for bit.
 
 Both blind-rotation methods run: GINX, and AP with the binary rotation
 base (B_r = 2, as STD128 and STD128_OPT have it), each on device-generated
-keys.  Not ported yet (each raises NotImplementedError naming its ROADMAP
+keys (GINX in the rotated-difference form, fhe/rot.py).  With
+``OECE_HOST_KEYGEN=1`` in the environment, as in the JAX package, the keys
+are golden's host keys instead, drawn from ``self._rng`` (the LWE secret,
+then golden.bootstrap_keygen's draws, no seed words) and packed as the
+JAX package packs them on an accelerator: GINX then runs the standard
+form (fhe/std.py, Pallas kernels #1 and #4), AP its ap_ext kernel.  Not ported yet (each raises NotImplementedError naming its ROADMAP
 item): the generic-base AP method (B_r != 2), setRecovery(True) and the
 automatic recovery of pure-encrypted runs, xor_mode="compound", and
 circuits with DFF state.  A pure-encrypted Clock() (encrypted without
@@ -26,21 +31,20 @@ the JAX package's own recovery-off configuration.
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from oece_tpu.circuits import asm as asm_mod
-from oece_tpu.circuits import bristol as bristol_mod
-from oece_tpu.circuits.netlist import Netlist, Op, assign_ct_slots, levelize
-from oece_tpu.fhe import golden
-from oece_tpu.fhe.params import BinFHEMethod, BinGate, get_params
-from oece_tpu.utils.trace import LevelRecord, Trace
-
-from ..fhe import _build, boot, devkeygen, lwe
+from ..circuits import asm as asm_mod
+from ..circuits import bristol as bristol_mod
+from ..circuits.netlist import Netlist, Op, assign_ct_slots, levelize
+from ..fhe import _build, boot, devkeygen, golden, hostkeygen, lwe
 from ..fhe.keys import GATE_INDEX, BootKeys
+from ..fhe.params import BinFHEMethod, BinGate, get_params
+from ..utils.trace import LevelRecord, Trace
 
 _OP_TO_GATE = {
     Op.AND: BinGate.AND, Op.OR: BinGate.OR, Op.NAND: BinGate.NAND,
@@ -73,7 +77,8 @@ class Circuit:
     ``device`` is explicit: "cuda" needs a CUDA device and builds the
     rotation kernels at construction (raising if either fails); "cpu" runs
     the kernels' plain torch versions.  Keys of ``method`` are generated on
-    ``device`` from ``seed`` (None draws OS entropy), or injected with
+    ``device`` from ``seed`` (None draws OS entropy; ``OECE_HOST_KEYGEN=1``
+    selects golden's host keys, see the module docstring), or injected with
     ``keys`` (of the same method), ``sk`` and ``rng`` (the generator for
     host encryption).
     """
@@ -123,15 +128,21 @@ class Circuit:
         self.keygen_s = 0.0
         if self.keys is None:
             t0 = time.time()
-            words = (
-                np.asarray(self._rng.integers(0, 2**32, size=8), dtype=np.uint32)
-                if seed is not None else None
-            )
-            keygen = (
-                devkeygen.device_keygen_ap if self.method == BinFHEMethod.AP
-                else devkeygen.device_keygen
-            )
-            self.sk, self.keys = keygen(self.params, words, self.device)
+            if os.environ.get("OECE_HOST_KEYGEN") == "1":
+                self.sk = golden.lwe_keygen(self.params, self._rng)
+                self.keys = hostkeygen.bootstrap_keygen(
+                    self.params, self.sk, self._rng, self.method, self.device
+                )
+            else:
+                words = (
+                    np.asarray(self._rng.integers(0, 2**32, size=8), dtype=np.uint32)
+                    if seed is not None else None
+                )
+                keygen = (
+                    devkeygen.device_keygen_ap if self.method == BinFHEMethod.AP
+                    else devkeygen.device_keygen
+                )
+                self.sk, self.keys = keygen(self.params, words, self.device)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.keygen_s = time.time() - t0

@@ -6,7 +6,7 @@ for bit:
     ``keys.from_jax`` (MICRO_AP2; TOY with n=2, the exact gadget at N=512;
     STD128_OPT with n=2), ragged batches and an a=0 lane;
   * against ``golden.blind_rotate_ap`` on golden AP keys packed by
-    ``keys.from_golden`` (MICRO_AP2).
+    ``keys.pack_bootstrap_key`` (MICRO_AP2).
 
 The CUDA kernel is checked against the same plain version on the card by
 chip_smoke.py.
@@ -22,8 +22,11 @@ import torch
 from oece_tpu.fhe import boot as jboot
 from oece_tpu.fhe import devkeygen as jdevkeygen
 from oece_tpu.fhe import golden
-from oece_tpu.fhe.params import MICRO_A, STD128_OPT, TOY, BinFHEMethod
+from oece_tpu.fhe.params import BinFHEMethod as JMethod
+from oece_tpu.fhe.params import BinGate as JGate
 from oece_tpu_torch.fhe import ap, keys
+from oece_tpu_torch.fhe.params import MICRO_A, STD128_OPT, TOY, BinFHEMethod
+from test_torch_copies import jax_params, port_bootstrap_key
 
 MICRO_AP2 = dataclasses.replace(MICRO_A, name="MICRO_AP2", B_r=2)
 TOY_AP2_N2 = dataclasses.replace(TOY, name="TOY_AP2_N2", n=2, B_r=2)
@@ -40,7 +43,7 @@ def _a2N(p, rng, B):
 @pytest.fixture(scope="module", params=[MICRO_AP2, TOY_AP2_N2, STD_AP_N2], ids=lambda p: p.name)
 def jax_ap_keys(request):
     p = request.param
-    _, _, dkeys = jdevkeygen.device_keygen_ap(p, seed=7)
+    _, _, dkeys = jdevkeygen.device_keygen_ap(jax_params(p), seed=7)
     return p, dkeys, keys.from_jax(dkeys)
 
 
@@ -64,14 +67,15 @@ def test_rotation_matches_jax_megakernel(jax_ap_keys, B):
 
 def test_rotation_matches_golden():
     p = MICRO_AP2
+    jp = jax_params(p)
     rng = np.random.default_rng(61)
-    sk = golden.lwe_keygen(p, rng)
-    bk = golden.bootstrap_keygen(p, sk, rng, BinFHEMethod.AP)
-    kt = keys.from_golden(bk)
+    sk = golden.lwe_keygen(jp, rng)
+    bk = golden.bootstrap_keygen(jp, sk, rng, JMethod.AP)
+    kt = keys.pack_bootstrap_key(port_bootstrap_key(bk), "cpu")
     B = 5
     a2N = _a2N(p, rng, B)
     a2N[1, 0] = 0  # one zero amount inside a live lane
-    tv = np.stack([golden.make_test_vector(p, g) for g in keys.GATE_ORDER[:B]])
+    tv = np.stack([golden.make_test_vector(jp, JGate[g.name]) for g in keys.GATE_ORDER[:B]])
     b2N = rng.integers(0, 2 * p.N, B)
     acc0 = np.zeros((B, 2, p.N), dtype=np.int64)
     for b in range(B):
@@ -81,20 +85,20 @@ def test_rotation_matches_golden():
     )
     for b in range(B):
         ct_2N = np.concatenate([a2N[b], [b2N[b]]]).astype(np.int64)
-        want = golden.blind_rotate_ap(p, bk, ct_2N, tv[b])
+        want = golden.blind_rotate_ap(jp, bk, ct_2N, tv[b])
         np.testing.assert_array_equal(got[b].numpy(), want)
 
 
 def test_windows_unpack_to_golden_planes():
-    """keys.unpack_ap_windows inverts the JAX package's window packing
-    (pack_bootstrap_key on golden keys) back to from_golden's planes."""
-    p = MICRO_AP2
+    """keys.unpack_windows inverts the JAX package's window packing
+    (pack_bootstrap_key on golden keys) back to the port's packed planes."""
+    jp = jax_params(MICRO_AP2)
     rng = np.random.default_rng(62)
-    sk = golden.lwe_keygen(p, rng)
-    bk = golden.bootstrap_keygen(p, sk, rng, BinFHEMethod.AP)
+    sk = golden.lwe_keygen(jp, rng)
+    bk = golden.bootstrap_keygen(jp, sk, rng, JMethod.AP)
     dk = jboot.pack_bootstrap_key(bk, use_pallas=True)
     np.testing.assert_array_equal(
-        keys.from_jax(dk).ap_ext.numpy(), keys.from_golden(bk).ap_ext.numpy()
+        keys.from_jax(dk).ap_ext.numpy(), keys.pack_bootstrap_key(port_bootstrap_key(bk), "cpu").ap_ext.numpy()
     )
 
 
@@ -108,7 +112,7 @@ def test_bits_and_rev_block():
     assert bits[0, : p.d_r].sum() == 0  # a = 0: no step selects the product
     ext = torch.randint(-128, 128, (2 * p.d_g_used, 8, 2 * p.N), dtype=torch.int8,
                         generator=torch.Generator().manual_seed(5))
-    rev = ap.ap_rev_block(ext, keys.rev_index(p.N, "cpu"))
+    rev = keys.rev_block(ext, keys.rev_index(p.N, "cpu"))
     nt, RT, T = p.N // 128, 2 * p.d_g_used * 128, 128
     for dp, r, u, m, t in [(0, 0, 0, 0, 0), (2 * nt - 2, 3, 127, 7, 5), (nt - 1, 1, 9, 2, 3)]:
         assert rev[dp * RT + r * T + u, m * T + t] == ext[r, m, ((nt - 1 - dp) * T + t - u) % (2 * p.N)]

@@ -23,10 +23,14 @@ from oece_tpu.circuits.gen import gen_adder
 from oece_tpu.fhe import boot as jboot
 from oece_tpu.fhe import golden
 from oece_tpu.fhe import lwe as jlwe
-from oece_tpu.fhe.params import MICRO_A, BinFHEMethod
+from oece_tpu.fhe.params import BinFHEMethod as JMethod
+from oece_tpu.fhe.params import BinGate as JGate
 from oece_tpu.runtime.evaluator import Circuit as JaxCircuit
 from oece_tpu_torch.fhe import ap, boot, keys, rot
+from oece_tpu_torch.fhe.golden import LWESecretKey
+from oece_tpu_torch.fhe.params import MICRO_A, BinFHEMethod
 from oece_tpu_torch.runtime.evaluator import Circuit
+from test_torch_copies import jax_params, port_bootstrap_key
 
 MICRO_AP2 = dataclasses.replace(MICRO_A, name="MICRO_AP2", B_r=2)
 ADDER = os.path.join(
@@ -49,7 +53,7 @@ def jax_circuit():
     mp = pytest.MonkeyPatch()
     mp.setenv("OECE_FORCE_DEVICE_KEYGEN", "1")
     mp.setattr(jboot, "PALLAS_INTERPRET", True)
-    jc = JaxCircuit(set=MICRO_AP2, method="AP", seed=5)
+    jc = JaxCircuit(set=jax_params(MICRO_AP2), method="AP", seed=5)
     assert jc.dkeys.ap_pallas is not None
     yield jc, keys.from_jax(jc.dkeys)
     mp.undo()
@@ -73,16 +77,16 @@ def test_gate_batch_matches_jax(jax_circuit):
 
 
 def test_gate_batch_matches_golden():
-    p = MICRO_AP2
+    jp = jax_params(MICRO_AP2)
     rng = np.random.default_rng(53)
-    sk = golden.lwe_keygen(p, rng)
-    bk = golden.bootstrap_keygen(p, sk, rng, BinFHEMethod.AP)
-    kt = keys.from_golden(bk)
+    sk = golden.lwe_keygen(jp, rng)
+    bk = golden.bootstrap_keygen(jp, sk, rng, JMethod.AP)
+    kt = keys.pack_bootstrap_key(port_bootstrap_key(bk), "cpu")
     gids, c1, c2 = _gate_inputs(sk, rng, 6)
     got = boot.eval_bin_gate_batch(kt, _t(gids), _t(c1), _t(c2)).numpy()
     for b, gi in enumerate(gids):
         want = golden.eval_bin_gate(
-            p, bk, keys.GATE_ORDER[gi], c1[b].astype(np.int64), c2[b].astype(np.int64)
+            jp, bk, JGate[keys.GATE_ORDER[gi].name], c1[b].astype(np.int64), c2[b].astype(np.int64)
         )
         np.testing.assert_array_equal(got[b], want)
 
@@ -90,8 +94,8 @@ def test_gate_batch_matches_golden():
 def _twin(jc, kt, nl):
     jc.LoadNetlist(nl)
     tc = Circuit(
-        set=jc.params, method="AP", device="cpu", keys=kt, sk=jc.sk,
-        rng=copy.deepcopy(jc._rng),
+        set=MICRO_AP2, method="AP", device="cpu", keys=kt,
+        sk=LWESecretKey(s=jc.sk.s, params=MICRO_AP2), rng=copy.deepcopy(jc._rng),
     )
     tc.LoadNetlist(nl)
     for c in (jc, tc):

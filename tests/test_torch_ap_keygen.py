@@ -14,9 +14,10 @@ import torch
 
 from oece_tpu.fhe import devkeygen as jdevkeygen
 from oece_tpu.fhe import golden
-from oece_tpu.fhe import lwe as jlwe
-from oece_tpu.fhe.params import MICRO, MICRO_A, STD128_OPT, BinFHEMethod
-from oece_tpu_torch.fhe import ap, boot, devkeygen, keys
+from oece_tpu.fhe.params import BinFHEMethod as JMethod
+from oece_tpu_torch.fhe import ap, boot, devkeygen, keys, lwe
+from oece_tpu_torch.fhe.params import MICRO, MICRO_A, STD128_OPT, BinFHEMethod
+from test_torch_copies import jax_params, port_bootstrap_key
 
 MICRO_AP2 = dataclasses.replace(MICRO_A, name="MICRO_AP2", B_r=2)
 STD_AP_N2 = dataclasses.replace(STD128_OPT, name="STD128_OPT_AP_N2", n=2)
@@ -28,7 +29,7 @@ TRUTH = [
 
 def _jax_ap_draws(p, seed_words):
     """(s, z, A, E, Aks, Eks) exactly as _keygen_ap_jit samples them."""
-    ks, s, z = jdevkeygen._prf_root_and_secrets(p, jnp.asarray(seed_words))
+    ks, s, z = jdevkeygen._prf_root_and_secrets(jax_params(p), jnp.asarray(seed_words))
     shape = (p.n * p.d_r, 2 * p.d_g_used, p.N)
     A = jdevkeygen._uniform_mod(ks[4], shape, p.Q)
     E = jdevkeygen._gauss(ks[5], p.sigma, shape)
@@ -40,7 +41,7 @@ def _jax_ap_draws(p, seed_words):
 @pytest.mark.parametrize("params", [MICRO_AP2, STD_AP_N2], ids=lambda p: p.name)
 def test_assemble_ap_matches_jax_keygen(params):
     p = params
-    sk, _, dkeys = jdevkeygen.device_keygen_ap(p, seed=1234)
+    sk, _, dkeys = jdevkeygen.device_keygen_ap(jax_params(p), seed=1234)
     kt = devkeygen.assemble_ap(p, *_jax_ap_draws(p, jdevkeygen._seed_words(1234)))
     want = keys.from_jax(dkeys)
     assert kt.method == want.method == BinFHEMethod.AP
@@ -82,19 +83,20 @@ def test_own_ap_keygen_gives_working_gates():
     B = 18
     m1, m2 = rng.integers(0, 2, B), rng.integers(0, 2, B)
     gids = np.arange(B, dtype=np.int32) % 6
-    c1 = torch.from_numpy(jlwe.encrypt_bits(sk, m1, rng))
-    c2 = torch.from_numpy(jlwe.encrypt_bits(sk, m2, rng))
+    c1 = torch.from_numpy(lwe.encrypt_bits(sk, m1, rng))
+    c2 = torch.from_numpy(lwe.encrypt_bits(sk, m2, rng))
     plain0 = ap.PLAIN_LAUNCHES
     out = boot.eval_bin_gate_batch(kt, torch.from_numpy(gids), c1, c2)
     assert ap.PLAIN_LAUNCHES == plain0 + 1
     want = np.array([TRUTH[g](int(a), int(b)) for g, a, b in zip(gids, m1, m2)])
-    np.testing.assert_array_equal(jlwe.decrypt_bits(sk, out.numpy()), want)
+    np.testing.assert_array_equal(lwe.decrypt_bits(sk, out.numpy()), want)
 
 
 def test_ap_keygen_refuses_generic_base():
     with pytest.raises(ValueError, match="B_r=32"):
         devkeygen.device_keygen_ap(MICRO, np.zeros(8, np.uint32))
-    sk = golden.lwe_keygen(MICRO, np.random.default_rng(0))
-    bk = golden.bootstrap_keygen(MICRO, sk, np.random.default_rng(1), BinFHEMethod.AP)
+    jp = jax_params(MICRO)
+    sk = golden.lwe_keygen(jp, np.random.default_rng(0))
+    bk = golden.bootstrap_keygen(jp, sk, np.random.default_rng(1), JMethod.AP)
     with pytest.raises(ValueError, match="B_r=32"):
-        keys.from_golden(bk)
+        keys.pack_bootstrap_key(port_bootstrap_key(bk), "cpu")

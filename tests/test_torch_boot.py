@@ -12,8 +12,11 @@ from oece_tpu.fhe import boot as jboot
 from oece_tpu.fhe import devkeygen as jdevkeygen
 from oece_tpu.fhe import golden
 from oece_tpu.fhe import lwe as jlwe
-from oece_tpu.fhe.params import MICRO, MICRO_A, BinFHEMethod
+from oece_tpu.fhe.params import BinFHEMethod as JMethod
+from oece_tpu.fhe.params import BinGate as JGate
 from oece_tpu_torch.fhe import boot, keys, lwe
+from oece_tpu_torch.fhe.params import MICRO, MICRO_A
+from test_torch_copies import jax_params, port_bootstrap_key
 
 
 def _t(x):
@@ -23,7 +26,7 @@ def _t(x):
 @pytest.fixture(scope="module", params=[MICRO, MICRO_A], ids=lambda p: p.name)
 def setup(request):
     p = request.param
-    sk, _, dkeys = jdevkeygen.device_keygen(p, seed=21, layout="rev2")
+    sk, _, dkeys = jdevkeygen.device_keygen(jax_params(p), seed=21, layout="rev2")
     return p, sk, dkeys, keys.from_jax(dkeys)
 
 
@@ -47,15 +50,15 @@ def test_gate_batch_matches_jax(setup, monkeypatch):
 
 @pytest.mark.parametrize("params", [MICRO, MICRO_A], ids=lambda p: p.name)
 def test_gate_batch_matches_golden_rot_form(params):
-    p = params
+    p = jax_params(params)
     rng = np.random.default_rng(52)
     sk = golden.lwe_keygen(p, rng)
-    bk = golden.bootstrap_keygen(p, sk, rng, BinFHEMethod.GINX)
-    kt = keys.from_golden(bk)
+    bk = golden.bootstrap_keygen(p, sk, rng, JMethod.GINX)
+    kt = keys.pack_rotated_form(port_bootstrap_key(bk), "cpu")
     gids, c1, c2 = _gate_inputs(sk, rng, 6)
     got = boot.eval_bin_gate_batch(kt, _t(gids), _t(c1), _t(c2)).numpy()
     for b, gi in enumerate(gids):
-        gate = keys.GATE_ORDER[gi]
+        gate = JGate[keys.GATE_ORDER[gi].name]
         prep = golden.gate_prepare(gate, c1[b].astype(np.int64), c2[b].astype(np.int64), p.q)
         want = golden.bootstrap(p, bk, prep, gate, form="rot")
         np.testing.assert_array_equal(got[b], want)

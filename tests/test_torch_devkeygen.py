@@ -13,9 +13,10 @@ import torch
 
 from oece_tpu.fhe import devkeygen as jdevkeygen
 from oece_tpu.fhe import golden
-from oece_tpu.fhe import lwe as jlwe
-from oece_tpu.fhe.params import MICRO, MICRO_A, STD128_OPT
-from oece_tpu_torch.fhe import boot, devkeygen, keys
+from oece_tpu.fhe.params import BinGate as JGate
+from oece_tpu_torch.fhe import boot, devkeygen, keys, lwe
+from oece_tpu_torch.fhe.params import MICRO, MICRO_A, STD128_OPT
+from test_torch_copies import jax_params
 
 STD_N2 = dataclasses.replace(STD128_OPT, name="STD128_OPT_N2", n=2)
 TRUTH = [
@@ -26,7 +27,7 @@ TRUTH = [
 
 def _jax_draws(p, seed_words):
     """(s, z, A, E, Aks, Eks) exactly as _keygen_jit samples them."""
-    ks, s, z = jdevkeygen._prf_root_and_secrets(p, jnp.asarray(seed_words))
+    ks, s, z = jdevkeygen._prf_root_and_secrets(jax_params(p), jnp.asarray(seed_words))
     d = p.d_g_used
     A = jdevkeygen._uniform_mod(ks[2], (p.n, 2, 2 * d, p.N), p.Q)
     E = jdevkeygen._gauss(ks[3], p.sigma, (p.n, 2, 2 * d, p.N))
@@ -38,11 +39,11 @@ def _jax_draws(p, seed_words):
 @pytest.mark.parametrize("params", [MICRO, MICRO_A, STD_N2], ids=lambda p: p.name)
 def test_assemble_matches_jax_keygen(params):
     words = jdevkeygen._seed_words(1234)
-    s, z, rev2, ksk = jdevkeygen._keygen_jit(params, jnp.asarray(words), "rev2")
+    s, z, rev2, ksk = jdevkeygen._keygen_jit(jax_params(params), jnp.asarray(words), "rev2")
     kt = devkeygen.assemble(params, *_jax_draws(params, words))
     np.testing.assert_array_equal(kt.rev2.numpy(), np.asarray(rev2))
     np.testing.assert_array_equal(kt.ksk.numpy(), np.asarray(ksk))
-    tv = np.stack([golden.make_test_vector(params, g) for g in keys.GATE_ORDER])
+    tv = np.stack([golden.make_test_vector(jax_params(params), JGate[g.name]) for g in keys.GATE_ORDER])
     np.testing.assert_array_equal(kt.tv_table.numpy(), tv)
 
 
@@ -70,15 +71,15 @@ def test_own_sampling_gives_working_keys(params):
     B = 24
     m1, m2 = rng.integers(0, 2, B), rng.integers(0, 2, B)
     gids = np.arange(B, dtype=np.int32) % 6
-    c1 = torch.from_numpy(jlwe.encrypt_bits(sk, m1, rng))
-    c2 = torch.from_numpy(jlwe.encrypt_bits(sk, m2, rng))
+    c1 = torch.from_numpy(lwe.encrypt_bits(sk, m1, rng))
+    c2 = torch.from_numpy(lwe.encrypt_bits(sk, m2, rng))
     out = boot.eval_bin_gate_batch(kt, torch.from_numpy(gids), c1, c2)
     want = np.array([TRUTH[g](int(a), int(b)) for g, a, b in zip(gids, m1, m2)])
-    np.testing.assert_array_equal(jlwe.decrypt_bits(sk, out.numpy()), want)
+    np.testing.assert_array_equal(lwe.decrypt_bits(sk, out.numpy()), want)
     # chained second generation
     out2 = boot.eval_bin_gate_batch(kt, torch.from_numpy(gids), out, c1)
     want2 = np.array([TRUTH[g](int(a), int(b)) for g, a, b in zip(gids, want, m1)])
-    np.testing.assert_array_equal(jlwe.decrypt_bits(sk, out2.numpy()), want2)
+    np.testing.assert_array_equal(lwe.decrypt_bits(sk, out2.numpy()), want2)
 
 
 def test_ap_and_ginx_keygen_share_secrets():

@@ -18,6 +18,7 @@ from oece_tpu.circuits.netlist import Netlist
 from oece_tpu.fhe import boot as jboot
 from oece_tpu.runtime.evaluator import Circuit as JaxCircuit
 from oece_tpu_torch.fhe import keys, rot
+from oece_tpu_torch.fhe.golden import LWESecretKey
 from oece_tpu_torch.runtime.evaluator import Circuit
 
 ADDER = os.path.join(
@@ -45,7 +46,8 @@ def jax_circuit(request):
 
 def _twin(jc, kt, nl: Netlist, plaintext: bool, encrypted: bool, verify: bool):
     jc.LoadNetlist(nl)
-    tc = Circuit(set=jc.params, device="cpu", keys=kt, sk=jc.sk, rng=copy.deepcopy(jc._rng))
+    sk = LWESecretKey(s=jc.sk.s, params=kt.params)
+    tc = Circuit(set=jc.params.name, device="cpu", keys=kt, sk=sk, rng=copy.deepcopy(jc._rng))
     tc.LoadNetlist(nl)
     for c in (jc, tc):
         c.setPlaintext(plaintext)

@@ -6,8 +6,8 @@ import pytest
 import torch
 
 from oece_tpu.fhe import modmath as ref
-from oece_tpu.fhe.params import Q27
 from oece_tpu_torch.fhe import modmath
+from oece_tpu_torch.fhe.params import Q27
 
 Q = Q27
 

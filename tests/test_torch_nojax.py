@@ -1,11 +1,16 @@
-"""The port runs without JAX: a fresh interpreter with ``jax`` blocked
-imports oece_tpu_torch, generates MICRO keys with the port's own keygen and
-clocks adder_2bit to the right sums in verify mode (what chip_smoke.py needs
-on a machine that has no JAX)."""
+"""The port runs without JAX and without the JAX package: a fresh
+interpreter with ``jax`` blocked imports oece_tpu_torch, generates MICRO
+keys with the port's own keygen and clocks adder_2bit to the right sums in
+verify mode, then runs gates through a MICRO ``BinFHEContext`` (what
+chip_smoke.py needs on a machine that has no JAX); no module of
+``oece_tpu`` is loaded on the way.  An AST scan finds no import of ``jax``
+or ``oece_tpu`` in the port's sources, chip_smoke.py or chip_profile.py."""
 
+import ast
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 
@@ -25,11 +30,18 @@ c.Clock()
 (out,) = c.GetOutput()
 sums = (out << np.arange(out.shape[1])).sum(1)
 assert list(sums) == [x + y for x, y in cases], sums
+from oece_tpu_torch.fhe.context import BinFHEContext
+
+cc = BinFHEContext(device="cpu").GenerateBinFHEContext("MICRO", "GINX", seed=3)
+sk = cc.KeyGen()
+cc.BTKeyGen(sk)
+x, y = cc.EncryptBatch(sk, [0, 1, 1, 0]), cc.EncryptBatch(sk, [1, 1, 0, 0])
+got = cc.DecryptBatch(sk, cc.EvalBinGateBatch(["AND", "OR", "XOR", "NOR"], x, y))
+assert list(got) == [0, 1, 1, 1], got
 loaded = sorted(m for m in sys.modules if m.split(".")[0] == "jax" and sys.modules[m] is not None)
 assert not loaded, loaded
-for m in ("oece_tpu.fhe.boot", "oece_tpu.fhe.devkeygen", "oece_tpu.runtime.evaluator",
-          "oece_tpu.fhe.pallas_kernels", "oece_tpu.harness.testlib"):
-    assert m not in sys.modules, m
+jaxpkg = sorted(m for m in sys.modules if m.split(".")[0] == "oece_tpu")
+assert not jaxpkg, jaxpkg
 print("NOJAX_OK", c.trace.total_bootstraps)
 """
 
@@ -43,3 +55,25 @@ def test_port_runs_without_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "NOJAX_OK 112" in proc.stdout, proc.stdout
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module
+
+
+def test_port_sources_import_neither_jax_nor_the_jax_package():
+    root = Path(REPO)
+    files = sorted((root / "oece_tpu_torch").rglob("*.py"))
+    files += [root / "chip_smoke.py", root / "chip_profile.py"]
+    assert len(files) > 10
+    bad = [
+        f"{f.relative_to(root)}:{line}: {name}"
+        for f in files for line, name in _imported_roots(f)
+        if name.split(".")[0] in ("jax", "jaxlib", "oece_tpu")
+    ]
+    assert not bad, bad

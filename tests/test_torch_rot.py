@@ -21,9 +21,10 @@ import torch
 from oece_tpu.fhe import devkeygen as jdevkeygen
 from oece_tpu.fhe import golden
 from oece_tpu.fhe import pallas_kernels as pk
-from oece_tpu.fhe.params import MICRO, MICRO_A, STD128_OPT, TOY
 from oece_tpu_torch.fhe import keys, rot
+from oece_tpu_torch.fhe.params import MICRO, MICRO_A, STD128_OPT, TOY
 from test_rot_form import _golden_rot_step, _rev2_from_brk
+from test_torch_copies import jax_params
 
 STD_N2 = dataclasses.replace(STD128_OPT, name="STD128_OPT_N2", n=2)
 
@@ -39,7 +40,7 @@ def _a2N(p, rng, B, n):
 @pytest.fixture(scope="module", params=[MICRO, MICRO_A], ids=lambda p: p.name)
 def jax_keys(request):
     p = request.param
-    _, _, dkeys = jdevkeygen.device_keygen(p, seed=7, layout="rev2")
+    _, _, dkeys = jdevkeygen.device_keygen(jax_params(p), seed=7, layout="rev2")
     return p, dkeys
 
 
@@ -80,12 +81,12 @@ def test_rotation_matches_golden_steps(params, steps):
     rev2 = keys.build_rev2(torch.from_numpy(brk.astype(np.int32)), p.Q)
     for i in range(steps):
         np.testing.assert_array_equal(
-            rev2[i].numpy(), np.asarray(_rev2_from_brk(p, brk[i, 0], brk[i, 1]))
+            rev2[i].numpy(), np.asarray(_rev2_from_brk(jax_params(p), brk[i, 0], brk[i, 1]))
         )
     want = acc0.copy()
     for i in range(steps):
         want = np.stack([
-            _golden_rot_step(p, want[b], int(a2N[b, i]), brk[i, 0], brk[i, 1])
+            _golden_rot_step(jax_params(p), want[b], int(a2N[b, i]), brk[i, 0], brk[i, 1])
             for b in range(B)
         ])
     got = rot.blind_rotate_rot_plain(
@@ -135,7 +136,9 @@ def test_kernel_build_location(monkeypatch):
     repo = _build.PKG_DIR.parent
     assert so.parent == repo / "build" / "oece_tpu_torch"
     assert "build/" in (repo / ".gitignore").read_text().split()
-    assert [s.name for s in _build._sources()] == ["ap_step.cu", "rot_step.cu", "int8_mm.cuh"]
+    assert [s.name for s in _build._sources()] == [
+        "ap_step.cu", "rot_step.cu", "std_step.cu", "int8_mm.cuh"
+    ]
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     monkeypatch.setattr(_build.os.path, "isfile", lambda path: False)
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
