@@ -1,18 +1,25 @@
 #!/usr/bin/env python3
-"""Profile the port's standard-form GINX path on one NVIDIA GPU.
+"""Profile the port's standard-form GINX paths on one NVIDIA GPU.
 
     python3 chip_profile.py [OUT]    # from the root of a checkout
 
-Three measurements, all at STD128_OPT with seed-0 golden host keys:
-  1. sweep    one standard-form rotation step (csrc/std_step.cu) by batch
-              size, CUDA events: µs per step and int8 TOPS, and at B = 4
-              and 2048 each kernel's device time inside the step (build
-              #1, digits, matmul #4, epilogue; torch.profiler);
-  2. context  one chained EvalBinGateBatch of 2048 random gates under
-              torch.profiler: wall time, device kernel time by kernel name,
-              device busy share;
-  3. circuit  adder_32bit verify at T=4 (Circuit under OECE_HOST_KEYGEN=1)
-              under torch.profiler, the same breakdown.
+Five measurements, all at STD128_OPT:
+  1. sweep      one standard-form rotation step on ginx_ext (csrc/std_step.cu,
+                the block built per step) by batch size, CUDA events: µs
+                per step and int8 TOPS, and at B = 4 and 2048 each
+                kernel's device time inside the step (build #1, digits,
+                matmul #4, epilogue; torch.profiler);
+  2. rev-sweep  the same for the step on prebuilt "rev" blocks (fhe/rev.py:
+                digits + matmul #9/#8, epilogue #10), timed over 8 distinct
+                blocks (126 MB, more than the 50 MB L2, as a rotation reads
+                them from HBM); at B = 4 and 2048 also on one block that
+                stays in L2 (hbm/l2 device time per kernel);
+  3. context    one chained EvalBinGateBatch of 2048 random gates on
+                seed-0 golden host keys under torch.profiler: wall time,
+                device kernel time by kernel name, device busy share;
+  4. circuit    adder_32bit verify at T=4 (Circuit under OECE_HOST_KEYGEN=1)
+                under torch.profiler, the same breakdown;
+  5. rev-circuit  the same under OECE_LAYOUT=rev (seed-0 device keys).
 
 Prints one line per result and writes them all as JSON to OUT
 (default build/chip_profile.json).  Needs CUDA; JAX and the JAX package
@@ -65,29 +72,72 @@ def profile(fn, label: str) -> dict:
     return res
 
 
-def sweep() -> dict:
-    from oece_tpu_torch.fhe import std
+NAMES = {"build": "rev_build_kernel", "digits": "decompose_kernel",
+         "matmul": "int8_mm_kernel", "cmux": "std_cmux_kernel"}
+
+
+def _parts_us(fn, steps: int, names) -> dict:
+    """Device µs per step of each kernel in ``names`` inside fn."""
+    ms_each = cs.device_ms(fn, 10, *[NAMES[k] for k in names])
+    return {k: 1e3 * v / steps for k, v in zip(names, ms_each)}
+
+
+def sweep(label: str = "sweep") -> dict:
+    """Step µs by batch of the std rotation ("sweep") or the rev rotation
+    ("rev-sweep"; 8 distinct blocks, and one L2-resident block)."""
+    from oece_tpu_torch.fhe import rev, std
     from oece_tpu_torch.fhe.params import STD128_OPT
 
-    p = dataclasses.replace(STD128_OPT, n=1)
+    steps = 1 if label == "sweep" else 8
+    p = dataclasses.replace(STD128_OPT, n=steps)
     nt, RT = p.N // 128, 2 * p.d_g_used * 128
     macs = nt * (nt * RT) * 16 * 128  # per gate per step
     res = {"step_us": {}, "parts_us": {}}
     for B in (1, 4, 16, 64, 256, 1024, 2048, 4096):
-        acc, ext, a2N = cs._std_inputs(p, B, 1, seed=B)
-        ms = cs.cuda_time_ms(lambda: std.blind_rotate_std(acc, ext, a2N, p), reps=50)
+        if label == "sweep":
+            acc, key, a2N = cs.rotation_inputs(p, B, 1, "ginx_ext", seed=B)
+            rotate, names = std.blind_rotate_std, list(NAMES)
+        else:
+            acc, key, a2N = cs.rotation_inputs(p, B, steps, "rev", seed=B)
+            rotate, names = rev.blind_rotate_rev, list(NAMES)[1:]
+        fn = lambda: rotate(acc, key, a2N, p)  # noqa: E731
+        ms = cs.cuda_time_ms(fn, reps=50 // steps) / steps
         res["step_us"][B] = 1e3 * ms
-        print(f"[sweep] B={B}: {1e3 * ms:.1f} us/step, "
+        print(f"[{label}] B={B}: {1e3 * ms:.1f} us/step, "
               f"{2 * B * macs / (ms * 1e-3) / 1e12:.1f} TOPS", flush=True)
         if B in (4, 2048):
-            names = {"build": "rev_build_kernel", "digits": "decompose_kernel",
-                     "matmul": "int8_mm_kernel", "cmux": "std_cmux_kernel"}
-            ms_each = cs.device_ms(lambda: std.blind_rotate_std(acc, ext, a2N, p), 50,
-                                   *names.values())
-            parts = dict(zip(names, ms_each))
-            res["parts_us"][B] = {k: 1e3 * v for k, v in parts.items()}
-            print(f"[sweep] B={B} parts (us): "
-                  + ", ".join(f"{k} {1e3 * v:.1f}" for k, v in parts.items()), flush=True)
+            parts = {"hbm" if steps > 1 else "l2": _parts_us(fn, steps, names)}
+            if steps > 1:  # the first block alone, warm in L2 after its first launch
+                one = dataclasses.replace(p, n=1)
+                parts["l2"] = _parts_us(lambda: rotate(acc, key[:1], a2N[:, :1].contiguous(), one),
+                                        1, names)
+            res["parts_us"][B] = parts
+            for where, us in parts.items():
+                print(f"[{label}] B={B} parts, block in {where} (us): "
+                      + ", ".join(f"{k} {v:.1f}" for k, v in us.items()), flush=True)
+    return res
+
+
+def circuit(rng, layout: str) -> dict:
+    """adder_32bit verify at T=4 under torch.profiler: golden host keys
+    (the std rotation) or device keys in ``layout``."""
+    from oece_tpu_torch.runtime.evaluator import Circuit
+
+    env = {"OECE_HOST_KEYGEN": "1"} if layout == "ginx_ext" else {"OECE_LAYOUT": layout}
+    os.environ.update(env)
+    try:
+        c = Circuit(set="STD128_OPT", method="GINX", seed=0, device="cuda")
+    finally:
+        for k in env:
+            os.environ.pop(k)
+    c.ReadFile(cs.ADDER)
+    c.setVerify(True)
+    a = rng.integers(0, 1 << 32, 4, dtype=np.uint64)
+    b = rng.integers(0, 1 << 32, 4, dtype=np.uint64)
+    bits = lambda v: ((v[:, None] >> np.arange(32, dtype=np.uint64)) & np.uint64(1)).astype(np.int64)  # noqa: E731
+    c.SetInput([bits(a), bits(b)])
+    res = profile(c.Clock, f"{layout} adder_32bit T=4")
+    res["levels"] = [{"boot_gates": r.boot_gates, "wall_ms": 1e3 * r.wall_s} for r in c.trace.records]
     return res
 
 
@@ -101,13 +151,12 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     from oece_tpu_torch.fhe import _build
     from oece_tpu_torch.fhe.context import BinFHEContext
-    from oece_tpu_torch.runtime.evaluator import Circuit
 
     _build.load()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
-    out = {"card": smi, "sweep": sweep()}
+    out = {"card": smi, "sweep": sweep(), "rev-sweep": sweep("rev-sweep")}
 
     cc = BinFHEContext(device="cuda").GenerateBinFHEContext("STD128_OPT", "GINX", seed=0)
     sk = cc.KeyGen()
@@ -119,19 +168,9 @@ def main() -> None:
     cc.EvalBinGateBatch(gates, x1, x2)  # warm-up
     out["context"] = profile(lambda: cc.EvalBinGateBatch(gates, x1, x2), "context B=2048")
 
-    os.environ["OECE_HOST_KEYGEN"] = "1"
-    c = Circuit(set="STD128_OPT", method="GINX", seed=0, device="cuda")
-    os.environ.pop("OECE_HOST_KEYGEN")
-    c.ReadFile(cs.ADDER)
-    c.setVerify(True)
-    a = rng.integers(0, 1 << 32, 4, dtype=np.uint64)
-    b = rng.integers(0, 1 << 32, 4, dtype=np.uint64)
-    bits = lambda v: ((v[:, None] >> np.arange(32, dtype=np.uint64)) & np.uint64(1)).astype(np.int64)
-    c.SetInput([bits(a), bits(b)])
-    out["circuit"] = profile(c.Clock, "std-circuit adder_32bit T=4")
-    out["circuit"]["levels"] = [
-        {"boot_gates": r.boot_gates, "wall_ms": 1e3 * r.wall_s} for r in c.trace.records
-    ]
+    del cc, x1, x2
+    out["circuit"] = circuit(rng, "ginx_ext")
+    out["rev-circuit"] = circuit(rng, "rev")
     path = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else OUT)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:

@@ -47,12 +47,36 @@ before the result lines):
  10. std-circuit Circuit(set="STD128_OPT", seed=0, device="cuda") under
              OECE_HOST_KEYGEN=1 runs adder_32bit verify at T=4: sums == a+b,
              the rotation through the std kernel only.
+ 11. rev-kernel  the standard form on prebuilt "rev" blocks
+             (fhe/rev.py -> csrc/std_step.cu: digits + matmul #9 with the
+             matmul #8, the epilogue #10) against its plain version,
+             bit-exact: blind_rotate_rev at STD128_OPT (n=8) B = 1, 37,
+             256, MICRO (n=4) and TOY (n=3) at B=37, random int8 blocks,
+             a=0 lanes unchanged; #8 (16 and 8 planes), #9 and #10 (any
+             amount pairs) alone at B = 37 and 2048.  Times a STD128_OPT
+             step at B=2048 over 8 distinct blocks (126 MB, more than the
+             L2), whole (CUDA events) and per kernel (device time), with
+             bounds.
+ 12. rot-step    #11 (fhe/rot.py rot_step_true -> csrc/rot_step.cu
+             oece_rot_step) against its plain version for any amount pairs
+             (STD128_OPT B = 37 and 2048, MICRO_A and TOY at B=37), and
+             blind_rotate_rot_steps == blind_rotate_rot at STD128_OPT n=8
+             B=37; times the B=2048 step.
+ 13. rev-gates   device keygen in the "rev" layout at full STD128_OPT
+             (seed 0), then 3 chained batches of 1024 random gates, every
+             output decrypted and checked; only the rev kernels ran.
+ 14. rev-circuit adder_32bit verify T=4 under OECE_LAYOUT=rev: sums == a+b,
+             the rotation through the rev kernels only.
+ 15. rot-steps-circuit  adder_32bit verify T=4 with boot.ROT_MEGA off
+             (OECE_ROT_MEGA=0): one rot_step_true launch per step only.
 
-Each main-path run (phases 4, 7, 9 and 10) sets every launch count to 0
-just before it and reads the counts just after: the rotation calls that
-reached each version, and each CUDA kernel's launches (one per step).  The
-last two lines are the kernels' JSON record and {"ok": true, "device":
-{...}}.  JAX and the JAX package are blocked from being imported.
+Each main-path run (phases 4, 7, 9, 10, 14 and 15) sets every launch count
+to 0 just before it and reads the counts just after: the rotation calls
+that reached each version, and each CUDA kernel's launches (one per step).
+The last two lines are the kernels' JSON record and {"ok": true,
+"device": {...}}.  JAX and the JAX package are blocked from being
+imported.  ``python3 chip_smoke.py PHASE ...`` runs the build and the
+named phases only, and prints neither of the last two lines.
 """
 
 from __future__ import annotations
@@ -92,29 +116,34 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
 
 def reset_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
-    from oece_tpu_torch.fhe import ap, rot, std
+    from oece_tpu_torch.fhe import ap, rev, rot, std
 
-    for m in (ap, rot, std):
+    for m in (ap, rev, rot, std):
         m.LAUNCHES = 0
         m.PLAIN_LAUNCHES = 0
         m.STEP_LAUNCHES = 0
+    rot.SINGLE_STEP_LAUNCHES = 0
 
 
 def read_counts() -> dict:
-    """Rotation calls that launched each CUDA step loop, and plain calls."""
-    from oece_tpu_torch.fhe import ap, rot, std
+    """Rotation calls that launched each CUDA path (rot_steps: single
+    rotated-form steps), and plain calls."""
+    from oece_tpu_torch.fhe import ap, rev, rot, std
 
     return {
-        "rot": rot.LAUNCHES, "ap": ap.LAUNCHES, "std": std.LAUNCHES,
-        "plain": rot.PLAIN_LAUNCHES + ap.PLAIN_LAUNCHES + std.PLAIN_LAUNCHES,
+        "rot": rot.LAUNCHES, "rot_steps": rot.SINGLE_STEP_LAUNCHES, "ap": ap.LAUNCHES,
+        "std": std.LAUNCHES, "rev": rev.LAUNCHES,
+        "plain": sum(m.PLAIN_LAUNCHES for m in (ap, rev, rot, std)),
     }
 
 
 def read_step_launches(kernel: str) -> int:
-    """Launches of each CUDA kernel of one rotation's step loop."""
-    from oece_tpu_torch.fhe import ap, rot, std
+    """Launches of each CUDA kernel of one path's steps."""
+    from oece_tpu_torch.fhe import ap, rev, rot, std
 
-    return {"rot": rot, "ap": ap, "std": std}[kernel].STEP_LAUNCHES
+    if kernel == "rot_steps":
+        return rot.SINGLE_STEP_LAUNCHES
+    return {"rot": rot, "ap": ap, "std": std, "rev": rev}[kernel].STEP_LAUNCHES
 
 
 def check_only(phase: str, counts: dict, kernel: str) -> int:
@@ -186,23 +215,34 @@ def phase_build():
     print(smi.stdout.strip(), flush=True)  # name, power limit
 
 
-def _rot_inputs(p, B, n, seed):
-    """Random accumulator, random int8 rev2 (the kernel must agree with the
-    plain version on any key bytes) and valid rotation amounts with a=0
-    lanes: lane 0 all steps, and one step in five everywhere."""
+def _key_shape(p, n: int, layout: str) -> tuple:
+    """The int8 rotation key of n steps in ``layout``: rev2 (fhe/rot.py),
+    ginx_ext (fhe/std.py) or rev (fhe/rev.py)."""
+    T, R, nt = 128, 2 * p.d_g_used, p.N // 128
+    return {
+        "rev2": (n, (2 * nt - 1) * 2 * R * T, 8 * T),
+        "ginx_ext": (n, R, 16, 2 * p.N),
+        "rev": (n, (2 * nt - 1) * R * T, 16 * T),
+    }[layout]
+
+
+def rotation_inputs(p, B, n, layout, seed):
+    """Random accumulator, random int8 key bytes of n steps in ``layout`` (a
+    kernel must agree with its plain version on any key bytes) and rotation
+    amounts of the q -> 2N mod switch with a=0 lanes: lane 0 all steps,
+    and one step in five everywhere."""
     import torch
 
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
-    nt = p.N // 128
-    rows = (2 * nt - 1) * 2 * 2 * p.d_g_used * 128
     acc = torch.randint(0, p.Q, (B, 2, p.N), generator=g, device="cuda", dtype=torch.int32)
-    rev2 = torch.randint(-128, 128, (n, rows, 1024), generator=g, device="cuda", dtype=torch.int8)
+    key = torch.randint(-128, 128, _key_shape(p, n, layout), generator=g, device="cuda",
+                        dtype=torch.int8)
     scale = 2 * p.N // p.q
     a2N = scale * torch.randint(0, p.q, (B, n), generator=g, device="cuda", dtype=torch.int32)
     a2N[0] = 0
     a2N[:, ::5] = 0
-    return acc, rev2, a2N.contiguous()
+    return acc, key, a2N.contiguous()
 
 
 def phase_kernel():
@@ -220,7 +260,7 @@ def phase_kernel():
     ]
     max_err = 0
     for i, (p, B) in enumerate(cases):
-        acc, rev2, a2N = _rot_inputs(p, B, p.n, seed=100 + i)
+        acc, rev2, a2N = rotation_inputs(p, B, p.n, "rev2", seed=100 + i)
         got = rot.blind_rotate_rot(acc, rev2, a2N, p)
         want = rot.blind_rotate_rot_plain(acc, rev2, a2N, p)
         torch.cuda.synchronize()
@@ -231,7 +271,7 @@ def phase_kernel():
             fail(f"kernel != plain at {p.name} B={B}: {bad} mismatches")
         max_err = max(max_err, err)
     p = STD128_OPT
-    acc, rev2, a2N = _rot_inputs(p, 2048, 1, seed=7)
+    acc, rev2, a2N = rotation_inputs(p, 2048, 1, "rev2", seed=7)
     kernel_ms = cuda_time_ms(lambda: rot.blind_rotate_rot(acc, rev2, a2N, p), reps=20)
     plain_ms = cuda_time_ms(lambda: rot.blind_rotate_rot_plain(acc, rev2, a2N, p), reps=5)
     log("kernel", t0, f"one STD128_OPT step at B=2048: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms")
@@ -304,8 +344,9 @@ def phase_ap_kernel():
     return max_err, kernel_ms, plain_ms, bound(ops, nbytes)
 
 
-def phase_gates(phase="gates", method="GINX", B=2048, K=3):
-    """Keygen at full STD128_OPT, then K chained batches of B gates."""
+def phase_gates(phase="gates", method="GINX", B=2048, K=3, layout="rev2"):
+    """Keygen at full STD128_OPT (GINX keys in ``layout``), then K chained
+    batches of B gates through that layout's kernels only."""
     import torch
     from oece_tpu_torch.fhe import boot, devkeygen, lwe
     from oece_tpu_torch.fhe.params import STD128_OPT
@@ -313,13 +354,17 @@ def phase_gates(phase="gates", method="GINX", B=2048, K=3):
     p = STD128_OPT
     t0 = time.time()
     torch.cuda.reset_peak_memory_stats()
-    keygen = devkeygen.device_keygen_ap if method == "AP" else devkeygen.device_keygen
-    sk, keys = keygen(p, np.zeros(8, np.uint32), "cuda")
+    if method == "AP":
+        sk, keys = devkeygen.device_keygen_ap(p, np.zeros(8, np.uint32), "cuda")
+        key, kernel = keys.ap_ext, "ap"
+    else:
+        sk, keys = devkeygen.device_keygen(p, np.zeros(8, np.uint32), "cuda", layout=layout)
+        key, kernel = getattr(keys, layout), {"rev": "rev", "rev2": "rot"}[layout]
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    key = keys.ap_ext if method == "AP" else keys.rev2
-    log(phase, t0, f"{method} keygen n={p.n}: {time.time() - t0:.2f}s, key "
+    log(phase, t0, f"{method} {kernel} keygen n={p.n}: {time.time() - t0:.2f}s, key "
         f"{tuple(key.shape)}, peak device memory {peak / 2**30:.2f} GiB")
+    reset_counts()
     rng = np.random.default_rng(1)
     m1, m2 = rng.integers(0, 2, B), rng.integers(0, 2, B)
     x1 = torch.from_numpy(lwe.encrypt_bits(sk, m1, rng)).cuda()
@@ -343,28 +388,37 @@ def phase_gates(phase="gates", method="GINX", B=2048, K=3):
         # chain: next batch's inputs are this batch's outputs
         x1, x2 = out, torch.roll(x1, 1, dims=0)
         m1, m2 = want, np.roll(m1, 1)
+    check_only(phase, read_counts(), kernel)
     ms = 1e3 * float(np.mean(times[1:]))
     log(phase, t0, f"{K} chained batches of {B}, all decrypt correctly; "
         f"first {1e3 * times[0]:.1f} ms, then {ms:.1f} ms/batch = {B / ms * 1e3:.1f} bootstraps/s")
-    del keys
+    del keys, key, x1, x2, out
     torch.cuda.empty_cache()
 
 
-def phase_circuit(phase="circuit", method="GINX", host_keys=False):
-    """adder_32bit in verify mode on device keys, or on golden's host keys
-    (OECE_HOST_KEYGEN=1); returns the launches of each kernel of the
-    rotation's step loop in the Clock."""
+def phase_circuit(phase="circuit", method="GINX", host_keys=False, layout="rev2", rot_mega=True):
+    """adder_32bit in verify mode on device keys (GINX in ``layout``, under
+    OECE_LAYOUT; rev2 in one call per step with ``rot_mega`` False), or on
+    golden's host keys (OECE_HOST_KEYGEN=1); returns the launches of each
+    kernel of the rotation's steps in the Clock."""
     import torch
+    from oece_tpu_torch.fhe import boot
     from oece_tpu_torch.runtime.evaluator import Circuit
 
-    kernel = "ap" if method == "AP" else "std" if host_keys else "rot"
+    if method == "AP":
+        kernel = "ap"
+    elif host_keys:
+        kernel = "std"
+    else:
+        kernel = "rev" if layout == "rev" else "rot" if rot_mega else "rot_steps"
     t0 = time.time()
-    if host_keys:
-        os.environ["OECE_HOST_KEYGEN"] = "1"
+    env = {"OECE_HOST_KEYGEN": "1"} if host_keys else {"OECE_LAYOUT": layout}
+    os.environ.update(env)
     try:
         c = Circuit(set="STD128_OPT", method=method, seed=0, device="cuda")
     finally:
-        os.environ.pop("OECE_HOST_KEYGEN", None)
+        for k in env:
+            os.environ.pop(k)
     log(phase, t0, f"Circuit keygen {c.keygen_s:.1f}s")
     c.ReadFile(ADDER)
     c.setVerify(True)
@@ -374,10 +428,14 @@ def phase_circuit(phase="circuit", method="GINX", host_keys=False):
     bits = lambda v, w: ((v[:, None] >> np.arange(w, dtype=np.uint64)) & np.uint64(1)).astype(np.int64)
     c.SetInput([bits(a, 32), bits(b, 32)])
     reset_counts()
-    ts = time.time()
-    c.Clock()
-    torch.cuda.synchronize()
-    wall = time.time() - ts
+    mega0, boot.ROT_MEGA = boot.ROT_MEGA, rot_mega
+    try:
+        ts = time.time()
+        c.Clock()
+        torch.cuda.synchronize()
+        wall = time.time() - ts
+    finally:
+        boot.ROT_MEGA = mega0
     counts = read_counts()
     (out,) = c.GetOutput()
     sums = (out.astype(np.uint64) << np.arange(out.shape[1], dtype=np.uint64)).sum(1)
@@ -387,26 +445,9 @@ def phase_circuit(phase="circuit", method="GINX", host_keys=False):
     log(phase, t0, f"{method} adder_32bit verify T=4: sums == a+b; wall {wall:.2f}s; "
         f"bad_gate_counts {c.bad_gate_counts}; trace {c.trace.summary()}; "
         f"rotation calls {counts}, {launches} launches of each {kernel} kernel")
+    del c
+    torch.cuda.empty_cache()
     return launches
-
-
-def _std_inputs(p, B, n, seed):
-    """Random accumulator, random int8 ginx_ext bytes (the kernel must agree
-    with the plain version on any key bytes) and rotation amounts of the
-    q -> 2N mod switch with a=0 lanes: lane 0 all steps, one step in five
-    everywhere."""
-    import torch
-
-    g = torch.Generator(device="cuda")
-    g.manual_seed(seed)
-    R = 2 * p.d_g_used
-    acc = torch.randint(0, p.Q, (B, 2, p.N), generator=g, device="cuda", dtype=torch.int32)
-    ext = torch.randint(-128, 128, (n, R, 16, 2 * p.N), generator=g, device="cuda", dtype=torch.int8)
-    scale = 2 * p.N // p.q
-    a2N = scale * torch.randint(0, p.q, (B, n), generator=g, device="cuda", dtype=torch.int32)
-    a2N[0] = 0
-    a2N[:, ::5] = 0
-    return acc, ext, a2N.contiguous()
 
 
 def _max_err(got, want) -> tuple[int, int]:
@@ -446,7 +487,7 @@ def phase_std_kernel():
         (std1, 2048),
     ]
     for i, (p, B) in enumerate(cases):
-        acc, ext, a2N = _std_inputs(p, B, p.n, seed=300 + i)
+        acc, ext, a2N = rotation_inputs(p, B, p.n, "ginx_ext", seed=300 + i)
         got = std.blind_rotate_std(acc, ext, a2N, p)
         want = std.blind_rotate_std_plain(acc, ext, a2N, p)
         torch.cuda.synchronize()
@@ -498,6 +539,128 @@ def phase_std_kernel():
     return res
 
 
+def _check_same(phase: str, what: str, got, want, t0: float) -> int:
+    """Fail unless got == want bit for bit; returns max |got - want| (0)."""
+    import torch
+
+    torch.cuda.synchronize()
+    bad, err = _max_err(got, want)
+    log(phase, t0, f"{what}: mismatches {bad}, max |err| {err}")
+    if bad:
+        fail(f"{phase}: {what}: {bad} mismatches against the plain version")
+    return err
+
+
+def phase_rev_kernel():
+    """The rev rotation and its kernels #8, #9, #10 against their plain
+    versions, then a STD128_OPT step at B=2048 over 8 distinct blocks:
+    timed whole and kernel by kernel (device time), with bounds."""
+    import torch
+    from oece_tpu_torch.fhe import rev
+    from oece_tpu_torch.fhe.params import MICRO, STD128_OPT, TOY
+
+    t0 = time.time()
+    std8 = dataclasses.replace(STD128_OPT, n=8)
+    cases = [(std8, 1), (std8, 37), (std8, 256), (dataclasses.replace(MICRO, n=4), 37),
+             (dataclasses.replace(TOY, n=3), 37), (std8, 2048)]
+    err = 0
+    for i, (p, B) in enumerate(cases):
+        acc, rev_all, a2N = rotation_inputs(p, B, p.n, "rev", seed=400 + i)
+        got = rev.blind_rotate_rev(acc, rev_all, a2N, p)
+        err = max(err, _check_same("rev-kernel", f"rotation {p.name} N={p.N} n={p.n} B={B}", got,
+                                   rev.blind_rotate_rev_plain(acc, rev_all, a2N, p), t0))
+        if not torch.equal(got[0], acc[0]):
+            fail(f"rev kernel changed the a=0 lane at {p.name} B={B}")
+
+    # #8 (16 and 8 planes), #9 and #10 alone; #10 with any amount pairs
+    p, R, nt = std8, 2 * std8.d_g_used, std8.N // 128
+    g = torch.Generator(device="cuda")
+    g.manual_seed(9)
+    for B in (37, 2048):
+        acc, rev_all, _ = rotation_inputs(p, B, 1, "rev", seed=B)
+        dig = torch.randint(-128, 128, (B, nt * R * 128), generator=g, device="cuda", dtype=torch.int8)
+        half = rev_all[0, :, : 8 * 128].contiguous()
+        for blk, M in ((rev_all[0], 16), (half, 8)):
+            err = max(err, _check_same("rev-kernel", f"#8 M={M} B={B}", rev.window_matmul_true(dig, blk, R, p.Q),
+                                       rev.window_matmul_true_plain(dig, blk, p.Q), t0))
+        err = max(err, _check_same("rev-kernel", f"#9 B={B}", rev.window_matmul_dec_true(acc, rev_all[0], p),
+                                   rev.window_matmul_dec_true_plain(acc, rev_all[0], p), t0))
+        P = torch.randint(0, p.Q, (B, 2, 2, p.N), generator=g, device="cuda", dtype=torch.int32)
+        amt = torch.randint(0, 2 * p.N, (B, 2), generator=g, device="cuda", dtype=torch.int32)
+        err = max(err, _check_same("rev-kernel", f"#10 any amounts B={B}", rev.cmux_epilogue_true(P, acc, amt, p.Q),
+                                   rev.cmux_epilogue_true_plain(P, acc, amt, p.Q), t0))
+
+    # the B=2048 rotation of the last case: 8 steps, each on its own block
+    acc, rev_all, a2N = rotation_inputs(std8, 2048, 8, "rev", seed=400 + len(cases) - 1)
+    B, n = 2048, 8
+    rotate = lambda: rev.blind_rotate_rev(acc, rev_all, a2N, p)  # noqa: E731
+    res = {"step": {"max_abs_err": err, "ms": cuda_time_ms(rotate, reps=5) / n,
+                    "plain_ms": cuda_time_ms(lambda: rev.blind_rotate_rev_plain(acc, rev_all, a2N, p), reps=1) / n}}
+    names = {"digits": "decompose_kernel", "matmul": "int8_mm_kernel", "cmux": "std_cmux_kernel"}
+    dev = {k: v / n for k, v in zip(names, device_ms(rotate, 5, *names.values()))}
+    dig = torch.randint(-128, 128, (B, nt * R * 128), generator=g, device="cuda", dtype=torch.int8)
+    P4 = rev.window_matmul_true_plain(dig, rev_all[0], p.Q)
+    amt = torch.stack([(2 * p.N - a2N[:, 0]) & (2 * p.N - 1), a2N[:, 0]], dim=1).contiguous()
+    P = P4.reshape(B, 2, 2, p.N)
+    plain = {
+        "window_matmul": lambda: rev.window_matmul_true_plain(dig, rev_all[0], p.Q),
+        "matmul_dec": lambda: rev.window_matmul_dec_true_plain(acc, rev_all[0], p),
+        "cmux": lambda: rev.cmux_epilogue_true_plain(P, acc, amt, p.Q),
+    }
+    res["window_matmul"] = {"ms": dev["matmul"]}
+    res["matmul_dec"] = {"ms": dev["digits"] + dev["matmul"]}
+    res["cmux"] = {"ms": dev["cmux"]}
+    ops_mm = 2.0 * B * nt * (nt * R * 128) * 16 * 128
+    blk, acc_b, P4_b = rev_all[0].numel(), acc.numel() * 4, P4.numel() * 4
+    bounds = {  # (int8 operations, bytes) the function needs
+        "window_matmul": (ops_mm, dig.numel() + blk + P4_b),
+        "matmul_dec": (ops_mm, acc_b + blk + P4_b),
+        "cmux": (0.0, P4_b + 2 * acc_b + amt.numel() * 4),
+        "step": (ops_mm, blk + 2 * acc_b + B * 4),
+    }
+    for name, r in res.items():
+        if name in plain:
+            r.update(max_abs_err=err, plain_ms=cuda_time_ms(plain[name], reps=3))
+        r["bound_ms"], r["bound_by"] = bound(*bounds[name])
+        log("rev-kernel", t0, f"STD128_OPT B={B} {name}: kernel {r['ms']:.4f} ms"
+            f"{' on the device' if name in plain else ''}, plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return res
+
+
+def phase_rot_step():
+    """#11 against its plain version for any amount pairs; the per-step
+    rotation against the step loop; the B=2048 step time and bound."""
+    import torch
+    from oece_tpu_torch.fhe import rot
+    from oece_tpu_torch.fhe.params import MICRO_A, STD128_OPT, TOY
+
+    t0 = time.time()
+    err = 0
+    for i, (p, B) in enumerate([(STD128_OPT, 37), (MICRO_A, 37), (TOY, 37), (STD128_OPT, 2048)]):
+        acc, rev2, _ = rotation_inputs(p, B, 1, "rev2", seed=500 + i)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(i)
+        amt = torch.randint(0, 2 * p.N, (B, 2), generator=g, device="cuda", dtype=torch.int32)
+        got = rot.rot_step_true(acc, rev2[0], amt, p)
+        err = max(err, _check_same("rot-step", f"#11 {p.name} B={B}, any amounts", got,
+                                   rot.rot_step_plain(acc, rev2[0], amt, p), t0))
+    # the B=2048 step of the last case
+    step = lambda: rot.rot_step_true(acc, rev2[0], amt, p)  # noqa: E731
+    ms = cuda_time_ms(step, reps=20)
+    plain_ms = cuda_time_ms(lambda: rot.rot_step_plain(acc, rev2[0], amt, p), reps=3)
+    nt, K = p.N // 128, p.N // 128 * 4 * p.d_g_used * 128
+    bnd = bound(2.0 * B * nt * K * 8 * 128, 2 * acc.numel() * 4 + rev2[0].numel() + amt.numel() * 4)
+    log("rot-step", t0, f"one STD128_OPT step at B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+    pn = dataclasses.replace(STD128_OPT, n=8)
+    acc, rev2, a2N = rotation_inputs(pn, 37, pn.n, "rev2", seed=510)
+    got = rot.blind_rotate_rot_steps(acc, rev2, a2N, pn)
+    err = max(err, _check_same("rot-step", "blind_rotate_rot_steps vs blind_rotate_rot, n=8 B=37", got,
+                               rot.blind_rotate_rot(acc, rev2, a2N, pn), t0))
+    if not torch.equal(got[0], acc[0]):
+        fail("rot-step: the per-step rotation changed the a=0 lane")
+    return err, ms, plain_ms, bnd
 TRUTH = {
     "AND": lambda a, b: a & b, "OR": lambda a, b: a | b, "NAND": lambda a, b: 1 - (a & b),
     "NOR": lambda a, b: 1 - (a | b), "XOR": lambda a, b: a ^ b, "XNOR": lambda a, b: 1 - (a ^ b),
@@ -557,6 +720,34 @@ def phase_context(B=2048, K=3):
     return launches
 
 
+def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None) -> dict:
+    """One kernel's record in the kernels JSON line."""
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": f"oece_tpu/fhe/pallas_kernels.py:{replaces}", "launches": launches,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+        "bound_by": bnd[1], "library_ms": library_ms,
+    }
+
+
+PHASES = {
+    "kernel": phase_kernel,
+    "gates": phase_gates,
+    "circuit": phase_circuit,
+    "ap-kernel": phase_ap_kernel,
+    "ap-gates": lambda: phase_gates("ap-gates", "AP", B=1024, K=2),
+    "ap-circuit": lambda: phase_circuit("ap-circuit", "AP"),
+    "std-kernel": phase_std_kernel,
+    "context": phase_context,
+    "std-circuit": lambda: phase_circuit("std-circuit", "GINX", host_keys=True),
+    "rev-kernel": phase_rev_kernel,
+    "rot-step": phase_rot_step,
+    "rev-gates": lambda: phase_gates("rev-gates", B=1024, K=3, layout="rev"),
+    "rev-circuit": lambda: phase_circuit("rev-circuit", layout="rev"),
+    "rot-steps-circuit": lambda: phase_circuit("rot-steps-circuit", rot_mega=False),
+}
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(REPO, "oece_tpu_torch")):
         fail("run from the root of a checkout: oece_tpu_torch/ is missing")
@@ -567,36 +758,32 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
+    unknown = [a for a in sys.argv[1:] if a not in PHASES]
+    if unknown:
+        fail(f"unknown phases {unknown}: choose from {list(PHASES)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     t_all = time.time()
     phase_build()
-    rot_res = phase_kernel()
-    phase_gates()
-    launches = phase_circuit()
-    ap_res = phase_ap_kernel()
-    phase_gates("ap-gates", "AP", B=1024, K=2)
-    ap_launches = phase_circuit("ap-circuit", "AP")
-    std_res = phase_std_kernel()
-    std_launches = phase_context() + phase_circuit("std-circuit", "GINX", host_keys=True)
+    res = {name: PHASES[name]() for name in (sys.argv[1:] or PHASES)}
     print(f"total {time.time() - t_all:.1f}s", flush=True)
+    if sys.argv[1:]:
+        return
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None):
-        return {
-            "name": name, "route": "cuda", "source": source,
-            "replaces": f"oece_tpu/fhe/pallas_kernels.py:{replaces}", "launches": launches,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
-            "bound_by": bnd[1], "library_ms": library_ms,
-        }
-
+    std_res, rev_res = res["std-kernel"], res["rev-kernel"]
+    std_launches = res["context"] + res["std-circuit"]
+    fields = lambda r: (r["max_abs_err"], r["ms"], r["plain_ms"], (r["bound_ms"], r["bound_by"]))  # noqa: E731
     print(json.dumps({"kernels": [
-        entry("rot_step", "oece_tpu_torch/csrc/rot_step.cu", 1262, launches, *rot_res),
-        entry("ap_step", "oece_tpu_torch/csrc/ap_step.cu", 1457, ap_launches, *ap_res),
-        # #1 is one torch.take; no one PyTorch call computes #4, #12 or #13
-        # (each fuses the limb combine, and #12 and #13 their epilogues)
+        entry("rot_step", "oece_tpu_torch/csrc/rot_step.cu", 1262, res["circuit"], *res["kernel"]),
+        entry("ap_step", "oece_tpu_torch/csrc/ap_step.cu", 1457, res["ap-circuit"], *res["ap-kernel"]),
+        # #1 is one torch.take; no one PyTorch call computes #4, #8-#13 (each
+        # fuses the limb combine or the rotations, #11-#13 their epilogues)
         *[entry(f"std_{k}", "oece_tpu_torch/csrc/std_step.cu", line, std_launches,
-                std_res[k]["max_abs_err"], std_res[k]["ms"], std_res[k]["plain_ms"],
-                (std_res[k]["bound_ms"], std_res[k]["bound_by"]), std_res[k].get("library_ms"))
+                *fields(std_res[k]), std_res[k].get("library_ms"))
           for k, line in (("build", 71), ("matmul", 147))],
+        *[entry(f"rev_{k}", "oece_tpu_torch/csrc/std_step.cu", line, res["rev-circuit"], *fields(rev_res[k]))
+          for k, line in (("window_matmul", 757), ("matmul_dec", 816), ("cmux", 900))],
+        entry("rot_step_true", "oece_tpu_torch/csrc/rot_step.cu", 1047, res["rot-steps-circuit"],
+              *res["rot-step"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -15,19 +15,31 @@ point:
                      port calls)
   fhe/modmath.py     int32 modular arithmetic
   fhe/keys.py        the key record: GINX ginx_ext limb planes (standard
-                     form) or rev2 diagonals (rotated form), AP ap_ext limb
-                     planes; packers of golden keys, converters of JAX keys
+                     form, built per step), rev diagonals (standard form,
+                     prebuilt) or rev2 diagonals (rotated form), AP ap_ext
+                     limb planes; packers of golden keys, converters of
+                     JAX keys
   fhe/devkeygen.py   key generation on the device for both methods (sample
-                     from eight named generator streams, then assemble)
+                     from eight named generator streams, then assemble);
+                     GINX keys in layout="rev" (the default, as in JAX) or
+                     "rev2" (the Circuit default, OECE_LAYOUT)
   fhe/hostkeygen.py  golden's host keys: its draws from one numpy
                      generator, the ring products on the device
-  fhe/rot.py         the GINX rotation, rotated-difference form (device
-                     keys): plain torch version and the wrapper of
-                     csrc/rot_step.cu (replaces the Pallas _rot_megakernel)
-  fhe/std.py         the GINX rotation, standard form (host keys): plain
-                     twins and the wrapper of csrc/std_step.cu (replaces
-                     the Pallas _build_diag_kernel and
+  fhe/rot.py         the GINX rotation, rotated-difference form (rev2
+                     keys): plain torch version and the wrappers of
+                     csrc/rot_step.cu, the whole-rotation step loop
+                     (replaces the Pallas _rot_megakernel) and, under
+                     OECE_ROT_MEGA=0, one rot_step_true call per step
+                     (replaces _rot_step_true_kernel)
+  fhe/std.py         the GINX rotation, standard form on ginx_ext (host
+                     keys): plain twins and the wrapper of csrc/std_step.cu
+                     (replaces the Pallas _build_diag_kernel and
                      _diag_matmul_combine_kernel, with the CMUX epilogue)
+  fhe/rev.py         the GINX rotation, standard form on prebuilt rev
+                     blocks (device keys, OECE_LAYOUT=rev): plain twins and
+                     the wrappers of csrc/std_step.cu (replaces the Pallas
+                     _window_matmul_true_kernel, _matmul_dec_true_kernel
+                     and _cmux_epilogue_true_kernel)
   fhe/ap.py          the AP rotation: plain torch version and the wrapper of
                      csrc/ap_step.cu (replaces the Pallas _ap_megakernel);
                      the kernels share csrc/int8_mm.cuh and are built by

@@ -109,6 +109,16 @@ def load() -> ctypes.CDLL:
     lib.oece_blind_rotate_ap.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
     lib.oece_blind_rotate_std.restype = i32
     lib.oece_blind_rotate_std.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
+    lib.oece_blind_rotate_rev.restype = i32
+    lib.oece_blind_rotate_rev.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
+    lib.oece_window_matmul_true.restype = i32
+    lib.oece_window_matmul_true.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+    lib.oece_window_matmul_dec_true.restype = i32
+    lib.oece_window_matmul_dec_true.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
+    lib.oece_cmux_epilogue_true.restype = i32
+    lib.oece_cmux_epilogue_true.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+    lib.oece_rot_step.restype = i32
+    lib.oece_rot_step.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
     lib.oece_error_string.restype = ctypes.c_char_p
     lib.oece_error_string.argtypes = [ctypes.c_int]
     _lib = lib

@@ -3,17 +3,26 @@ oece_tpu.fhe.boot: the GINX paths and the binary-base AP path).
 
 eval_bin_gate_batch = prepare_gates -> q->2N mod switch -> accumulator init
 -> blind rotation -> sample extract -> Q->Q_ks mod switch -> key switch ->
-Q_ks->q.  The key layout selects the rotation: ginx_ext the standard GINX
-form (fhe/std.py; host-generated keys), rev2 the rotated-difference form
-(fhe/rot.py; device keygen), ap_ext the AP method (fhe/ap.py).  Every stage
-is exact integer arithmetic, so given the same keys and ciphertexts the
-result is bit-identical to the JAX package's and to golden.bootstrap
-(form="std" for ginx_ext, form="rot" for rev2).
+Q_ks->q.  The key layout selects the rotation, as in the JAX package's
+blind_rotate_ginx_dev:
+  ginx_ext  the standard GINX form, each step's diagonals built per step
+            (fhe/std.py; golden host keys);
+  rev       the standard GINX form on diagonals prebuilt at keygen
+            (fhe/rev.py; device keygen layout="rev", OECE_LAYOUT=rev);
+  rev2      the rotated-difference form (fhe/rot.py; device keygen
+            layout="rev2", the Circuit default): the whole-rotation step
+            loop, or with OECE_ROT_MEGA=0 (``ROT_MEGA`` False) one
+            ``rot_step_true`` call per step;
+  ap_ext    the AP method (fhe/ap.py).
+Every stage is exact integer arithmetic, so given the same keys and
+ciphertexts the result is bit-identical to the JAX package's and to
+golden.bootstrap (form="std" for ginx_ext and rev, form="rot" for rev2).
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -24,11 +33,17 @@ from .keys import BootKeys
 from .rot import (  # noqa: F401  (re-export: the gadget helpers live with the rotation)
     acc_gadget_digits_dev,
     blind_rotate_rot,
+    blind_rotate_rot_steps,
     gadget_digits_approx_dev,
     gadget_digits_dev,
     monomial_rotate,
 )
+from .rev import blind_rotate_rev
 from .std import blind_rotate_std
+
+# rev2 keys: the whole rotation as one step loop (True) or one call per
+# step (False), read at import as in the JAX package (boot.py:62).
+ROT_MEGA = os.environ.get("OECE_ROT_MEGA", "1") == "1"
 
 # gate_prepare weights (golden.gate_prepare): prep = w1*c1 + w2*c2 mod q.
 PREP_WEIGHTS = np.array(
@@ -96,9 +111,12 @@ def blind_rotation(acc: torch.Tensor, a2N: torch.Tensor, keys: BootKeys) -> torc
         return blind_rotate_ap(acc, keys.ap_ext, a2N, p)
     if keys.ginx_ext is not None:
         return blind_rotate_std(acc, keys.ginx_ext, a2N, p)
+    if keys.rev is not None:
+        return blind_rotate_rev(acc, keys.rev, a2N, p)
     if keys.rev2 is not None:
-        return blind_rotate_rot(acc, keys.rev2, a2N, p)
-    raise ValueError("keys hold no rotation key (ap_ext, ginx_ext or rev2)")
+        rotate = blind_rotate_rot if ROT_MEGA else blind_rotate_rot_steps
+        return rotate(acc, keys.rev2, a2N, p)
+    raise ValueError("keys hold no rotation key (ap_ext, ginx_ext, rev or rev2)")
 
 
 def bootstrap_batch(prep: torch.Tensor, gate_ids: torch.Tensor, keys: BootKeys) -> torch.Tensor:

@@ -1,6 +1,10 @@
 """Bootstrap key generation on the device (counterpart of
-oece_tpu.fhe.devkeygen): GINX keys in the "rev2" layout, binary-base AP keys
-in the ``ap_ext`` layout.
+oece_tpu.fhe.devkeygen): GINX keys in the "rev" layout (the standard form's
+prebuilt diagonals, JAX's default; fhe/rev.py) or the "rev2" layout (the
+rotated form's, ``Circuit``'s default; fhe/rot.py runs it as one step loop
+or, under OECE_ROT_MEGA=0, one step per call), binary-base AP keys in the
+``ap_ext`` layout.  The two GINX layouts hold the same key material: one
+seed gives the same secrets and key-switch key in both.
 
 Split in two so the arithmetic can be checked bit for bit against the JAX
 package: ``sample`` / ``sample_ap`` draw the secrets, masks and noise from
@@ -163,15 +167,26 @@ def ap_refresh_keys(params: BinFHEParams, s, z, A, E) -> torch.Tensor:
     return _rgsw_rows(p, z, A, E, mg.to(torch.int32))
 
 
-def assemble(params: BinFHEParams, s, z, A, E, Aks, Eks) -> keys_mod.BootKeys:
-    """Deterministic GINX key assembly from the sampled material."""
+GINX_LAYOUTS = ("rev", "rev2")
+
+
+def _check_layout(layout: str) -> None:
+    if layout not in GINX_LAYOUTS:
+        raise ValueError(f"unknown GINX key layout {layout!r}: want one of {GINX_LAYOUTS}")
+
+
+def assemble(params: BinFHEParams, s, z, A, E, Aks, Eks, layout: str = "rev") -> keys_mod.BootKeys:
+    """Deterministic GINX key assembly from the sampled material, with the
+    refresh keys expanded into ``layout`` ("rev" or "rev2")."""
+    _check_layout(layout)
     p = params
+    build = keys_mod.build_rev if layout == "rev" else keys_mod.build_rev2
     return keys_mod.BootKeys(
         params=p,
         ksk=keyswitch_key(p, s, z, Aks, Eks),
         tv_table=keys_mod.tv_table(p, device=A.device),
         method=BinFHEMethod.GINX,
-        rev2=keys_mod.build_rev2(refresh_keys(p, s, z, A, E), p.Q),
+        **{layout: build(refresh_keys(p, s, z, A, E), p.Q)},
     )
 
 
@@ -191,15 +206,17 @@ def _secret_key(params: BinFHEParams, s: torch.Tensor) -> golden.LWESecretKey:
     return golden.LWESecretKey(s=s.cpu().numpy().astype(np.int64), params=params)
 
 
-def device_keygen(params: BinFHEParams, seed_words=None, device="cuda"):
-    """Generate GINX rev2 keys on ``device`` (the card unless the caller
-    asks for the CPU).  Returns (sk_host, keys): the
-    LWE secret comes back to the host (n int8 values) for host-side
-    encryption and decryption; the keys stay on the device."""
+def device_keygen(params: BinFHEParams, seed_words=None, device="cuda", layout: str = "rev"):
+    """Generate GINX keys on ``device`` (the card unless the caller asks
+    for the CPU) in ``layout``: "rev" (the default, as in the JAX package)
+    or "rev2".  Returns (sk_host, keys): the LWE secret comes back to the
+    host (n int8 values) for host-side encryption and decryption; the keys
+    stay on the device."""
+    _check_layout(layout)
     if params.N % keys_mod.TILE:
-        raise ValueError("rev2 keys need N % 128 == 0")
+        raise ValueError(f"{layout} keys need N % 128 == 0")
     draws = sample(params, seed_generators(seed_words, device))
-    return _secret_key(params, draws[0]), assemble(params, *draws)
+    return _secret_key(params, draws[0]), assemble(params, *draws, layout=layout)
 
 
 def device_keygen_ap(params: BinFHEParams, seed_words=None, device="cuda"):

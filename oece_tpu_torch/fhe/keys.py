@@ -1,4 +1,4 @@
-"""Bootstrap key tensors of the three blind rotations.
+"""Bootstrap key tensors of the blind rotations.
 
 Counterpart of ``oece_tpu.fhe.boot.DeviceBootKeys`` restricted to what the
 port's rotations read (T = 128, nt = N/T, R = 2*d_g_used, L = 4 limbs):
@@ -10,7 +10,14 @@ port's rotations read (T = 128, nt = N/T, R = 2*d_g_used, L = 4 limbs):
              builds before the TPU's byte-phase window packing (the
              ``ginx_pallas`` layout).  65.8 MB at STD128_OPT, 134 MB at
              STD128.
-  rev2     : GINX, rotated-difference form (fhe/rot.py).  int8
+  rev      : GINX, standard form on prebuilt diagonals (fhe/rev.py).  int8
+             [n, (2*nt-1)*R*T, 16*T]  every step's ginx_ext block expanded
+             once at keygen: row (d', r, u) at d'*RT + r*T + u, column
+             (m, t) at m*T + t with plane m = (part*2 + out)*4 + limb
+             (``rev_block``).  The layout of oece_tpu's devkeygen "rev",
+             the default of its ``device_keygen``.  7.9 GB at STD128_OPT.
+  rev2     : GINX, rotated-difference form (fhe/rot.py: one step loop, or
+             one rot_step_true call per step under OECE_ROT_MEGA=0).  int8
              [n, (2*nt-1)*2*R*T, 8*T]  part-interleaved prebuilt reversed
              diagonals of every step's RGSW key pair; row (d', part, r, u)
              sits at d'*2RT + part*RT + r*T + u, column (out, limb, t) at
@@ -26,15 +33,18 @@ port's rotations read (T = 128, nt = N/T, R = 2*d_g_used, L = 4 limbs):
 
 The two GINX forms give different ciphertext bits for the same golden keys
 (golden.blind_rotate_ginx against blind_rotate_ginx_rot), so each key
-layout selects its own rotation (fhe/boot.py).
+layout selects its own rotation (fhe/boot.py): ginx_ext and rev the
+standard form, rev2 the rotated form.
 
-``pack_bootstrap_key`` packs a golden ``BootstrapKey`` (the port's
-``fhe/golden.py`` record) as the JAX package does on an accelerator (GINX
--> ginx_ext, binary-base AP -> ap_ext); ``pack_rotated_form`` packs GINX
-golden keys into rev2 instead.  ``from_jax`` carries keys made by the JAX
-package across (numpy copies; the TPU's windows are unpacked), translating
-its params by field and its method by name: it is the one place where a
-record of the JAX package enters the port.
+``build_rev`` and ``build_rev2`` expand GINX refresh keys into rev and
+rev2 one step at a time (fhe/devkeygen.py).  ``pack_bootstrap_key``
+packs a golden ``BootstrapKey`` (the port's ``fhe/golden.py`` record) as
+the JAX package does on an accelerator (GINX -> ginx_ext, binary-base AP
+-> ap_ext); ``pack_rotated_form`` packs GINX golden keys into rev2
+instead.  ``from_jax`` carries keys made by the JAX package across (numpy
+copies; the TPU's windows are unpacked), translating its params by field
+and its method by name: it is the one place where a record of the JAX
+package enters the port.
 """
 
 from __future__ import annotations
@@ -63,6 +73,7 @@ class BootKeys:
     ksk: torch.Tensor
     tv_table: torch.Tensor
     method: BinFHEMethod = BinFHEMethod.GINX
+    rev: Optional[torch.Tensor] = None
     rev2: Optional[torch.Tensor] = None
     ap_ext: Optional[torch.Tensor] = None
     ginx_ext: Optional[torch.Tensor] = None
@@ -72,7 +83,7 @@ class BootKeys:
             return None if t is None else t.to(device)
 
         return dataclasses.replace(
-            self, ksk=move(self.ksk), tv_table=move(self.tv_table),
+            self, ksk=move(self.ksk), tv_table=move(self.tv_table), rev=move(self.rev),
             rev2=move(self.rev2), ap_ext=move(self.ap_ext), ginx_ext=move(self.ginx_ext),
         )
 
@@ -146,6 +157,21 @@ def build_rev2(brk: torch.Tensor, Q: int) -> torch.Tensor:
     return out
 
 
+def build_rev(brk: torch.Tensor, Q: int) -> torch.Tensor:
+    """brk int32 [n, part=2, R, out=2, N] mod Q -> rev int8
+    [n, (2nt-1)*R*T, 16*T]: each step's ginx_ext planes through
+    ``rev_block``, built one step at a time as ``build_rev2`` is."""
+    n, _, R, _, N = brk.shape
+    assert N % TILE == 0, "rev needs N % 128 == 0"
+    idx = rev_index(N, brk.device)
+    out = torch.empty(
+        (n, idx.shape[0] * R * TILE, 16 * TILE), dtype=torch.int8, device=brk.device,
+    )
+    for i in range(n):
+        out[i] = rev_block(ginx_ext_planes(brk[i : i + 1], Q)[0], idx)
+    return out
+
+
 def ginx_ext_planes(brk: torch.Tensor, Q: int) -> torch.Tensor:
     """GINX refresh keys int32 [n, part=2, R, out=2, N] mod Q -> ginx_ext
     int8 [n, R, 16, 2N], plane (part*2 + out)*4 + limb."""
@@ -180,9 +206,9 @@ def unpack_windows(wins: np.ndarray, R: int, M: int, N: int) -> torch.Tensor:
 
 
 def from_jax(dkeys) -> BootKeys:
-    """Numpy copies of a JAX ``DeviceBootKeys``: GINX keys in the rev2
-    layout or the ``ginx_pallas`` windows, or binary-base AP keys in the
-    ``ap_pallas`` windows."""
+    """Numpy copies of a JAX ``DeviceBootKeys``: GINX keys in the rev or
+    rev2 layout or the ``ginx_pallas`` windows, or binary-base AP keys in
+    the ``ap_pallas`` windows."""
     p = BinFHEParams(**{f.name: getattr(dkeys.params, f.name)
                         for f in dataclasses.fields(BinFHEParams)})
     method = BinFHEMethod[dkeys.method.name]
@@ -197,12 +223,14 @@ def from_jax(dkeys) -> BootKeys:
             raise ValueError("from_jax needs binary-base AP keys in the ap_pallas layout")
         wins = np.array(dkeys.ap_pallas, dtype=np.int32)
         return BootKeys(**common, ap_ext=unpack_windows(wins, R, 8, p.N))
+    if dkeys.ginx_rev is not None:
+        return BootKeys(**common, rev=torch.from_numpy(np.array(dkeys.ginx_rev, dtype=np.int8)))
     if dkeys.ginx_rev2 is not None:
         return BootKeys(**common, rev2=torch.from_numpy(np.array(dkeys.ginx_rev2, dtype=np.int8)))
     if dkeys.ginx_pallas is not None:
         wins = np.array(dkeys.ginx_pallas, dtype=np.int32)
         return BootKeys(**common, ginx_ext=unpack_windows(wins, R, 16, p.N))
-    raise ValueError("from_jax needs GINX keys in the rev2 or ginx_pallas layout")
+    raise ValueError("from_jax needs GINX keys in the rev, rev2 or ginx_pallas layout")
 
 
 def _ksk_and_tv(bk, p: BinFHEParams, device) -> dict:

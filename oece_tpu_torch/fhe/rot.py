@@ -11,8 +11,19 @@ step's rev2 diagonals, followed by the Horner combine of the 4 key limbs.
 
 ``blind_rotate_rot`` dispatches on the device of its tensors: CPU tensors
 take ``blind_rotate_rot_plain`` (torch ops), CUDA tensors launch the
-hand-written kernel of ``csrc/rot_step.cu`` or raise.  ``LAUNCHES`` and
-``PLAIN_LAUNCHES`` count the calls that reached each version.
+hand-written step loop of ``csrc/rot_step.cu`` or raise.
+
+``rot_step_true`` is one step for any amount pair (c_pos, c_neg) per gate,
+the counterpart of Pallas kernel #11 ``pallas_kernels.rot_step_true``
+(``_rot_step_true_kernel``); ``blind_rotate_rot_steps`` is a Python loop of
+it, the lax.scan that the JAX package runs under ``OECE_ROT_MEGA=0``
+(boot.py:464-469).  Its plain twin is ``rot_step_plain``.
+
+``LAUNCHES`` counts the ``blind_rotate_rot`` calls that launched the step
+loop, ``STEP_LAUNCHES`` the launches of each kernel of that loop (one per
+step), ``SINGLE_STEP_LAUNCHES`` the ``rot_step_true`` calls that launched
+``oece_rot_step`` (its two kernels once each), and ``PLAIN_LAUNCHES`` the
+calls of either that ran the plain version.
 """
 
 from __future__ import annotations
@@ -27,9 +38,10 @@ from .params import BinFHEParams
 
 TILE = 128
 
-LAUNCHES = 0  # calls that launched the CUDA kernel (one per rotation)
+LAUNCHES = 0  # blind_rotate_rot calls that launched the CUDA step loop
 PLAIN_LAUNCHES = 0  # calls that ran the plain torch version
 STEP_LAUNCHES = 0  # launches of each kernel of the CUDA step loop (one per step)
+SINGLE_STEP_LAUNCHES = 0  # rot_step_true calls that launched oece_rot_step
 
 
 def gadget_digits_dev(x: torch.Tensor, B: int, d: int) -> torch.Tensor:
@@ -92,16 +104,21 @@ def tile_digits(x: torch.Tensor, p: BinFHEParams) -> torch.Tensor:
     return digs.reshape(B, -1)
 
 
-def rot_diff_digits(acc: torch.Tensor, a_col: torch.Tensor, p: BinFHEParams) -> torch.Tensor:
-    """Digits of both parts' rotated differences, int8 [B, nt*2R*T] at
-    column j*2RT + part*RT + (poly*d_used + digit)*T + u for coefficient
-    j*T + u (the rev2 row order)."""
+def amount_pairs(a: torch.Tensor, N: int) -> torch.Tensor:
+    """Rotation amounts a in [0, 2N), any shape -> the GINX pair
+    (c_pos, c_neg) = ((2N - a) mod 2N, a), int32 [..., 2]."""
+    return torch.stack([(2 * N - a) & (2 * N - 1), a], dim=-1)
+
+
+def rot_diff_digits(acc: torch.Tensor, amt: torch.Tensor, p: BinFHEParams) -> torch.Tensor:
+    """Digits of both parts' rotated differences (X^amt[b, part] acc - acc)
+    mod Q, int8 [B, nt*2R*T] at column j*2RT + part*RT + (poly*d_used +
+    digit)*T + u for coefficient j*T + u (the rev2 row order)."""
     B, _, N = acc.shape
     Q = p.Q
-    c_pos = (2 * N - a_col) & (2 * N - 1)
     parts = []
-    for c in (c_pos, a_col):
-        diff = monomial_rotate(acc, c, N, Q) - acc
+    for part in (0, 1):
+        diff = monomial_rotate(acc, amt[:, part], N, Q) - acc
         diff = torch.where(diff < 0, diff + Q, diff)
         parts.append(tile_digits(diff, p).reshape(B, N // TILE, -1))
     return torch.stack(parts, dim=2).reshape(B, -1)
@@ -128,10 +145,11 @@ def tile_products(dig: torch.Tensor, rev: torch.Tensor, Q: int) -> torch.Tensor:
 
 
 def rot_step_plain(
-    acc: torch.Tensor, a_col: torch.Tensor, rev2_i: torch.Tensor, p: BinFHEParams
+    acc: torch.Tensor, rev2_i: torch.Tensor, amt: torch.Tensor, p: BinFHEParams
 ) -> torch.Tensor:
-    """One step: red31(acc + both parts' products)."""
-    return red31(acc + tile_products(rot_diff_digits(acc, a_col, p), rev2_i, p.Q), p.Q)
+    """One step for the amount pair amt int32 [B, 2]: red31(acc + both
+    parts' products)."""
+    return red31(acc + tile_products(rot_diff_digits(acc, amt, p), rev2_i, p.Q), p.Q)
 
 
 def blind_rotate_rot_plain(
@@ -141,8 +159,9 @@ def blind_rotate_rot_plain(
     [n, (2nt-1)*2R*T, 8T], a2N int32 [B, n] in [0, 2N)."""
     global PLAIN_LAUNCHES
     PLAIN_LAUNCHES += 1
+    amt = amount_pairs(a2N, acc.shape[-1])  # [B, n, 2]
     for i in range(rev2_all.shape[0]):
-        acc = rot_step_plain(acc, a2N[:, i], rev2_all[i], p)
+        acc = rot_step_plain(acc, rev2_all[i], amt[:, i], p)
     return acc
 
 
@@ -162,16 +181,17 @@ def check_operands(name: str, acc, key, a2N) -> None:
         raise ValueError(f"{name}: bad accumulator shape {tuple(acc.shape)}")
 
 
-def _check(acc, rev2_all, a2N, p: BinFHEParams) -> None:
-    check_operands("blind_rotate_rot", acc, rev2_all, a2N)
+def _check(acc, rev2, amounts, p: BinFHEParams, name="blind_rotate_rot", one_step=False) -> None:
+    """Whole rotations take rev2 [n, rows, 8T] and a2N [B, n]; one step
+    takes its block [rows, 8T] and amount pairs [B, 2]."""
+    check_operands(name, acc, rev2, amounts)
     B, _, N = acc.shape
-    nt = N // TILE
-    rows = (2 * nt - 1) * 2 * 2 * p.d_g_used * TILE
-    n = rev2_all.shape[0]
-    if N != p.N or rev2_all.shape[1:] != (rows, 8 * TILE) or a2N.shape != (B, n):
+    block = ((2 * (N // TILE) - 1) * 2 * 2 * p.d_g_used * TILE, 8 * TILE)
+    want = (block, (B, 2)) if one_step else ((rev2.shape[0], *block), (B, rev2.shape[0]))
+    if N != p.N or (rev2.shape, amounts.shape) != want:
         raise ValueError(
-            f"blind_rotate_rot: bad shapes acc {tuple(acc.shape)}, rev2 "
-            f"{tuple(rev2_all.shape)}, a2N {tuple(a2N.shape)} for N={p.N}"
+            f"{name}: bad shapes acc {tuple(acc.shape)}, rev2 "
+            f"{tuple(rev2.shape)}, amounts {tuple(amounts.shape)} for N={p.N}"
         )
 
 
@@ -212,3 +232,69 @@ def blind_rotate_rot(
     if acc.device.type != "cuda":
         raise ValueError(f"blind_rotate_rot: no kernel for device {acc.device}")
     return _blind_rotate_rot_cuda(acc, rev2_all, a2N, p)
+
+
+def _rot_step_cuda(acc, rev2_i, amt, p: BinFHEParams, out) -> torch.Tensor:
+    global SINGLE_STEP_LAUNCHES
+    if out is None:
+        out = torch.empty_like(acc)
+    elif (out.shape != acc.shape or out.dtype != acc.dtype or out.device != acc.device
+          or not out.is_contiguous()):
+        raise ValueError("rot_step_true: out must be a contiguous tensor like acc")
+    else:
+        lo, hi = acc.data_ptr(), acc.data_ptr() + acc.numel() * 4
+        if out.data_ptr() < hi and lo < out.data_ptr() + out.numel() * 4:
+            raise ValueError("rot_step_true: out must not overlap acc")
+    B, _, N = acc.shape
+    if B == 0:
+        return out
+    lib = _build.load()
+    dig = torch.empty((B, N // TILE * 2 * 2 * p.d_g_used * TILE), dtype=torch.int8, device=acc.device)
+    rc = lib.oece_rot_step(
+        acc.data_ptr(), out.data_ptr(), dig.data_ptr(), rev2_i.data_ptr(), amt.data_ptr(),
+        B, N, p.d_g_used, int(math.log2(p.B_g)), p.g_shift, p.Q,
+        torch.cuda.current_stream(acc.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"rot_step.cu launch failed: {lib.oece_error_string(rc).decode()}")
+    SINGLE_STEP_LAUNCHES += 1
+    return out
+
+
+def rot_step_true(
+    acc: torch.Tensor, rev2_i: torch.Tensor, amt: torch.Tensor, p: BinFHEParams, out=None
+) -> torch.Tensor:
+    """#11: one step, acc int32 [B, 2, N] in [0, Q), the step's block
+    rev2_i int8 [(2nt-1)*2R*T, 8T] and any amount pair amt int32 [B, 2] in
+    [0, 2N) -> the next accumulator, written to ``out`` when given (on the
+    card it must not overlap acc).  CPU tensors run ``rot_step_plain``;
+    CUDA tensors launch ``oece_rot_step`` (or raise)."""
+    global PLAIN_LAUNCHES
+    _check(acc, rev2_i, amt, p, name="rot_step_true", one_step=True)
+    if acc.device.type == "cpu":
+        PLAIN_LAUNCHES += 1
+        res = rot_step_plain(acc, rev2_i, amt, p)
+        return res if out is None else out.copy_(res)
+    if acc.device.type != "cuda":
+        raise ValueError(f"rot_step_true: no kernel for device {acc.device}")
+    return _rot_step_cuda(acc, rev2_i, amt, p, out)
+
+
+def blind_rotate_rot_steps(
+    acc: torch.Tensor, rev2_all: torch.Tensor, a2N: torch.Tensor, p: BinFHEParams
+) -> torch.Tensor:
+    """The whole rotation as a Python loop of ``rot_step_true``, one call
+    per step, as the JAX package's ``OECE_ROT_MEGA=0`` scan: the same
+    values as ``blind_rotate_rot``.  On the card the accumulator ping-pongs
+    between two buffers; acc itself is not written."""
+    _check(acc, rev2_all, a2N, p, name="blind_rotate_rot_steps")
+    if acc.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"blind_rotate_rot_steps: no kernel for device {acc.device}")
+    n = rev2_all.shape[0]
+    if n == 0:
+        return acc.clone()
+    amt = amount_pairs(a2N.t(), p.N).contiguous()  # [n, B, 2]
+    bufs = (torch.empty_like(acc), torch.empty_like(acc)) if acc.is_cuda else (None, None)
+    for i in range(n):
+        acc = rot_step_true(acc, rev2_all[i], amt[i], p, out=bufs[i % 2])
+    return acc

@@ -18,7 +18,8 @@ function (it skips a = 0 steps; the step is an identity there).
 The plain twins, one per kernel of ``csrc/std_step.cu``:
 ``build_diagonals_plain`` (#1), ``diag_matmul_combine_plain`` (#4) and
 ``cmux_epilogue_plain`` (the jnp epilogue), composed by
-``blind_rotate_std_plain``.  The dispatcher ``blind_rotate_std`` runs the
+``blind_rotate_std_plain``.  After the build, a step is the step of
+fhe/rev.py on a block prebuilt at keygen (``rev.rev_step_plain``).  The dispatcher ``blind_rotate_std`` runs the
 plain version for CPU tensors and launches the CUDA step loop for CUDA
 tensors, or raises.  ``LAUNCHES`` / ``PLAIN_LAUNCHES`` count the rotation
 calls that reached each version; ``STEP_LAUNCHES`` counts the launches of
@@ -33,9 +34,9 @@ import torch
 
 from . import _build
 from .keys import TILE, rev_block, rev_index
-from .modmath import red31
 from .params import BinFHEParams
-from .rot import check_operands, monomial_rotate, tile_digits, tile_products
+from .rev import cmux_epilogue_true_plain, rev_step_plain
+from .rot import amount_pairs, check_operands, tile_products
 
 LAUNCHES = 0  # blind_rotate_std calls that launched the CUDA step loop
 PLAIN_LAUNCHES = 0  # blind_rotate_std calls that ran the plain version
@@ -59,20 +60,14 @@ def cmux_epilogue_plain(
 ) -> torch.Tensor:
     """red31(acc + X^{2N-a} P0 + X^a P1 + 2Q - P0 - P1) (boot.py:358-363)."""
     B, _, N = acc.shape
-    P = P4.reshape(B, 2, 2, N)
-    c_pos = (2 * N - a_col) & (2 * N - 1)
-    rot_pos = monomial_rotate(P[:, 0], c_pos, N, Q)
-    rot_neg = monomial_rotate(P[:, 1], a_col, N, Q)
-    return red31(acc + rot_pos + rot_neg + (2 * Q - P[:, 0] - P[:, 1]), Q)
+    return cmux_epilogue_true_plain(P4.reshape(B, 2, 2, N), acc, amount_pairs(a_col, N), Q)
 
 
 def std_step_plain(
     acc: torch.Tensor, a_col: torch.Tensor, ext_i: torch.Tensor, idx: torch.Tensor,
     p: BinFHEParams,
 ) -> torch.Tensor:
-    block = build_diagonals_plain(ext_i, idx)
-    P4 = diag_matmul_combine_plain(tile_digits(acc, p), block, p.Q)
-    return cmux_epilogue_plain(acc, P4, a_col, p.Q)
+    return rev_step_plain(acc, a_col, build_diagonals_plain(ext_i, idx), p)
 
 
 def blind_rotate_std_plain(

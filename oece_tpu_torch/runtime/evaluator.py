@@ -16,12 +16,16 @@ generator state, a run reproduces the JAX package's ciphertexts bit for bit.
 
 Both blind-rotation methods run: GINX, and AP with the binary rotation
 base (B_r = 2, as STD128 and STD128_OPT have it), each on device-generated
-keys (GINX in the rotated-difference form, fhe/rot.py).  With
-``OECE_HOST_KEYGEN=1`` in the environment, as in the JAX package, the keys
-are golden's host keys instead, drawn from ``self._rng`` (the LWE secret,
-then golden.bootstrap_keygen's draws, no seed words) and packed as the
-JAX package packs them on an accelerator: GINX then runs the standard
-form (fhe/std.py, Pallas kernels #1 and #4), AP its ap_ext kernel.  Not ported yet (each raises NotImplementedError naming its ROADMAP
+keys.  As in the JAX package, ``OECE_LAYOUT`` picks the device GINX key
+layout (default "rev2", the rotated-difference form of fhe/rot.py, run as
+one step loop, or one call per step under ``OECE_ROT_MEGA=0``; "rev", the
+standard form on prebuilt diagonals of fhe/rev.py; any other value
+raises).  With ``OECE_HOST_KEYGEN=1`` in the environment, as in the JAX
+package, the keys are golden's host keys instead, drawn from ``self._rng``
+(the LWE secret, then golden.bootstrap_keygen's draws, no seed words) and
+packed as the JAX package packs them on an accelerator: GINX then runs the
+standard form (fhe/std.py, Pallas kernels #1 and #4), AP its ap_ext
+kernel.  Not ported yet (each raises NotImplementedError naming its ROADMAP
 item): the generic-base AP method (B_r != 2), setRecovery(True) and the
 automatic recovery of pure-encrypted runs, xor_mode="compound", and
 circuits with DFF state.  A pure-encrypted Clock() (encrypted without
@@ -138,11 +142,13 @@ class Circuit:
                     np.asarray(self._rng.integers(0, 2**32, size=8), dtype=np.uint32)
                     if seed is not None else None
                 )
-                keygen = (
-                    devkeygen.device_keygen_ap if self.method == BinFHEMethod.AP
-                    else devkeygen.device_keygen
-                )
-                self.sk, self.keys = keygen(self.params, words, self.device)
+                if self.method == BinFHEMethod.AP:
+                    self.sk, self.keys = devkeygen.device_keygen_ap(self.params, words, self.device)
+                else:
+                    self.sk, self.keys = devkeygen.device_keygen(
+                        self.params, words, self.device,
+                        layout=os.environ.get("OECE_LAYOUT", "rev2"),
+                    )
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.keygen_s = time.time() - t0

@@ -1,8 +1,10 @@
 """Key generation of the port (oece_tpu_torch.fhe.devkeygen) on the CPU.
 
-``assemble`` fed the JAX keygen's own threefry draws (the PRF splits of
-oece_tpu.fhe.devkeygen) must reproduce ``_keygen_jit(..., "rev2")`` bit for
-bit; the port's own ``sample`` (torch.Generator) must give working keys."""
+``assemble(..., layout="rev2")`` fed the JAX keygen's own threefry draws
+(the PRF splits of oece_tpu.fhe.devkeygen) must reproduce
+``_keygen_jit(..., "rev2")`` bit for bit (tests/test_torch_rev.py holds
+the "rev" layout); the port's own ``sample`` (torch.Generator) must give
+working keys."""
 
 import dataclasses
 
@@ -40,7 +42,7 @@ def _jax_draws(p, seed_words):
 def test_assemble_matches_jax_keygen(params):
     words = jdevkeygen._seed_words(1234)
     s, z, rev2, ksk = jdevkeygen._keygen_jit(jax_params(params), jnp.asarray(words), "rev2")
-    kt = devkeygen.assemble(params, *_jax_draws(params, words))
+    kt = devkeygen.assemble(params, *_jax_draws(params, words), layout="rev2")
     np.testing.assert_array_equal(kt.rev2.numpy(), np.asarray(rev2))
     np.testing.assert_array_equal(kt.ksk.numpy(), np.asarray(ksk))
     tv = np.stack([golden.make_test_vector(jax_params(params), JGate[g.name]) for g in keys.GATE_ORDER])
@@ -62,8 +64,8 @@ def test_negacyclic_by_ternary_matches_golden():
 @pytest.mark.parametrize("params", [MICRO, MICRO_A], ids=lambda p: p.name)
 def test_own_sampling_gives_working_keys(params):
     words = np.arange(8, dtype=np.uint32)
-    sk, kt = devkeygen.device_keygen(params, words, "cpu")
-    sk2, kt2 = devkeygen.device_keygen(params, words, "cpu")
+    sk, kt = devkeygen.device_keygen(params, words, "cpu", layout="rev2")
+    sk2, kt2 = devkeygen.device_keygen(params, words, "cpu", layout="rev2")
     np.testing.assert_array_equal(sk.s, sk2.s)  # deterministic in the seed
     assert torch.equal(kt.rev2, kt2.rev2) and torch.equal(kt.ksk, kt2.ksk)
     assert set(np.unique(sk.s)) <= {-1, 0, 1}
@@ -94,7 +96,7 @@ def test_ap_and_ginx_keygen_share_secrets():
     for x, y in zip(g[:2] + g[4:], a[:2] + a[4:]):  # s, z, Aks, Eks
         assert torch.equal(x, y)
     assert g[2].shape != a[2].shape  # the refresh-key masks differ by method
-    sk_g, kt_g = devkeygen.device_keygen(p, words, "cpu")
+    sk_g, kt_g = devkeygen.device_keygen(p, words, "cpu", layout="rev2")
     sk_a, kt_a = devkeygen.device_keygen_ap(p, words, "cpu")
     np.testing.assert_array_equal(sk_g.s, sk_a.s)
     assert torch.equal(kt_g.ksk, kt_a.ksk)
