@@ -78,7 +78,7 @@ NAMES = {"build": "rev_build_kernel", "digits": "decompose_kernel",
 
 def _parts_us(fn, steps: int, names) -> dict:
     """Device µs per step of each kernel in ``names`` inside fn."""
-    ms_each = cs.device_ms(fn, 10, *[NAMES[k] for k in names])
+    ms_each = cs.device_ms(fn, 10, *[NAMES[k] for k in names], per_call=steps)
     return {k: 1e3 * v / steps for k, v in zip(names, ms_each)}
 
 

@@ -69,10 +69,26 @@ before the result lines):
              the rotation through the rev kernels only.
  15. rot-steps-circuit  adder_32bit verify T=4 with boot.ROT_MEGA off
              (OECE_ROT_MEGA=0): one rot_step_true launch per step only.
+ 16. neg-kernel  the kernel-level API of fhe/negacyclic.py at STD128_OPT
+             widths (N=1024, R=4, M=16; M=8 too at B=13), B = 4, 13, 2048,
+             random int8 digits and keys: #1 alone, #2 (#8's kernel), #3,
+             #5, #6 (#10's kernel), #7 and the split and window pipelines
+             against their plain twins, bit-exact, through the CUDA route
+             only; #5 == #3 on #1's block.  Device time of each kernel at
+             B = 4 and 2048 (#3 at B = 4 also over 8 blocks from HBM),
+             plain times, bounds, and the library calls: torch._int_mm
+             against the materialized negacyclic matrix for #3/#5 (at
+             B=2048: it needs more than 16 rows), one torch.take for #7.
+ 17. profile-boot  the step profiler oece_tpu_torch/tools/profile_boot.py
+             at full width (golden host keys, seed 0; B=1024, all 502
+             steps), scans A-I through its own entry points; scan A ==
+             std.blind_rotate_std on the same inputs, one step of scan G
+             combined == #4's P4.
 
-Each main-path run (phases 4, 7, 9, 10, 14 and 15) sets every launch count
-to 0 just before it and reads the counts just after: the rotation calls
-that reached each version, and each CUDA kernel's launches (one per step).
+Each main-path run (phases 4, 7, 9, 10, 14, 15 and 17) sets every launch
+count to 0 just before it and reads the counts just after: the rotation
+calls that reached each version, and each CUDA kernel's launches (one per
+step; in phase 17 one per call of a kernel of fhe/negacyclic.py).
 The last two lines are the kernels' JSON record and {"ok": true,
 "device": {...}}.  JAX and the JAX package are blocked from being
 imported.  ``python3 chip_smoke.py PHASE ...`` runs the build and the
@@ -97,6 +113,11 @@ ADDER = os.path.join(REPO, "examples", "old_bristol_ckts", "arith", "adder_32bit
 INT8_OPS_PER_S = 1979e12
 HBM_BYTES_PER_S = 3.35e12
 
+# device_ms: the host's wait on each edge of a profile window, and how many
+# windows in a row may miss a timed launch's record before it fails.
+EDGE_S = 0.05
+WINDOWS = 3
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
@@ -116,24 +137,28 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
 
 def reset_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
-    from oece_tpu_torch.fhe import ap, rev, rot, std
+    from oece_tpu_torch.fhe import ap, negacyclic, rev, rot, std
 
     for m in (ap, rev, rot, std):
         m.LAUNCHES = 0
         m.PLAIN_LAUNCHES = 0
         m.STEP_LAUNCHES = 0
     rot.SINGLE_STEP_LAUNCHES = 0
+    for k in negacyclic.KERNELS:
+        negacyclic.LAUNCHES[k] = negacyclic.PLAIN_LAUNCHES[k] = 0
 
 
 def read_counts() -> dict:
     """Rotation calls that launched each CUDA path (rot_steps: single
-    rotated-form steps), and plain calls."""
-    from oece_tpu_torch.fhe import ap, rev, rot, std
+    rotated-form steps), calls of fhe/negacyclic.py's wrappers that
+    launched, and plain calls."""
+    from oece_tpu_torch.fhe import ap, negacyclic, rev, rot, std
 
     return {
         "rot": rot.LAUNCHES, "rot_steps": rot.SINGLE_STEP_LAUNCHES, "ap": ap.LAUNCHES,
-        "std": std.LAUNCHES, "rev": rev.LAUNCHES,
-        "plain": sum(m.PLAIN_LAUNCHES for m in (ap, rev, rot, std)),
+        "std": std.LAUNCHES, "rev": rev.LAUNCHES, "neg": sum(negacyclic.LAUNCHES.values()),
+        "plain": sum(m.PLAIN_LAUNCHES for m in (ap, rev, rot, std))
+        + sum(negacyclic.PLAIN_LAUNCHES.values()),
     }
 
 
@@ -155,31 +180,52 @@ def check_only(phase: str, counts: dict, kernel: str) -> int:
     return read_step_launches(kernel)
 
 
-def device_ms(fn, reps: int, *kernels: str) -> list[float]:
+def device_ms(fn, reps: int, *kernels: str, per_call: int = 1) -> list[float]:
     """Device time per call of fn spent in the CUDA kernels whose name
-    contains each of ``kernels`` (torch.profiler): for kernels shorter than
-    the host's launch overhead, where back-to-back CUDA events time the
-    host instead."""
+    contains each of ``kernels`` (torch.profiler), each launched
+    ``per_call`` times per call: for kernels shorter than the host's launch
+    overhead, where back-to-back CUDA events time the host instead.
+
+    The profiler keeps only the kernels whose device timestamps fall
+    inside its capture window, which opens and closes on the host's clock;
+    on the card's machine the device timestamps can read earlier than the
+    host's, so the window's first launch is often lost (PERF.md §6).  A
+    fill kernel goes first and the host then waits ``EDGE_S`` on each edge
+    of the window, so the timed launches lie well inside it.  A window
+    that still misses a timed record is said and taken again, and
+    ``WINDOWS`` such windows in a row fail: a time comes only from a
+    window that recorded every launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    totals = [0.0] * len(kernels)
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        us = us if us is not None else ev.self_cuda_time_total
-        for k, name in enumerate(kernels):
-            if name in ev.key:
-                totals[k] += us
-    for name, us in zip(kernels, totals):
-        if us <= 0:
-            fail(f"the profiler saw no device time for {name}")
-    return [us / 1e3 / reps for us in totals]
+    want = [reps * per_call] * len(kernels)
+    for _ in range(WINDOWS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.zeros(1, device="cuda")  # the window's first launch
+            torch.cuda.synchronize()
+            time.sleep(EDGE_S)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(EDGE_S)
+        totals, counts, fills = [0.0] * len(kernels), [0] * len(kernels), 0
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total", None)
+            us = us if us is not None else ev.self_cuda_time_total
+            fills += ev.count if "FillFunctor" in ev.key else 0
+            for k, name in enumerate(kernels):
+                if name in ev.key:
+                    totals[k] += us
+                    counts[k] += ev.count
+        if not fills:
+            print(f"device_ms: the profiler dropped the fill's record, timing {kernels}", flush=True)
+        if counts == want:
+            return [us / 1e3 / reps for us in totals]
+        print(f"device_ms: the profiler recorded {counts} launches of {kernels}, want {want}; "
+              "taking the window again", flush=True)
+    fail(f"the profiler missed launches of {kernels} in {WINDOWS} windows in a row")
 
 
 def cuda_time_ms(fn, reps: int) -> float:
@@ -597,7 +643,7 @@ def phase_rev_kernel():
     res = {"step": {"max_abs_err": err, "ms": cuda_time_ms(rotate, reps=5) / n,
                     "plain_ms": cuda_time_ms(lambda: rev.blind_rotate_rev_plain(acc, rev_all, a2N, p), reps=1) / n}}
     names = {"digits": "decompose_kernel", "matmul": "int8_mm_kernel", "cmux": "std_cmux_kernel"}
-    dev = {k: v / n for k, v in zip(names, device_ms(rotate, 5, *names.values()))}
+    dev = {k: v / n for k, v in zip(names, device_ms(rotate, 5, *names.values(), per_call=n))}
     dig = torch.randint(-128, 128, (B, nt * R * 128), generator=g, device="cuda", dtype=torch.int8)
     P4 = rev.window_matmul_true_plain(dig, rev_all[0], p.Q)
     amt = torch.stack([(2 * p.N - a2N[:, 0]) & (2 * p.N - 1), a2N[:, 0]], dim=1).contiguous()
@@ -661,6 +707,165 @@ def phase_rot_step():
     if not torch.equal(got[0], acc[0]):
         fail("rot-step: the per-step rotation changed the a=0 lane")
     return err, ms, plain_ms, bnd
+
+
+def negacyclic_matrix(ext):
+    """The product matrix of one step's ext int8 [R, M, 2N] for digits in
+    tile_digits order, materialized: int8 [nt*R*T, M*N], entry
+    [j*RT + r*T + u, m*N + k] = ext[r, m, (k - j*T - u) mod 2N]; digits
+    times it, one torch._int_mm, is #3's (and #5's) raw product.  Stored
+    column-major, the layout cuBLAS's int8 product takes as it is."""
+    import torch
+
+    R, M, two_n = ext.shape
+    N = two_n // 2
+    i = torch.arange(N, device=ext.device)
+    dense = ext[:, :, (i[None, :] - i[:, None]) % two_n]  # [R, M, N(i), N(k)]
+    cols = dense.view(R, M, N // 128, 128, N).permute(1, 4, 2, 0, 3)  # [m, k, j, r, u]
+    return cols.reshape(M * N, N * R).t()
+
+
+def conj_take_index(N: int, R: int, device):
+    """take_index in #7's conjugated basis: the rows and columns of every
+    128 x 128 tile through trueidx(c) = 4*(c % 32) + c // 32."""
+    import torch
+
+    lane = torch.arange(128, device=device)
+    ti = 4 * (lane % 32) + lane // 32
+    flat = take_index(N, R, device)
+    return flat.view(-1, 128, 16, 128)[:, ti][..., ti].reshape(flat.shape)
+
+
+def phase_neg_kernel():
+    """fhe/negacyclic.py's kernels against their plain twins at STD128_OPT
+    widths, then their device times, plain times, bounds and library
+    calls."""
+    import itertools
+
+    import torch
+    from oece_tpu_torch.fhe import negacyclic as ng
+    from oece_tpu_torch.fhe.params import STD128_OPT
+
+    t0 = time.time()
+    p = STD128_OPT
+    N, R, Q, nt = p.N, 2 * p.d_g_used, p.Q, p.N // 128
+    K = nt * R * 128
+    g = torch.Generator(device="cuda")
+    g.manual_seed(600)
+    rand8 = lambda *shape: torch.randint(-128, 128, shape, generator=g, device="cuda", dtype=torch.int8)  # noqa: E731
+    rand32 = lambda hi, *shape: torch.randint(0, hi, shape, generator=g, device="cuda", dtype=torch.int32)  # noqa: E731
+    ext16 = rand8(R, 16, 2 * N)
+    launches0, plain0 = dict(ng.LAUNCHES), dict(ng.PLAIN_LAUNCHES)
+    err, inputs = 0, {}
+    for B in (4, 13, 2048):
+        dig = rand8(B, K)
+        for M in (16, 8) if B == 13 else (16,):
+            ext = ext16[:, :M].contiguous()
+            block = ng.build_diagonals(ext)
+            what = f"B={B} M={M}"
+            checks = [
+                ("#1", block, ng.build_diagonals_plain(ext)),
+                ("#3", ng.diag_matmul(dig, block, R), ng.diag_matmul_plain(dig, block)),
+                ("#3 split", ng.negacyclic_matmul_split(dig, ext), ng.diag_matmul_plain(dig, block)),
+                ("#5", ng.negacyclic_matmul(dig, ext), ng.negacyclic_matmul_plain(dig, ext)),
+                ("#5 == #3", ng.negacyclic_matmul(dig, ext), ng.diag_matmul(dig, block, R)),
+                ("#2", ng.window_matmul(dig, block, R, Q), ng.window_matmul_plain(dig, block, Q)),
+                ("#2 window", ng.negacyclic_matmul_window(dig, ext, Q), ng.window_matmul_plain(dig, block, Q)),
+                ("#7", ng.build_rev_conj(ext), ng.build_rev_conj_plain(ext)),
+            ]
+            for name, got, want in checks:
+                err = max(err, _check_same("neg-kernel", f"{name} {what}", got, want, t0))
+        P, acc, amt = rand32(Q, B, 2, 2, N), rand32(Q, B, 2, N), rand32(2 * N, B, 2)
+        err = max(err, _check_same("neg-kernel", f"#6 B={B}", ng.cmux_epilogue(P, acc, amt, Q),
+                                   ng.cmux_epilogue_plain(P, acc, amt, Q), t0))
+        inputs[B] = (dig, P, acc, amt)
+    if ng.PLAIN_LAUNCHES != plain0 or any(ng.LAUNCHES[k] == launches0[k] for k in ng.KERNELS):
+        fail(f"neg-kernel: launches {ng.LAUNCHES} (before {launches0}), plain "
+             f"{ng.PLAIN_LAUNCHES} (before {plain0}): want every kernel on the card, no plain twin")
+
+    # device time per call of each kernel, at B = 4 and 2048
+    ext, block = ext16, ng.build_diagonals(ext16)
+    conj = ng.build_rev_conj(ext)
+    blocks = [ng.build_diagonals(rand8(R, 16, 2 * N)) for _ in range(8)]  # 126 MB, > L2
+    res = {}
+    for B in (4, 2048):
+        dig, P, acc, amt = inputs[B]
+        mm_ops = 2.0 * B * nt * K * 16 * 128
+        raw, comb = B * 16 * N * 4, B * 4 * N * 4
+        cyc = itertools.cycle(blocks)
+        kernels = {  # name: (call, its plain twin, device kernel, (int8 ops, bytes))
+            "window": (lambda: ng.window_matmul(dig, block, R, Q), lambda: ng.window_matmul_plain(dig, block, Q),
+                       "int8_mm_kernel", (mm_ops, dig.numel() + block.numel() + comb)),
+            "diag": (lambda: ng.diag_matmul(dig, block, R), lambda: ng.diag_matmul_plain(dig, block),
+                     "int8_mm_kernel", (mm_ops, dig.numel() + block.numel() + raw)),
+            "onthefly": (lambda: ng.negacyclic_matmul(dig, ext), lambda: ng.negacyclic_matmul_plain(dig, ext),
+                         "int8_mm_kernel", (mm_ops, dig.numel() + ext.numel() + raw)),
+            "cmux": (lambda: ng.cmux_epilogue(P, acc, amt, Q), lambda: ng.cmux_epilogue_plain(P, acc, amt, Q),
+                     "std_cmux_kernel", (0.0, P.numel() * 4 + 2 * acc.numel() * 4 + amt.numel() * 4)),
+            "build_conj": (lambda: ng.build_rev_conj(ext), lambda: ng.build_rev_conj_plain(ext),
+                           "rev_build_kernel", (0.0, ext.numel() + conj.numel())),
+        }
+        for name, (call, plain, kname, work) in kernels.items():
+            r = {"max_abs_err": err, "ms": device_ms(call, 20, kname)[0],
+                 "plain_ms": cuda_time_ms(plain, reps=3), "library_ms": None}
+            r["bound_ms"], r["bound_by"] = bound(*work)
+            res[(name, B)] = r
+        hbm = lambda: ng.diag_matmul(dig, next(cyc), R)  # noqa: E731
+        res[("diag_hbm", B)] = {"ms": device_ms(hbm, 24, "int8_mm_kernel")[0], "events_ms": cuda_time_ms(hbm, reps=24)}
+
+    # the library calls: one torch._int_mm for #3/#5 (B=2048), one torch.take for #7
+    dig = inputs[2048][0]
+    full = negacyclic_matrix(ext)
+    err = max(err, _check_same("neg-kernel", "torch._int_mm(dig, negacyclic matrix) == #3, B=2048",
+                               torch._int_mm(dig, full).view(2048, 16, N), ng.diag_matmul(dig, block, R), t0))
+    mm_ms = cuda_time_ms(lambda: torch._int_mm(dig, full), reps=20)
+    flat = conj_take_index(N, R, "cuda")
+    err = max(err, _check_same("neg-kernel", "torch.take through the conjugated index == #7",
+                               torch.take(ext, flat), conj, t0))
+    for name in ("diag", "onthefly"):
+        res[(name, 2048)]["library_ms"] = mm_ms
+    res[("build_conj", 2048)]["library_ms"] = cuda_time_ms(lambda: torch.take(ext, flat), reps=20)
+    for (name, B), r in res.items():
+        extra = "".join(f", {k} {r[k]:.4f} ms" for k in ("events_ms", "plain_ms", "bound_ms", "library_ms")
+                        if r.get(k))
+        log("neg-kernel", t0, f"STD128_OPT B={B} {name}: kernel {r['ms']:.4f} ms on the device{extra}"
+            f"{' (' + r['bound_by'] + ')' if 'bound_by' in r else ''}")
+    return {name: r for (name, B), r in res.items() if B == 2048 and name != "diag_hbm"}
+
+
+def phase_profile_boot():
+    """The step profiler at full width through its own entry points;
+    returns each fhe/negacyclic.py kernel's launches in that run."""
+    import torch
+    from oece_tpu_torch.fhe import negacyclic as ng
+    from oece_tpu_torch.fhe import rev, rot, std
+    from oece_tpu_torch.fhe.params import STD128_OPT
+    from oece_tpu_torch.tools import profile_boot as pb
+
+    t0 = time.time()
+    p = STD128_OPT
+    inp = pb.make_inputs(p, 1024, p.n, "cuda")
+    torch.cuda.synchronize()
+    log("profile-boot", t0, f"golden host keys, ginx_ext {tuple(inp.ext.shape)}, B=1024")
+    reset_counts()
+    res = pb.run(inp, log=lambda line: log("profile-boot", t0, line))
+    torch.cuda.synchronize()
+    counts, launches = read_counts(), dict(ng.LAUNCHES)
+    if counts["plain"] or not all(launches.values()):
+        fail(f"profile-boot: launches {launches}, counts {counts}: want every negacyclic kernel, no plain twin")
+    log("profile-boot", t0, f"launches {launches}")
+    want = std.blind_rotate_std(inp.acc0, inp.ext, inp.a2N, p)
+    _check_same("profile-boot", "scan A == std.blind_rotate_std, 502 steps", res["A"][1], want, t0)
+    d, ext0, R = inp.digs0, inp.ext[0], inp.ext.shape[1]
+    got = rot.combine_planes(ng.negacyclic_matmul_split(d, ext0), p.Q)
+    block = ng.build_diagonals_plain(ext0)
+    _check_same("profile-boot", "scan G's step, combined == #4's P4 (kernel)", got,
+                rev.window_matmul_true(d, block, R, p.Q), t0)
+    _check_same("profile-boot", "scan G's step, combined == #4's P4 (plain)", got,
+                std.diag_matmul_combine_plain(d, block, p.Q), t0)
+    return launches
+
+
 TRUTH = {
     "AND": lambda a, b: a & b, "OR": lambda a, b: a | b, "NAND": lambda a, b: 1 - (a & b),
     "NOR": lambda a, b: 1 - (a | b), "XOR": lambda a, b: a ^ b, "XNOR": lambda a, b: 1 - (a ^ b),
@@ -745,6 +950,8 @@ PHASES = {
     "rev-gates": lambda: phase_gates("rev-gates", B=1024, K=3, layout="rev"),
     "rev-circuit": lambda: phase_circuit("rev-circuit", layout="rev"),
     "rot-steps-circuit": lambda: phase_circuit("rot-steps-circuit", rot_mega=False),
+    "neg-kernel": phase_neg_kernel,
+    "profile-boot": phase_profile_boot,
 }
 
 
@@ -770,6 +977,7 @@ def main() -> None:
         return
 
     std_res, rev_res = res["std-kernel"], res["rev-kernel"]
+    neg_res, neg_launches = res["neg-kernel"], res["profile-boot"]
     std_launches = res["context"] + res["std-circuit"]
     fields = lambda r: (r["max_abs_err"], r["ms"], r["plain_ms"], (r["bound_ms"], r["bound_by"]))  # noqa: E731
     print(json.dumps({"kernels": [
@@ -784,6 +992,16 @@ def main() -> None:
           for k, line in (("window_matmul", 757), ("matmul_dec", 816), ("cmux", 900))],
         entry("rot_step_true", "oece_tpu_torch/csrc/rot_step.cu", 1047, res["rot-steps-circuit"],
               *res["rot-step"]),
+        # #2 and #6 launch #8's and #10's kernels; #3 and #5 have torch._int_mm
+        # on the materialized negacyclic matrix, #7 one torch.take
+        *[entry(f"neg_{k}", f"oece_tpu_torch/csrc/{src}", line, neg_launches[fn],
+                *fields(neg_res[k]), neg_res[k]["library_ms"])
+          for k, src, line, fn in (
+              ("window", "std_step.cu", 208, "window_matmul"),
+              ("diag", "negacyclic.cu", 106, "diag_matmul"),
+              ("onthefly", "negacyclic.cu", 427, "negacyclic_matmul"),
+              ("cmux", "std_step.cu", 525, "cmux_epilogue"),
+              ("build_conj", "negacyclic.cu", 687, "build_rev_conj"))],
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -44,6 +44,16 @@ point:
                      csrc/ap_step.cu (replaces the Pallas _ap_megakernel);
                      the kernels share csrc/int8_mm.cuh and are built by
                      fhe/_build.py with nvcc at first use
+  fhe/negacyclic.py  the kernel-level API of the JAX package's tests and
+                     step profiler: the raw negacyclic product from a
+                     block (replaces the Pallas _diag_matmul_kernel) or
+                     gathered from the compact key (_negacyclic_kernel),
+                     the conjugated-basis build (_build_rev_kernel), all
+                     in csrc/negacyclic.cu, and the window matmul and CMUX
+                     epilogue (_window_matmul_kernel, _cmux_epilogue_kernel)
+                     on the kernels of fhe/rev.py
+  tools/profile_boot.py  the step profiler (python -m
+                     oece_tpu_torch.tools.profile_boot)
   fhe/boot.py        batched gate bootstrapping; the key layout selects the
                      rotation
   fhe/lwe.py         host encryption and decryption; device NOT, decryption

@@ -8,15 +8,19 @@
 //   * decompose_kernel, the gadget digits of an accumulator in the row
 //     order of the reversed diagonals (std and AP);
 //   * rev_build_kernel<M>, which expands one step's compact key [R, M, 2N]
-//     into its reversed-diagonal block (std and AP);
+//     into its reversed-diagonal block (std and AP), or with kConj into
+//     that block in the TPU's conjugated basis (negacyclic.cu, #7);
 //   * int8_mm_kernel, the int8 contraction of one step:
 //       res[b, col] = sum_x dig[b, x] * key[(nt-1-k)*(K/nt) + x, col]
 //     for each output tile k, followed by the Horner combine of the 4 key
-//     limbs mod Q and an epilogue that writes P polynomials per gate.  The
-//     key block is row-major [(2nt-1)*(K/nt), 4P*T] reversed diagonals
-//     (K/nt = 2RT for GINX's part-interleaved rev2, RT for std and AP),
-//     columns (poly, limb, t) at (poly*4 + limb)*T + t; P = 2 (out) for
-//     rot and AP, 4 (part, out) for std.
+//     limbs mod Q and an epilogue that writes P polynomials per gate, or
+//     (a kRaw epilogue) the 4P limb planes as they are.  The key block is
+//     row-major [(2nt-1)*(K/nt), 4P*T] reversed diagonals (K/nt = 2RT for
+//     GINX's part-interleaved rev2, RT for std and AP), columns (poly,
+//     limb, t) at (poly*4 + limb)*T + t; P = 2 (out) for rot and AP, 4
+//     (part, out) for std.  The key tiles come from a block in memory
+//     (BlockKey) or are gathered from the compact key [R, 4P, 2N] that
+//     the block is built from (ExtKey; K/nt = RT), with no block at all.
 //
 // The contraction is exact in int32: |sum| <= K * 128 * 128 <= 2**27.
 // Design: mma.sync m16n8k32 s8 tiles of 64 gates x 128 columns,
@@ -89,6 +93,10 @@ __device__ __forceinline__ int swz(int n) {
   return (((n >> 1) & 3) ^ ((n >> 3) & 3)) << 2;
 }
 
+// The true coefficient of lane c of a conjugated-basis tile (the TPU's
+// byte-plane order: byte j of word w at lane 32j + w holds t = 4w + j).
+__device__ __forceinline__ int trueidx(int c) { return 4 * (c & 31) + (c >> 5); }
+
 __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t* b) {
   asm volatile(
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
@@ -97,6 +105,52 @@ __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// Key sources of int8_mm_kernel, made once per block for its output tile
+// k: load(w, x, col) gives the words of rows x..x+3 (x % 4 == 0) of tile
+// k's span, columns col..col+3 (col % 4 == 0), w[i] = row x + i, byte j =
+// column col + j.
+//
+// BlockKey: key is the block itself; four aligned word loads.
+struct BlockKey {
+  const int8_t* span;  // row 0 of tile k's span
+  int MT;
+  __device__ __forceinline__ BlockKey(const int8_t* key, int k, int nt, int K, int MT_)
+      : span(key + (long long)(nt - 1 - k) * (K / nt) * MT_), MT(MT_) {}
+  __device__ __forceinline__ void load(uint32_t* w, int x, int col) const {
+    const int8_t* src = span + (long long)x * MT + col;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = __ldg((const uint32_t*)(src + i * MT));
+  }
+};
+
+// ExtKey: key is one step's compact key ext [R, MT/T, 2N] (4-byte
+// aligned) and the block entry rev_build_kernel would write is
+//   ext[r, m, ((k - j)*T + t - u) mod 2N]
+// for x = j*RT + r*T + u, col = m*T + t (RT = K/nt).  Row x + i starts
+// i bytes before row x, so the 16 bytes are 7 consecutive bytes of the
+// cyclic plane: three aligned words (wrapping at 2N) and a funnel shift
+// per row.
+struct ExtKey {
+  const int8_t* ext;
+  int k, RT, M, two_n;
+  __device__ __forceinline__ ExtKey(const int8_t* key, int k_, int nt, int K, int MT)
+      : ext(key), k(k_), RT(K / nt), M(MT / T), two_n(2 * nt * T) {}
+  __device__ __forceinline__ void load(uint32_t* w, int x, int col) const {
+    const int r = (x % RT) / T, u = x % T, m = col / T, t = col % T;
+    const uint32_t* plane = (const uint32_t*)(ext + ((long long)r * M + m) * two_n);
+    const int s = ((k - x / RT) * T + t - u - 3) & (two_n - 1);  // row x+3
+    const int wmask = two_n / 4 - 1, wi = s >> 2;
+    const uint32_t a = __ldg(plane + wi);
+    const uint32_t b = __ldg(plane + ((wi + 1) & wmask));
+    const uint32_t c = __ldg(plane + ((wi + 2) & wmask));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int off = (s & 3) + 3 - i;  // row x + i starts here, in [0, 6]
+      w[i] = off < 4 ? __funnelshift_r(a, b, 8 * off) : __funnelshift_r(b, c, 8 * (off - 4));
+    }
+  }
+};
+
 // Grid: x = gate tiles of BM; y = (output tile k, poly o, coefficient
 // chunk of TT).  Each block contracts its gates' full digit rows against
 // the 4 limb planes of its TT coefficients, applies the limb combine and
@@ -104,8 +158,10 @@ __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t
 // writes either the combined value or acc_in per gate (epi.live(b)); a
 // block none of whose gates is live copies its tile and skips the product.
 // Epilogue::kPolys is P; an Epilogue with kReadsOld gets acc_in[at] as
-// `old`, others get 0 and acc_in may be null.
-template <class Epilogue>
+// `old`, others get 0 and acc_in may be null.  An Epilogue with kRaw skips
+// the combine and writes the limb sums as int32 planes
+// acc_out[b, o*4 + limb, k*T + t] of [B, 4P, N].
+template <class Epilogue, class KeySrc = BlockKey>
 __global__ void __launch_bounds__(THREADS) int8_mm_kernel(
     const int8_t* __restrict__ dig, const int8_t* __restrict__ key_step,
     const int* __restrict__ acc_in, int* __restrict__ acc_out, int B, int N,
@@ -139,7 +195,7 @@ __global__ void __launch_bounds__(THREADS) int8_mm_kernel(
     }
   }
 
-  const int8_t* key = key_step + (long long)(nt - 1 - k) * (K / nt) * MT;
+  const KeySrc key(key_step, k, nt, K, MT);
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;
   const int warp_m = warp >> 2, warp_n = warp & 3;
@@ -168,10 +224,8 @@ __global__ void __launch_bounds__(THREADS) int8_mm_kernel(
       const int idx = tid + THREADS * r;
       const int nq_lo = idx & 7, kq = (idx >> 3) & 15, limb = idx >> 7;
       const int col = (o * 4 + limb) * T + t0 + nq_lo * 4;
-      const int8_t* src = key + (long long)(kx + kq * 4) * MT + col;
       uint32_t w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) w[i] = __ldg((const uint32_t*)(src + i * MT));
+      key.load(w, kx + kq * 4, col);
       const int n0 = limb * TT + nq_lo * 4;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -224,21 +278,31 @@ __global__ void __launch_bounds__(THREADS) int8_mm_kernel(
       Cs[(row + 8) * C_PITCH + col + 1] = accum[mi][ni][3];
     }
   __syncthreads();
-  for (int e = tid; e < BM * TT; e += THREADS) {
-    const int row = e / TT, tt = e % TT;
-    const int b = b0 + row;
-    if (b >= B) continue;
-    const int* cr = Cs + row * C_PITCH + tt;
-    int comb = mod_q(cr[3 * TT], Q);
-#pragma unroll
-    for (int l = 2; l >= 0; --l) {
-      comb = mul_pow8_mod(comb, Q) + mod_q(cr[l * TT], Q);
-      if (comb >= Q) comb -= Q;
+  if constexpr (Epilogue::kRaw) {
+    for (int e = tid; e < BM * BN; e += THREADS) {
+      const int row = e / BN, limb = (e % BN) / TT, tt = e % TT;
+      const int b = b0 + row;
+      if (b >= B) continue;
+      acc_out[((long long)b * 4 * P + o * 4 + limb) * N + k * T + t0 + tt] =
+          Cs[row * C_PITCH + e % BN];
     }
-    const long long at = ((long long)b * P + o) * N + k * T + t0 + tt;
-    int old = 0;
-    if constexpr (Epilogue::kReadsOld) old = acc_in[at];
-    acc_out[at] = epi(b, old, comb, Q);
+  } else {
+    for (int e = tid; e < BM * TT; e += THREADS) {
+      const int row = e / TT, tt = e % TT;
+      const int b = b0 + row;
+      if (b >= B) continue;
+      const int* cr = Cs + row * C_PITCH + tt;
+      int comb = mod_q(cr[3 * TT], Q);
+#pragma unroll
+      for (int l = 2; l >= 0; --l) {
+        comb = mul_pow8_mod(comb, Q) + mod_q(cr[l * TT], Q);
+        if (comb >= Q) comb -= Q;
+      }
+      const long long at = ((long long)b * P + o) * N + k * T + t0 + tt;
+      int old = 0;
+      if constexpr (Epilogue::kReadsOld) old = acc_in[at];
+      acc_out[at] = epi(b, old, comb, Q);
+    }
   }
 }
 
@@ -261,8 +325,11 @@ __global__ void decompose_kernel(const int* __restrict__ acc,
 
 // One step's compact key ext [R, M, 2N] -> reversed diagonals, int8
 // rev[d'*RT + r*T + u, m*T + t] = ext[r, m, ((nt-1-d')*T + t - u) mod 2N],
-// [(2nt-1)*R*T, M*T].  One thread per 16 output bytes.
-template <int M>
+// [(2nt-1)*R*T, M*T].  With kConj, the same block in the conjugated basis
+// (rows and columns of every 128 x 128 tile in byte-plane order): row
+// d'*RT + r*T + u' and column m*T + c hold rev's entry at u = trueidx(u'),
+// t = trueidx(c).  One thread per 16 output bytes.
+template <int M, bool kConj = false>
 __global__ void rev_build_kernel(const int8_t* __restrict__ ext,
                                  int8_t* __restrict__ rev, int N, int R) {
   constexpr int MT = M * T;
@@ -271,18 +338,21 @@ __global__ void rev_build_kernel(const int8_t* __restrict__ ext,
   const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (gid >= (long long)(2 * nt - 1) * RT * per_row) return;
   const int row = (int)(gid / per_row), c16 = (int)(gid % per_row);
-  const int dp = row / RT, r = (row / T) % R, u = row % T;
+  const int dp = row / RT, r = (row / T) % R;
+  const int u = kConj ? trueidx(row % T) : row % T;
   const int m = c16 / (T / 16), t0 = (c16 % (T / 16)) * 16;
   const uint8_t* src = (const uint8_t*)ext + ((long long)r * M + m) * 2 * N;
-  const int base = (nt - 1 - dp) * T + t0 - u;  // > -2N; 2N is a power of 2
+  const int base = (nt - 1 - dp) * T - u;  // > -2N; 2N is a power of 2
   const int mask = 2 * N - 1;
   uint32_t w[4];
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     w[q] = 0;
 #pragma unroll
-    for (int bb = 0; bb < 4; ++bb)
-      w[q] |= (uint32_t)src[(base + 4 * q + bb) & mask] << (8 * bb);
+    for (int bb = 0; bb < 4; ++bb) {
+      const int c = t0 + 4 * q + bb;
+      w[q] |= (uint32_t)src[(base + (kConj ? trueidx(c) : c)) & mask] << (8 * bb);
+    }
   }
   *(int4*)(rev + (long long)row * MT + m * T + t0) =
       make_int4((int)w[0], (int)w[1], (int)w[2], (int)w[3]);
@@ -290,5 +360,8 @@ __global__ void rev_build_kernel(const int8_t* __restrict__ ext,
 
 // Blocks of 256 threads covering `threads`.
 inline int blocks_for(long long threads) { return (int)((threads + 255) / 256); }
+
+// 0 or the first cudaError_t of the launches before it.
+inline int check_launch() { return (int)cudaGetLastError(); }
 
 }  // namespace

@@ -58,8 +58,9 @@
 // step loop on the host side of this file, scratch allocated by the
 // wrapper.  The accumulator is updated in place by the epilogue (each
 // thread reads and writes only its own element; the rotations read P4).
-// Left undone: the Toeplitz tiles built in shared memory from the 131 KB
-// compact key (no block, no build launch), wgmma with TMA-fed stages, the
+// Left undone: the key tiles gathered from the 131 KB compact key inside
+// the matmul (int8_mm.cuh's ExtKey, which negacyclic.cu's #5 uses) in
+// place of the build and its block, wgmma with TMA-fed stages, the
 // epilogue fused into the matmul (it needs whole rows of P4: a rotation
 // crosses tiles), and a CUDA graph of the step loop.
 
@@ -73,6 +74,7 @@ template <int P>
 struct Store {
   static constexpr bool kSelect = false;
   static constexpr bool kReadsOld = false;
+  static constexpr bool kRaw = false;
   static constexpr int kPolys = P;
   __device__ int operator()(int, int, int comb, int) const { return comb; }
 };
@@ -142,8 +144,6 @@ void prebuilt_step(void* acc, void* dig, const void* block, void* P4,
       (const int*)acc, (int*)acc, (const int*)P4, (const int*)a2N, n, i, 0,
       B, N, Q);
 }
-
-int check_launch() { return (int)cudaGetLastError(); }
 
 }  // namespace
 

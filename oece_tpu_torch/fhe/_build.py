@@ -117,6 +117,12 @@ def load() -> ctypes.CDLL:
     lib.oece_window_matmul_dec_true.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
     lib.oece_cmux_epilogue_true.restype = i32
     lib.oece_cmux_epilogue_true.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+    lib.oece_diag_matmul.restype = i32
+    lib.oece_diag_matmul.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
+    lib.oece_negacyclic_matmul.restype = i32
+    lib.oece_negacyclic_matmul.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
+    lib.oece_build_rev.restype = i32
+    lib.oece_build_rev.argtypes = [ptr] * 2 + [i32] * 4 + [ptr]
     lib.oece_rot_step.restype = i32
     lib.oece_rot_step.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
     lib.oece_error_string.restype = ctypes.c_char_p

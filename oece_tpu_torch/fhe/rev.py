@@ -134,19 +134,31 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _check_digits(name: str, dig: torch.Tensor, R: int, N: int = 0) -> tuple[int, int]:
+    """(B, nt) of digits int8 [B, nt*R*T] (nt = N/T when N is given)."""
+    if (dig.dtype != torch.int8 or dig.ndim != 2 or dig.shape[1] == 0
+            or dig.shape[1] % (R * TILE) or (N and dig.shape[1] != N * R)):
+        want = N * R if N else f"nt*{R}*{TILE}"
+        raise ValueError(f"{name}: want int8 digits [B, {want}], got {dig.dtype} {tuple(dig.shape)}")
+    return dig.shape[0], dig.shape[1] // (R * TILE)
+
+
 def window_matmul_true(digs_rows: torch.Tensor, rev_flat: torch.Tensor, R: int, Q: int) -> torch.Tensor:
     """#8: digs_rows int8 [B, nt*R*T] (tile_digits order) against one step's
     block rev_flat int8 [(2nt-1)*R*T, M*T], M = 16 or 8 -> int32
     [B, M/4, N] limb-combined mod Q, true columns."""
-    name = "window_matmul_true"
-    if digs_rows.dtype != torch.int8 or digs_rows.ndim != 2 or digs_rows.shape[1] % (R * TILE):
-        raise ValueError(f"{name}: want int8 digits [B, nt*{R}*{TILE}], got "
-                         f"{digs_rows.dtype} {tuple(digs_rows.shape)}")
-    B, K = digs_rows.shape
-    nt = K // (R * TILE)
+    return window_matmul_counted("window_matmul_true", digs_rows, rev_flat, R, Q, _plain, _launch)
+
+
+def window_matmul_counted(name: str, digs_rows: torch.Tensor, rev_flat: torch.Tensor, R: int, Q: int,
+                          plain, launch) -> torch.Tensor:
+    """#8 under the caller's counts: ``plain(fn, *args)`` runs the plain
+    twin, ``launch(name, rc, lib)`` checks a launch's return code and counts
+    it (fhe/negacyclic.py's #2 is this function)."""
+    B, nt = _check_digits(name, digs_rows, R)
     M = _block_planes(name, rev_flat, R, nt)
     if not _on_card(name, digs_rows, rev_flat):
-        return _plain(window_matmul_true_plain, digs_rows, rev_flat, Q)
+        return plain(window_matmul_true_plain, digs_rows, rev_flat, Q)
     _aligned(name, digs_rows, rev_flat)
     out = torch.empty((B, M // 4, nt * TILE), dtype=torch.int32, device=digs_rows.device)
     if B == 0:
@@ -156,7 +168,7 @@ def window_matmul_true(digs_rows: torch.Tensor, rev_flat: torch.Tensor, R: int, 
         digs_rows.data_ptr(), rev_flat.data_ptr(), out.data_ptr(), B, nt * TILE, R,
         M // 4, Q, _stream(out),
     )
-    _launch(name, rc, lib)
+    launch(name, rc, lib)
     return out
 
 
@@ -203,6 +215,13 @@ def cmux_epilogue_true(
     name = "cmux_epilogue_true"
     if zero_low_bits < 0:
         raise ValueError(f"{name}: zero_low_bits must be >= 0, got {zero_low_bits}")
+    return cmux_epilogue_counted(name, P, acc, amt, Q, _plain, _launch)
+
+
+def cmux_epilogue_counted(name: str, P: torch.Tensor, acc: torch.Tensor, amt: torch.Tensor, Q: int,
+                          plain, launch) -> torch.Tensor:
+    """#10 under the caller's counts, as ``window_matmul_counted``
+    (fhe/negacyclic.py's #6 is this function)."""
     B, N = acc.shape[0], acc.shape[-1]
     if not (P.dtype == acc.dtype == amt.dtype == torch.int32):
         raise TypeError(f"{name}: want int32 P, acc and amt")
@@ -210,7 +229,7 @@ def cmux_epilogue_true(
         raise ValueError(f"{name}: bad shapes P {tuple(P.shape)}, acc {tuple(acc.shape)}, "
                          f"amt {tuple(amt.shape)}")
     if not _on_card(name, P, acc, amt):
-        return _plain(cmux_epilogue_true_plain, P, acc, amt, Q)
+        return plain(cmux_epilogue_true_plain, P, acc, amt, Q)
     out = torch.empty_like(acc)
     if B == 0:
         return out
@@ -218,7 +237,7 @@ def cmux_epilogue_true(
     rc = lib.oece_cmux_epilogue_true(
         P.data_ptr(), acc.data_ptr(), amt.data_ptr(), out.data_ptr(), B, N, Q, _stream(out)
     )
-    _launch(name, rc, lib)
+    launch(name, rc, lib)
     return out
 
 

@@ -124,24 +124,36 @@ def rot_diff_digits(acc: torch.Tensor, amt: torch.Tensor, p: BinFHEParams) -> to
     return torch.stack(parts, dim=2).reshape(B, -1)
 
 
-def tile_products(dig: torch.Tensor, rev: torch.Tensor, Q: int) -> torch.Tensor:
-    """Plain twin of int8_mm_kernel's product and limb combine: digits int8
-    [B, K] against reversed diagonals int8 [(2nt-1)*K/nt, P*4*T], output
-    tile k contracting rows [(nt-1-k)*K/nt, +K).  Returns int32 [B, P, N]
-    mod Q, one polynomial per 4 limb planes.  The contraction runs in
-    float64, exact because |sum| <= K * 128 * 128 <= 2**27 < 2**53 (torch
-    has no integer matmul on CUDA)."""
+def tile_products_raw(dig: torch.Tensor, rev: torch.Tensor) -> torch.Tensor:
+    """Plain twin of int8_mm_kernel's product: digits int8 [B, K] against
+    reversed diagonals int8 [(2nt-1)*K/nt, M*T], output tile k contracting
+    rows [(nt-1-k)*K/nt, +K).  Returns the limb sums int32 [B, M, N],
+    plane m at columns k*T + t.  The contraction runs in float64, exact
+    because |sum| <= K * 128 * 128 <= 2**27 < 2**53 (torch has no integer
+    matmul on CUDA)."""
     B, K = dig.shape
     rows = 2 * K - rev.shape[0]  # per diagonal: nt*rows = K, (2nt-1)*rows = len(rev)
     nt = K // rows
-    polys = rev.shape[1] // (4 * TILE)
+    M = rev.shape[1] // TILE
     x = dig.to(torch.float64)
-    out = torch.empty((B, polys, nt * TILE), dtype=torch.int32, device=dig.device)
+    out = torch.empty((B, M, nt * TILE), dtype=torch.int32, device=dig.device)
     for k in range(nt):
         w = rev[(nt - 1 - k) * rows : (nt - 1 - k) * rows + K].to(torch.float64)
-        res = (x @ w).to(torch.int32).reshape(B, polys, 4, TILE)  # [b, poly, limb, t]
-        out[:, :, k * TILE : (k + 1) * TILE] = combine_limbs_mod_q(res.movedim(2, -1), Q)
+        out[:, :, k * TILE : (k + 1) * TILE] = (x @ w).to(torch.int32).reshape(B, M, TILE)
     return out
+
+
+def combine_planes(raw: torch.Tensor, Q: int) -> torch.Tensor:
+    """Limb sums int32 [B, 4P, N], planes (poly, limb) with the limb minor
+    -> int32 [B, P, N] mod Q: the Horner combine of each poly's 4 limbs."""
+    B, M, N = raw.shape
+    return combine_limbs_mod_q(raw.reshape(B, M // 4, 4, N).movedim(2, -1), Q)
+
+
+def tile_products(dig: torch.Tensor, rev: torch.Tensor, Q: int) -> torch.Tensor:
+    """Plain twin of int8_mm_kernel's product and limb combine: int32
+    [B, M/4, N] mod Q, one polynomial per 4 limb planes."""
+    return combine_planes(tile_products_raw(dig, rev), Q)
 
 
 def rot_step_plain(
