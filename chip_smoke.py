@@ -6,7 +6,9 @@
 Phases (each prints one line with its time; any failure exits non-zero
 before the result lines):
   1. build   nvcc builds oece_tpu_torch/csrc into build/oece_tpu_torch/;
-             prints the card's name and power limit (nvidia-smi).
+             prints each kernel's registers (ptxas), failing if an
+             int8_mm_kernel instance takes more than 80, and the card's
+             name and power limit (nvidia-smi).
   2. kernel  the CUDA blind-rotation kernel against its plain torch version
              on the card, bit-exact: STD128_OPT shape (n=8) at B = 1, 37,
              256; MICRO_A; a TOY shape (exact gadget, N=512); lanes with
@@ -74,11 +76,16 @@ before the result lines):
              random int8 digits and keys: #1 alone, #2 (#8's kernel), #3,
              #5, #6 (#10's kernel), #7 and the split and window pipelines
              against their plain twins, bit-exact, through the CUDA route
-             only; #5 == #3 on #1's block.  Device time of each kernel at
-             B = 4 and 2048 (#3 at B = 4 also over 8 blocks from HBM),
-             plain times, bounds, and the library calls: torch._int_mm
-             against the materialized negacyclic matrix for #3/#5 (at
-             B=2048: it needs more than 16 rows), one torch.take for #7.
+             only; #5 == #3 on #1's block; #3 and #5 (the wgmma GEMM of
+             csrc/wgmma_mm.cuh) also at B = 1, 4, 13, 63, 64, 65, 127,
+             129, 2048 for M = 16 and 8, and at N=512 B=129.  Device time
+             per call of each kernel, all its launches summed (#3: the
+             transpose and the GEMM; #5: the phase copies and the GEMM),
+             at B = 4 and 2048 (#3 at B = 4 also over 8 blocks from HBM),
+             TOPS and share of the bound, plain times, bounds, and the
+             library calls: torch._int_mm against the materialized
+             negacyclic matrix for #3/#5 (at B=2048: it needs more than 16
+             rows), one torch.take for #7.
  17. profile-boot  the step profiler oece_tpu_torch/tools/profile_boot.py
              at full width (golden host keys, seed 0; B=1024, all 502
              steps), scans A-I through its own entry points; scan A ==
@@ -249,16 +256,34 @@ def phase_build():
 
     t0 = time.time()
     _build.load()
-    regs = [ln.strip() for ln in _build.BUILD_LOG.splitlines() if "registers" in ln]
+    regs = kernel_registers(_build.BUILD_LOG)
+    over = {k: r for k, r in regs.items() if "int8_mm_kernel" in k and r > 80}
+    if over:
+        fail(f"build: int8_mm_kernel instances above 80 registers: {over}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     )
     if smi.returncode != 0:
         fail(f"nvidia-smi: {smi.stderr.strip()}")
-    log("build", t0, f"nvcc {_build.BUILD_SECONDS:.1f}s; ptxas: {regs}")
+    log("build", t0, f"nvcc {_build.BUILD_SECONDS:.1f}s; ptxas registers: {regs}")
     print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
     print(smi.stdout.strip(), flush=True)  # name, power limit
+
+
+def kernel_registers(build_log: str) -> dict:
+    """{kernel entry (mangled name, shortened): registers} from ptxas -v."""
+    regs, name = {}, None
+    for ln in build_log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif "registers" in ln and name is not None:
+            short = next((k for k in ("int8_mm_kernel", "raw_gemm_kernel", "transpose_kernel",
+                                      "phase_expand_kernel", "rev_build_kernel") if k in name), "")
+            key = f"{short}{name[name.index(short) + len(short):][:32]}" if short else name[:60]
+            regs[key] = int(ln.split("Used")[1].split("registers")[0])
+            name = None
+    return regs
 
 
 def _key_shape(p, n: int, layout: str) -> tuple:
@@ -738,7 +763,8 @@ def conj_take_index(N: int, R: int, device):
 
 def phase_neg_kernel():
     """fhe/negacyclic.py's kernels against their plain twins at STD128_OPT
-    widths, then their device times, plain times, bounds and library
+    widths, #3 and #5 also at the ragged edges of the GEMM's 128-gate tile
+    and at N=512; then their device times, plain times, bounds and library
     calls."""
     import itertools
 
@@ -779,11 +805,23 @@ def phase_neg_kernel():
         err = max(err, _check_same("neg-kernel", f"#6 B={B}", ng.cmux_epilogue(P, acc, amt, Q),
                                    ng.cmux_epilogue_plain(P, acc, amt, Q), t0))
         inputs[B] = (dig, P, acc, amt)
+    # #3 and #5 at the edges of the GEMM's 128-gate tiles, both plane counts,
+    # and at N=512 (another K and ring size)
+    shapes = [(N, R, M, B) for B in (1, 4, 13, 63, 64, 65, 127, 129, 2048) for M in (16, 8)]
+    for n_, r_, M, B in shapes + [(512, R, 16, 129)]:
+        ext = ext16[:, :M].contiguous() if n_ == N else rand8(r_, M, 2 * n_)
+        dig = inputs[B][0] if n_ == N and B in inputs else rand8(B, n_ * r_)
+        block = ng.build_diagonals_plain(ext)
+        what = f"N={n_} M={M} B={B}"
+        err = max(err, _check_same("neg-kernel", f"#3 {what}", ng.diag_matmul(dig, block, r_),
+                                   ng.diag_matmul_plain(dig, block), t0))
+        err = max(err, _check_same("neg-kernel", f"#5 {what}", ng.negacyclic_matmul(dig, ext),
+                                   ng.negacyclic_matmul_plain(dig, ext), t0))
     if ng.PLAIN_LAUNCHES != plain0 or any(ng.LAUNCHES[k] == launches0[k] for k in ng.KERNELS):
         fail(f"neg-kernel: launches {ng.LAUNCHES} (before {launches0}), plain "
              f"{ng.PLAIN_LAUNCHES} (before {plain0}): want every kernel on the card, no plain twin")
 
-    # device time per call of each kernel, at B = 4 and 2048
+    # device time per call of each kernel (all its launches), at B = 4 and 2048
     ext, block = ext16, ng.build_diagonals(ext16)
     conj = ng.build_rev_conj(ext)
     blocks = [ng.build_diagonals(rand8(R, 16, 2 * N)) for _ in range(8)]  # 126 MB, > L2
@@ -793,25 +831,29 @@ def phase_neg_kernel():
         mm_ops = 2.0 * B * nt * K * 16 * 128
         raw, comb = B * 16 * N * 4, B * 4 * N * 4
         cyc = itertools.cycle(blocks)
-        kernels = {  # name: (call, its plain twin, device kernel, (int8 ops, bytes))
+        kernels = {  # name: (call, its plain twin, its device kernels, (int8 ops, bytes))
             "window": (lambda: ng.window_matmul(dig, block, R, Q), lambda: ng.window_matmul_plain(dig, block, Q),
-                       "int8_mm_kernel", (mm_ops, dig.numel() + block.numel() + comb)),
+                       ("int8_mm_kernel",), (mm_ops, dig.numel() + block.numel() + comb)),
             "diag": (lambda: ng.diag_matmul(dig, block, R), lambda: ng.diag_matmul_plain(dig, block),
-                     "int8_mm_kernel", (mm_ops, dig.numel() + block.numel() + raw)),
+                     ("transpose_kernel", "raw_gemm_kernel"), (mm_ops, dig.numel() + block.numel() + raw)),
             "onthefly": (lambda: ng.negacyclic_matmul(dig, ext), lambda: ng.negacyclic_matmul_plain(dig, ext),
-                         "int8_mm_kernel", (mm_ops, dig.numel() + ext.numel() + raw)),
+                         ("phase_expand_kernel", "raw_gemm_kernel"), (mm_ops, dig.numel() + ext.numel() + raw)),
             "cmux": (lambda: ng.cmux_epilogue(P, acc, amt, Q), lambda: ng.cmux_epilogue_plain(P, acc, amt, Q),
-                     "std_cmux_kernel", (0.0, P.numel() * 4 + 2 * acc.numel() * 4 + amt.numel() * 4)),
+                     ("std_cmux_kernel",), (0.0, P.numel() * 4 + 2 * acc.numel() * 4 + amt.numel() * 4)),
             "build_conj": (lambda: ng.build_rev_conj(ext), lambda: ng.build_rev_conj_plain(ext),
-                           "rev_build_kernel", (0.0, ext.numel() + conj.numel())),
+                           ("rev_build_kernel",), (0.0, ext.numel() + conj.numel())),
         }
-        for name, (call, plain, kname, work) in kernels.items():
-            r = {"max_abs_err": err, "ms": device_ms(call, 20, kname)[0],
+        for name, (call, plain, knames, work) in kernels.items():
+            parts = device_ms(call, 20, *knames)
+            r = {"max_abs_err": err, "ms": sum(parts), "parts": parts,
                  "plain_ms": cuda_time_ms(plain, reps=3), "library_ms": None}
             r["bound_ms"], r["bound_by"] = bound(*work)
+            if work[0]:
+                r["tops"] = work[0] / r["ms"] / 1e9
             res[(name, B)] = r
         hbm = lambda: ng.diag_matmul(dig, next(cyc), R)  # noqa: E731
-        res[("diag_hbm", B)] = {"ms": device_ms(hbm, 24, "int8_mm_kernel")[0], "events_ms": cuda_time_ms(hbm, reps=24)}
+        parts = device_ms(hbm, 24, "transpose_kernel", "raw_gemm_kernel")
+        res[("diag_hbm", B)] = {"ms": sum(parts), "parts": parts, "events_ms": cuda_time_ms(hbm, reps=24)}
 
     # the library calls: one torch._int_mm for #3/#5 (B=2048), one torch.take for #7
     dig = inputs[2048][0]
@@ -828,6 +870,10 @@ def phase_neg_kernel():
     for (name, B), r in res.items():
         extra = "".join(f", {k} {r[k]:.4f} ms" for k in ("events_ms", "plain_ms", "bound_ms", "library_ms")
                         if r.get(k))
+        if len(r["parts"]) > 1:
+            extra += f", launches {' + '.join(f'{x:.4f}' for x in r['parts'])} ms"
+        if r.get("tops"):
+            extra += f", {r['tops']:.1f} TOPS, {r['bound_ms'] / r['ms']:.1%} of the bound"
         log("neg-kernel", t0, f"STD128_OPT B={B} {name}: kernel {r['ms']:.4f} ms on the device{extra}"
             f"{' (' + r['bound_by'] + ')' if 'bound_by' in r else ''}")
     return {name: r for (name, B), r in res.items() if B == 2048 and name != "diag_hbm"}
@@ -998,8 +1044,8 @@ def main() -> None:
                 *fields(neg_res[k]), neg_res[k]["library_ms"])
           for k, src, line, fn in (
               ("window", "std_step.cu", 208, "window_matmul"),
-              ("diag", "negacyclic.cu", 106, "diag_matmul"),
-              ("onthefly", "negacyclic.cu", 427, "negacyclic_matmul"),
+              ("diag", "wgmma_mm.cuh", 106, "diag_matmul"),
+              ("onthefly", "wgmma_mm.cuh", 427, "negacyclic_matmul"),
               ("cmux", "std_step.cu", 525, "cmux_epilogue"),
               ("build_conj", "negacyclic.cu", 687, "build_rev_conj"))],
     ]}), flush=True)

@@ -66,7 +66,8 @@ point:
 
 Deferred (ROADMAP.md queue 1): setRecovery and the automatic recovery of
 pure-encrypted runs, compound XOR, DFF state, checkpointing, OECE_BAD_TRACE
-lanes, device meshes, the generic-base AP method (B_r != 2),
+lanes (OECE_AUTO_RECOVER=0 runs recovery off, as in the JAX package),
+device meshes, the generic-base AP method (B_r != 2),
 fhe/ntt_dev.py, the key cache, circuits.gen, and the TB command line and
 testlib.  ``Circuit`` and ``BinFHEContext`` raise NotImplementedError for
 each feature they reach.

@@ -47,7 +47,6 @@ namespace {
 struct ApSelect {
   static constexpr bool kSelect = true;
   static constexpr bool kReadsOld = true;
-  static constexpr bool kRaw = false;
   static constexpr int kPolys = 2;
   const int* a2N;
   int n, i, j, two_n;

@@ -13,20 +13,18 @@
 //   * int8_mm_kernel, the int8 contraction of one step:
 //       res[b, col] = sum_x dig[b, x] * key[(nt-1-k)*(K/nt) + x, col]
 //     for each output tile k, followed by the Horner combine of the 4 key
-//     limbs mod Q and an epilogue that writes P polynomials per gate, or
-//     (a kRaw epilogue) the 4P limb planes as they are.  The key block is
-//     row-major [(2nt-1)*(K/nt), 4P*T] reversed diagonals (K/nt = 2RT for
-//     GINX's part-interleaved rev2, RT for std and AP), columns (poly,
-//     limb, t) at (poly*4 + limb)*T + t; P = 2 (out) for rot and AP, 4
-//     (part, out) for std.  The key tiles come from a block in memory
-//     (BlockKey) or are gathered from the compact key [R, 4P, 2N] that
-//     the block is built from (ExtKey; K/nt = RT), with no block at all.
+//     limbs mod Q and an epilogue that writes P polynomials per gate.  The
+//     key block is row-major [(2nt-1)*(K/nt), 4P*T] reversed diagonals
+//     (K/nt = 2RT for GINX's part-interleaved rev2, RT for std and AP),
+//     columns (poly, limb, t) at (poly*4 + limb)*T + t; P = 2 (out) for rot
+//     and AP, 4 (part, out) for std.
 //
 // The contraction is exact in int32: |sum| <= K * 128 * 128 <= 2**27.
 // Design: mma.sync m16n8k32 s8 tiles of 64 gates x 128 columns,
 // single-buffered shared memory, a byte transpose of each key tile in
 // registers (the key is row-major in the contraction index, mma wants it
-// packed along it).
+// packed along it).  The raw negacyclic products (#3, #5) run on
+// wgmma_mm.cuh instead.
 
 #pragma once
 
@@ -105,12 +103,9 @@ __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Key sources of int8_mm_kernel, made once per block for its output tile
-// k: load(w, x, col) gives the words of rows x..x+3 (x % 4 == 0) of tile
-// k's span, columns col..col+3 (col % 4 == 0), w[i] = row x + i, byte j =
-// column col + j.
-//
-// BlockKey: key is the block itself; four aligned word loads.
+// The key words of int8_mm_kernel, for output tile k: load(w, x, col)
+// gives rows x..x+3 (x % 4 == 0) of tile k's span of the block, columns
+// col..col+3 (col % 4 == 0), w[i] = row x + i, byte j = column col + j.
 struct BlockKey {
   const int8_t* span;  // row 0 of tile k's span
   int MT;
@@ -123,34 +118,6 @@ struct BlockKey {
   }
 };
 
-// ExtKey: key is one step's compact key ext [R, MT/T, 2N] (4-byte
-// aligned) and the block entry rev_build_kernel would write is
-//   ext[r, m, ((k - j)*T + t - u) mod 2N]
-// for x = j*RT + r*T + u, col = m*T + t (RT = K/nt).  Row x + i starts
-// i bytes before row x, so the 16 bytes are 7 consecutive bytes of the
-// cyclic plane: three aligned words (wrapping at 2N) and a funnel shift
-// per row.
-struct ExtKey {
-  const int8_t* ext;
-  int k, RT, M, two_n;
-  __device__ __forceinline__ ExtKey(const int8_t* key, int k_, int nt, int K, int MT)
-      : ext(key), k(k_), RT(K / nt), M(MT / T), two_n(2 * nt * T) {}
-  __device__ __forceinline__ void load(uint32_t* w, int x, int col) const {
-    const int r = (x % RT) / T, u = x % T, m = col / T, t = col % T;
-    const uint32_t* plane = (const uint32_t*)(ext + ((long long)r * M + m) * two_n);
-    const int s = ((k - x / RT) * T + t - u - 3) & (two_n - 1);  // row x+3
-    const int wmask = two_n / 4 - 1, wi = s >> 2;
-    const uint32_t a = __ldg(plane + wi);
-    const uint32_t b = __ldg(plane + ((wi + 1) & wmask));
-    const uint32_t c = __ldg(plane + ((wi + 2) & wmask));
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int off = (s & 3) + 3 - i;  // row x + i starts here, in [0, 6]
-      w[i] = off < 4 ? __funnelshift_r(a, b, 8 * off) : __funnelshift_r(b, c, 8 * (off - 4));
-    }
-  }
-};
-
 // Grid: x = gate tiles of BM; y = (output tile k, poly o, coefficient
 // chunk of TT).  Each block contracts its gates' full digit rows against
 // the 4 limb planes of its TT coefficients, applies the limb combine and
@@ -158,10 +125,8 @@ struct ExtKey {
 // writes either the combined value or acc_in per gate (epi.live(b)); a
 // block none of whose gates is live copies its tile and skips the product.
 // Epilogue::kPolys is P; an Epilogue with kReadsOld gets acc_in[at] as
-// `old`, others get 0 and acc_in may be null.  An Epilogue with kRaw skips
-// the combine and writes the limb sums as int32 planes
-// acc_out[b, o*4 + limb, k*T + t] of [B, 4P, N].
-template <class Epilogue, class KeySrc = BlockKey>
+// `old`, others get 0 and acc_in may be null.
+template <class Epilogue>
 __global__ void __launch_bounds__(THREADS) int8_mm_kernel(
     const int8_t* __restrict__ dig, const int8_t* __restrict__ key_step,
     const int* __restrict__ acc_in, int* __restrict__ acc_out, int B, int N,
@@ -195,7 +160,7 @@ __global__ void __launch_bounds__(THREADS) int8_mm_kernel(
     }
   }
 
-  const KeySrc key(key_step, k, nt, K, MT);
+  const BlockKey key(key_step, k, nt, K, MT);
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;
   const int warp_m = warp >> 2, warp_n = warp & 3;
@@ -278,31 +243,21 @@ __global__ void __launch_bounds__(THREADS) int8_mm_kernel(
       Cs[(row + 8) * C_PITCH + col + 1] = accum[mi][ni][3];
     }
   __syncthreads();
-  if constexpr (Epilogue::kRaw) {
-    for (int e = tid; e < BM * BN; e += THREADS) {
-      const int row = e / BN, limb = (e % BN) / TT, tt = e % TT;
-      const int b = b0 + row;
-      if (b >= B) continue;
-      acc_out[((long long)b * 4 * P + o * 4 + limb) * N + k * T + t0 + tt] =
-          Cs[row * C_PITCH + e % BN];
-    }
-  } else {
-    for (int e = tid; e < BM * TT; e += THREADS) {
-      const int row = e / TT, tt = e % TT;
-      const int b = b0 + row;
-      if (b >= B) continue;
-      const int* cr = Cs + row * C_PITCH + tt;
-      int comb = mod_q(cr[3 * TT], Q);
+  for (int e = tid; e < BM * TT; e += THREADS) {
+    const int row = e / TT, tt = e % TT;
+    const int b = b0 + row;
+    if (b >= B) continue;
+    const int* cr = Cs + row * C_PITCH + tt;
+    int comb = mod_q(cr[3 * TT], Q);
 #pragma unroll
-      for (int l = 2; l >= 0; --l) {
-        comb = mul_pow8_mod(comb, Q) + mod_q(cr[l * TT], Q);
-        if (comb >= Q) comb -= Q;
-      }
-      const long long at = ((long long)b * P + o) * N + k * T + t0 + tt;
-      int old = 0;
-      if constexpr (Epilogue::kReadsOld) old = acc_in[at];
-      acc_out[at] = epi(b, old, comb, Q);
+    for (int l = 2; l >= 0; --l) {
+      comb = mul_pow8_mod(comb, Q) + mod_q(cr[l * TT], Q);
+      if (comb >= Q) comb -= Q;
     }
+    const long long at = ((long long)b * P + o) * N + k * T + t0 + tt;
+    int old = 0;
+    if constexpr (Epilogue::kReadsOld) old = acc_in[at];
+    acc_out[at] = epi(b, old, comb, Q);
   }
 }
 

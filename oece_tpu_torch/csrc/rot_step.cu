@@ -77,7 +77,6 @@ __global__ void rot_diff_decompose_kernel(
 struct RotAdd {
   static constexpr bool kSelect = false;
   static constexpr bool kReadsOld = true;
-  static constexpr bool kRaw = false;
   static constexpr int kPolys = 2;
   __device__ int operator()(int, int old, int comb, int Q) const {
     return red31(old + comb, Q);

@@ -59,8 +59,9 @@
 // wrapper.  The accumulator is updated in place by the epilogue (each
 // thread reads and writes only its own element; the rotations read P4).
 // Left undone: the key tiles gathered from the 131 KB compact key inside
-// the matmul (int8_mm.cuh's ExtKey, which negacyclic.cu's #5 uses) in
-// place of the build and its block, wgmma with TMA-fed stages, the
+// the matmul (as negacyclic.cu's #5 does with byte-phase copies) in
+// place of the build and its block, wgmma with TMA-fed stages (#3 and #5
+// have them, wgmma_mm.cuh), the
 // epilogue fused into the matmul (it needs whole rows of P4: a rotation
 // crosses tiles), and a CUDA graph of the step loop.
 
@@ -74,7 +75,6 @@ template <int P>
 struct Store {
   static constexpr bool kSelect = false;
   static constexpr bool kReadsOld = false;
-  static constexpr bool kRaw = false;
   static constexpr int kPolys = P;
   __device__ int operator()(int, int, int comb, int) const { return comb; }
 };

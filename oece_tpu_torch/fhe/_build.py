@@ -118,9 +118,9 @@ def load() -> ctypes.CDLL:
     lib.oece_cmux_epilogue_true.restype = i32
     lib.oece_cmux_epilogue_true.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
     lib.oece_diag_matmul.restype = i32
-    lib.oece_diag_matmul.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
+    lib.oece_diag_matmul.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
     lib.oece_negacyclic_matmul.restype = i32
-    lib.oece_negacyclic_matmul.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
+    lib.oece_negacyclic_matmul.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
     lib.oece_build_rev.restype = i32
     lib.oece_build_rev.argtypes = [ptr] * 2 + [i32] * 4 + [ptr]
     lib.oece_rot_step.restype = i32

@@ -30,6 +30,15 @@ order are not reproduced, except by #7, whose function is that basis.  The
 TPU tiling arguments (``max_b``, ``block_b``, ``interpret``) have no
 counterpart: the kernels take any batch, B = 0 included.
 
+#3 and #5 run on the Hopper GEMM of csrc/wgmma_mm.cuh, which takes the key
+K-major: #3 transposes the block first (``transpose_block_plain`` is that
+pre-pass's plain twin), #5 writes 32 shifted copies of the reversed key
+planes first (``phase_expand_plain``), and each is one call of both
+launches.  ``diag_key_tile`` and ``phase_key_tile`` rebuild, from those
+scratch tensors, the key tile the GEMM's TMA boxes put into stage c of a
+tile, by the kernel's own box origins (``diag_box_origin``,
+``phase_box_origin``), so that the CPU tests pin the tile layout.
+
 Each wrapper runs its plain twin (``*_plain``) for CPU tensors and, for
 CUDA tensors, launches its kernel of csrc/negacyclic.cu or raises; #2 and
 #6 are, in true column order, the functions of #8 and #10 and launch their
@@ -102,6 +111,70 @@ def negacyclic_matmul_plain(dig: torch.Tensor, ext: torch.Tensor) -> torch.Tenso
     return tile_products_raw(dig, build_diagonals_plain(ext))
 
 
+# raw_gemm_kernel's tile (csrc/wgmma_mm.cuh): gates x columns x the
+# contraction bytes of one stage (one digit row group (j, r) of T bytes);
+# #5's shifted key copies, the rows of one of its TMA boxes.
+GEMM_BM, GEMM_BN, GEMM_BK = 128, 256, 128
+PHASE_COPIES = 32
+
+
+def transpose_block_plain(block: torch.Tensor) -> torch.Tensor:
+    """#3's pre-pass: block int8 [(2nt-1)*R*T, M*T] -> blockT [M*T,
+    (2nt-1)*R*T], K-major for the GEMM."""
+    return block.t().contiguous()
+
+
+def phase_expand_plain(ext: torch.Tensor) -> torch.Tensor:
+    """#5's pre-pass: ext int8 [R, M, 2N] -> V = PHASE_COPIES shifted
+    copies of its reversed planes er[r, m, i] = ext[r, m, -i mod 2N],
+    F[r, m, v, i] = er[r, m, (i - v) mod 2N] = ext[r, m, (v - i) mod 2N]
+    for i < 2N + T ([R, M, V, 2N + T]; the T bytes past 2N keep every
+    window in its row)."""
+    two_n = ext.shape[-1]
+    i = torch.arange(two_n + TILE, device=ext.device)
+    v = torch.arange(PHASE_COPIES, device=ext.device)
+    return ext[:, :, (v[:, None] - i[None, :]) % two_n]
+
+
+def diag_box_origin(k: int, c: int, ct: int, R: int, N: int) -> tuple[int, int]:
+    """#3: (contraction byte, column) of blockT's TMA box that is stage c
+    of output tile k, column tile ct: the block's rows (nt-1-k)*RT + c*T
+    onwards, as rows (nt-1-k)*RT + x of the block serve output tile k."""
+    return (N // TILE - 1 - k) * R * TILE + c * GEMM_BK, ct * GEMM_BN
+
+
+def phase_box_origin(k: int, c: int, m: int, a: int, R: int, M: int, N: int) -> tuple[int, int]:
+    """#5: (byte, row) of F [R*M*V, 2N + T] of the TMA box that holds the
+    key rows of columns (m, V*a .. V*a + V-1) in stage c (digit rows
+    j = c // R, r = c % R) of output tile k.  Column t = V*a + v needs
+    er[r, m, p(t) + u], p(t) = ((j - k)*T - t) mod 2N, which is F[r, m, v,
+    p(V*a) + u]: one start for all V."""
+    j, r = divmod(c, R)
+    V = PHASE_COPIES
+    return ((j - k) * TILE - V * a) % (2 * N), (r * M + m) * V
+
+
+def diag_key_tile(blockT: torch.Tensor, k: int, c: int, ct: int, R: int) -> torch.Tensor:
+    """#3: the key tile [GEMM_BN columns, GEMM_BK bytes] of stage c of
+    output tile k, column tile ct: blockT's box at its origin."""
+    N = (blockT.shape[1] // (R * TILE) + 1) // 2 * TILE
+    x, y = diag_box_origin(k, c, ct, R, N)
+    return blockT[y:y + GEMM_BN, x:x + GEMM_BK]
+
+
+def phase_key_tile(F: torch.Tensor, k: int, c: int, ct: int) -> torch.Tensor:
+    """#5: the same tile from F's boxes, rows h*T + V*a + v for plane
+    2ct + h."""
+    R, M, V, row_bytes = F.shape
+    rows = F.reshape(R * M * V, row_bytes)
+    boxes = []
+    for h in range(GEMM_BN // TILE):
+        for a in range(TILE // V):
+            x, y = phase_box_origin(k, c, 2 * ct + h, a, R, M, row_bytes // 2 - TILE // 2)
+            boxes.append(rows[y:y + V, x:x + GEMM_BK])
+    return torch.cat(boxes)
+
+
 window_matmul_plain = rev.window_matmul_true_plain  # #2 (digs_rows, block, Q)
 cmux_epilogue_plain = rev.cmux_epilogue_true_plain  # #6 (P, acc, amt, Q)
 
@@ -154,8 +227,9 @@ def build_rev_conj(ext: torch.Tensor) -> torch.Tensor:
 
 
 def _raw_product(name: str, dig: torch.Tensor, key: torch.Tensor, R: int, M: int, N: int,
-                 entry: str, plain) -> torch.Tensor:
-    """Launch #3 (key = a block) or #5 (key = ext): int32 [B, M, N]."""
+                 entry: str, plain, scratch_shape: tuple) -> torch.Tensor:
+    """Launch #3 (key = a block) or #5 (key = ext) with its pre-pass into
+    int8 scratch of ``scratch_shape``: int32 [B, M, N]."""
     if not rev._on_card(name, dig, key):
         return _plain(name, plain, dig, key)
     rev._aligned(name, dig, key)
@@ -163,8 +237,10 @@ def _raw_product(name: str, dig: torch.Tensor, key: torch.Tensor, R: int, M: int
     out = torch.empty((B, M, N), dtype=torch.int32, device=dig.device)
     if B == 0:
         return out
+    scratch = torch.empty(scratch_shape, dtype=torch.int8, device=dig.device)
     lib = _build.load()
-    rc = getattr(lib, entry)(dig.data_ptr(), key.data_ptr(), out.data_ptr(), B, N, R, M, rev._stream(out))
+    rc = getattr(lib, entry)(dig.data_ptr(), key.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                             B, N, R, M, rev._stream(out))
     _launch(name, rc, lib)
     return out
 
@@ -172,11 +248,12 @@ def _raw_product(name: str, dig: torch.Tensor, key: torch.Tensor, R: int, M: int
 def diag_matmul(dig: torch.Tensor, block: torch.Tensor, R: int) -> torch.Tensor:
     """#3: digits int8 [B, nt*R*T] against one step's block int8
     [(2nt-1)*R*T, M*T], M = 16 or 8 -> the raw limb sums int32 [B, M, N]
-    (no combine), true columns."""
+    (no combine), true columns: the block transposed, then the GEMM."""
     name = "diag_matmul"
     _, nt = rev._check_digits(name, dig, R)
     M = rev._block_planes(name, block, R, nt)
-    return _raw_product(name, dig, block, R, M, nt * TILE, "oece_diag_matmul", diag_matmul_plain)
+    return _raw_product(name, dig, block, R, M, nt * TILE, "oece_diag_matmul", diag_matmul_plain,
+                        (block.shape[1], block.shape[0]))
 
 
 def negacyclic_matmul_split(dig: torch.Tensor, ext: torch.Tensor) -> torch.Tensor:
@@ -187,11 +264,13 @@ def negacyclic_matmul_split(dig: torch.Tensor, ext: torch.Tensor) -> torch.Tenso
 
 def negacyclic_matmul(dig: torch.Tensor, ext: torch.Tensor) -> torch.Tensor:
     """#5: #3's function with each key tile gathered from ext int8
-    [R, M, 2N] by the matmul's loader; no block is built."""
+    [R, M, 2N]'s shifted copies by the GEMM's TMA boxes; no block is
+    built."""
     name = "negacyclic_matmul"
     R, M, N = _check_ext(name, ext)
     rev._check_digits(name, dig, R, N)
-    return _raw_product(name, dig, ext, R, M, N, "oece_negacyclic_matmul", negacyclic_matmul_plain)
+    return _raw_product(name, dig, ext, R, M, N, "oece_negacyclic_matmul", negacyclic_matmul_plain,
+                        (R, M, PHASE_COPIES, 2 * N + TILE))
 
 
 def window_matmul(digs_rows: torch.Tensor, block: torch.Tensor, R: int, Q: int) -> torch.Tensor:

@@ -27,10 +27,15 @@ packed as the JAX package packs them on an accelerator: GINX then runs the
 standard form (fhe/std.py, Pallas kernels #1 and #4), AP its ap_ext
 kernel.  Not ported yet (each raises NotImplementedError naming its ROADMAP
 item): the generic-base AP method (B_r != 2), setRecovery(True) and the
-automatic recovery of pure-encrypted runs, xor_mode="compound", and
-circuits with DFF state.  A pure-encrypted Clock() (encrypted without
-verify) therefore raises unless setRecovery(False) was called, which is
-the JAX package's own recovery-off configuration.
+automatic recovery of pure-encrypted runs, xor_mode="compound", circuits
+with DFF state, device meshes (``mesh=``, ``setMesh``), checkpointing
+(``Clock(checkpoint_path=...)``) and the ``OECE_BAD_TRACE=1`` lane trace of
+verify runs.  A pure-encrypted Clock() (encrypted without verify)
+therefore raises unless recovery is off: after setRecovery(False), or with
+``OECE_AUTO_RECOVER`` set to anything but "1", the JAX package's own
+recovery-off configurations.  ``generate_keys=False`` skips key
+generation, as in the JAX package (plaintext work, or keys injected with
+``keys``/``sk``).
 """
 
 from __future__ import annotations
@@ -98,7 +103,11 @@ class Circuit:
         rng: Optional[np.random.Generator] = None,
         xor_mode: str = "native",
         verbose: bool = False,
+        generate_keys: bool = True,
+        mesh=None,
     ):
+        if mesh is not None:
+            raise _not_ported("Circuit(mesh=...)", "item 10, the mesh")
         self.params = get_params(set) if isinstance(set, str) else set
         self.method = (
             method if isinstance(method, BinFHEMethod)
@@ -130,7 +139,7 @@ class Circuit:
         self.sk = sk
         self.keys = keys.to(self.device) if keys is not None else None
         self.keygen_s = 0.0
-        if self.keys is None:
+        if self.keys is None and generate_keys:
             t0 = time.time()
             if os.environ.get("OECE_HOST_KEYGEN") == "1":
                 self.sk = golden.lwe_keygen(self.params, self._rng)
@@ -217,6 +226,11 @@ class Circuit:
             raise _not_ported("setRecovery(True)", "recovery")
         self._recovery_off = True
 
+    def setMesh(self, mesh) -> None:
+        """Only ``setMesh(None)`` (no mesh) is supported."""
+        if mesh is not None:
+            raise _not_ported("setMesh", "item 10, the mesh")
+
     def Reset(self) -> None:
         self._plain_arena: Optional[np.ndarray] = None
         self._ct_arena: Optional[torch.Tensor] = None
@@ -261,15 +275,28 @@ class Circuit:
             self._ct_arena = torch.from_numpy(arena).to(self.device)
 
     # -- the engine ---------------------------------------------------------
-    def Clock(self, verbose: bool = False) -> None:
+    def Clock(
+        self,
+        verbose: bool = False,
+        checkpoint_path: Optional[str] = None,
+        checkpoint_every: int = 0,
+    ) -> None:
+        """Evaluate the whole circuit; ``checkpoint_every`` is read only
+        with a ``checkpoint_path``, which is not ported."""
         if self.plan is None:
             raise RuntimeError("ReadFile first")
         if self._done:
             raise RuntimeError("Circuit already evaluated; call Reset")
-        if self.encrypted_flag and not self.verify_flag and not self._recovery_off:
+        if checkpoint_path is not None:
+            raise _not_ported("Clock(checkpoint_path=...)", "item 7, checkpointing")
+        if self.verify_flag and os.environ.get("OECE_BAD_TRACE", "0") == "1":
+            raise _not_ported("OECE_BAD_TRACE=1", "item 8, OECE_BAD_TRACE lanes")
+        if (self.encrypted_flag and not self.verify_flag and not self._recovery_off
+                and os.environ.get("OECE_AUTO_RECOVER", "1") == "1"):
             raise _not_ported(
                 "pure-encrypted mode with automatic recovery (call "
-                "setVerify(True), or setRecovery(False) to run without it)",
+                "setVerify(True), or setRecovery(False) or set "
+                "OECE_AUTO_RECOVER=0 to run without it)",
                 "recovery",
             )
         mode = (
