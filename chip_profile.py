@@ -3,7 +3,7 @@
 
     python3 chip_profile.py [OUT]    # from the root of a checkout
 
-Five measurements, all at STD128_OPT:
+Six measurements, all at STD128_OPT:
   1. sweep      one standard-form rotation step on ginx_ext (csrc/std_step.cu,
                 the block built per step) by batch size, CUDA events: µs
                 per step and int8 TOPS, and at B = 4 and 2048 each
@@ -19,7 +19,8 @@ Five measurements, all at STD128_OPT:
                 device kernel time by kernel name, device busy share;
   4. circuit    adder_32bit verify at T=4 (Circuit under OECE_HOST_KEYGEN=1)
                 under torch.profiler, the same breakdown;
-  5. rev-circuit  the same under OECE_LAYOUT=rev (seed-0 device keys).
+  5. rev-circuit  the same under OECE_LAYOUT=rev (seed-0 device keys);
+  6. rot-circuit  the same on the default rev2 keys (the main path).
 
 Prints one line per result and writes them all as JSON to OUT
 (default build/chip_profile.json).  Needs CUDA; JAX and the JAX package
@@ -171,6 +172,7 @@ def main() -> None:
     del cc, x1, x2
     out["circuit"] = circuit(rng, "ginx_ext")
     out["rev-circuit"] = circuit(rng, "rev")
+    out["rot-circuit"] = circuit(rng, "rev2")
     path = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else OUT)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:

@@ -9,10 +9,15 @@ before the result lines):
              prints each kernel's registers (ptxas), failing if an
              int8_mm_kernel instance takes more than 80, and the card's
              name and power limit (nvidia-smi).
-  2. kernel  the CUDA blind-rotation kernel against its plain torch version
-             on the card, bit-exact: STD128_OPT shape (n=8) at B = 1, 37,
-             256; MICRO_A; a TOY shape (exact gadget, N=512); lanes with
-             a=0.  Times one STD128_OPT step at B=2048 for both versions.
+  2. kernel  the rotated-form rotation #12 (csrc/rot_step.cu: the digits,
+             then a TMA + wgmma step GEMM on the K-major rev2 key, the
+             split one up to 16 gates, the tiled one above)
+             against its plain torch version on the row-major key, on the
+             card, bit-exact: STD128_OPT (n=8), MICRO_A and TOY (exact
+             gadget, N=512; n=4) at B = 1, 4, 8, 13, 37, 64, 65, 256,
+             2048; lanes with a=0; a row-major key on the card must be
+             refused.  Times one STD128_OPT step at B=2048 for both
+             versions.
   3. gates   device keygen at full STD128_OPT (seed 0), then chained
              batches of 2048 random gates over all six types; every output
              is decrypted and checked against the plaintext chain.
@@ -25,7 +30,7 @@ before the result lines):
              version on the card, bit-exact: STD128_OPT (n=2) at B = 1,
              37, 256; MICRO_A and TOY (n=2) with B_r = 2 at B=37; random
              int8 key bytes, lane 0 with a=0.  Times one STD128_OPT AP step
-             at B=2048 for both versions.
+             at B=2048 for both versions, and at B=4.
   6. ap-gates    AP device keygen at full STD128_OPT (seed 0), then 2
              chained batches of 1024 random gates over all six types, every
              output decrypted and checked.
@@ -59,11 +64,22 @@ before the result lines):
              step at B=2048 over 8 distinct blocks (126 MB, more than the
              L2), whole (CUDA events) and per kernel (device time), with
              bounds.
+     rot-sweep  one STD128_OPT step of #12 by batch size (B = 1, 4, 8, 16,
+             64, 256, 1024, 2048; a rotation over 16 distinct random
+             blocks, 251 MB, so each step reads its block from HBM; CUDA
+             events) against its bound, and at B = 4 and 2048 the step
+             split into the digits, the GEMM and the launch gaps
+             (torch.profiler's kernel timeline).  It also runs on a
+             package whose kernel reads the row-major key, to compare
+             trees in one call.  It runs after the long phases: in runs
+             where its profiler windows came before the AP phases'
+             million launches, later windows lost records.
  12. rot-step    #11 (fhe/rot.py rot_step_true -> csrc/rot_step.cu
-             oece_rot_step) against its plain version for any amount pairs
-             (STD128_OPT B = 37 and 2048, MICRO_A and TOY at B=37), and
+             oece_rot_step: the same two kernels) against its plain
+             version for any amount pairs (STD128_OPT, MICRO_A and TOY at
+             B = 1, 4, 8, 13, 37, 64, 65, 256, 2048), and
              blind_rotate_rot_steps == blind_rotate_rot at STD128_OPT n=8
-             B=37; times the B=2048 step.
+             B=37; times the B=2048 step and back-to-back calls at B=4.
  13. rev-gates   device keygen in the "rev" layout at full STD128_OPT
              (seed 0), then 3 chained batches of 1024 random gates, every
              output decrypted and checked; only the rev kernels ran.
@@ -122,7 +138,7 @@ HBM_BYTES_PER_S = 3.35e12
 
 # device_ms: the host's wait on each edge of a profile window, and how many
 # windows in a row may miss a timed launch's record before it fails.
-EDGE_S = 0.05
+EDGE_S = 0.25
 WINDOWS = 3
 
 
@@ -235,6 +251,45 @@ def device_ms(fn, reps: int, *kernels: str, per_call: int = 1) -> list[float]:
     fail(f"the profiler missed launches of {kernels} in {WINDOWS} windows in a row")
 
 
+def step_split(fn, n: int, first: str, second: str) -> tuple[float, float, float]:
+    """Per step of a loop of n steps, each the kernels ``first`` then
+    ``second`` (names contain them), from one profiler timeline of fn:
+    ``first`` = from the previous step's end to the end of ``first``,
+    ``second`` = from there to the step's end, and the time within those in
+    which neither kernel had started (launch gaps; with programmatic
+    dependent launch a kernel starts before its predecessor ends).  ms,
+    averaged over steps 1 .. n-1.  A window that missed a record is taken
+    again, as in device_ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    for _ in range(WINDOWS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.zeros(1, device="cuda")
+            torch.cuda.synchronize()
+            time.sleep(EDGE_S)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(EDGE_S)
+        ev = sorted((e.time_range.start, e.time_range.end, first in e.name) for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and (first in e.name or second in e.name))
+        if [e[2] for e in ev] == [True, False] * n:
+            break
+        print(f"step_split: the profiler recorded {len(ev)} of {2 * n} launches; taking the window "
+              "again", flush=True)
+    else:
+        fail(f"the profiler missed launches of {first}, {second} in {WINDOWS} windows in a row")
+    a, b, idle = 0.0, 0.0, 0.0
+    for i in range(1, n):
+        prev_end, (d0, d1, _), (g0, g1, _) = ev[2 * i - 1][1], ev[2 * i], ev[2 * i + 1]
+        a, b = a + d1 - prev_end, b + g1 - d1
+        idle += max(0.0, d0 - prev_end) + max(0.0, g0 - d1)
+    return a / 1e3 / (n - 1), b / 1e3 / (n - 1), idle / 1e3 / (n - 1)
+
+
 def cuda_time_ms(fn, reps: int) -> float:
     import torch
 
@@ -278,8 +333,10 @@ def kernel_registers(build_log: str) -> dict:
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
         elif "registers" in ln and name is not None:
-            short = next((k for k in ("int8_mm_kernel", "raw_gemm_kernel", "transpose_kernel",
-                                      "phase_expand_kernel", "rev_build_kernel") if k in name), "")
+            short = next((k for k in ("int8_mm_kernel", "raw_gemm_kernel", "rot_gemm_kernel",
+                                      "rot_gemm_split_kernel", "transpose_kernel",
+                                      "phase_expand_kernel", "rev_build_kernel")
+                          if k in name), "")
             key = f"{short}{name[name.index(short) + len(short):][:32]}" if short else name[:60]
             regs[key] = int(ln.split("Used")[1].split("registers")[0])
             name = None
@@ -316,40 +373,91 @@ def rotation_inputs(p, B, n, layout, seed):
     return acc, key, a2N.contiguous()
 
 
+ROT_BATCHES = (1, 4, 8, 13, 37, 64, 65, 256, 2048)
+
+
+def _rot_sets():
+    """The parameter sets of the #12 and #11 checks."""
+    from oece_tpu_torch.fhe.params import MICRO_A, STD128_OPT, TOY
+
+    return (dataclasses.replace(STD128_OPT, n=8), MICRO_A, dataclasses.replace(TOY, n=4))
+
+
+def card_key(rev2):
+    """rev2 in the layout of the card's kernel: K-major (keys.rev2_to); a
+    package whose kernel reads the row-major key takes it as it is."""
+    from oece_tpu_torch.fhe import keys
+
+    return keys.rev2_to(rev2, "cuda") if hasattr(keys, "rev2_to") else rev2
+
+
 def phase_kernel():
     import torch
     from oece_tpu_torch.fhe import rot
-    from oece_tpu_torch.fhe.params import MICRO_A, STD128_OPT, TOY
+    from oece_tpu_torch.fhe.params import STD128_OPT
 
     t0 = time.time()
-    cases = [
-        (dataclasses.replace(STD128_OPT, n=8), 1),
-        (dataclasses.replace(STD128_OPT, n=8), 37),
-        (dataclasses.replace(STD128_OPT, n=8), 256),
-        (MICRO_A, 37),
-        (dataclasses.replace(TOY, n=4), 37),
-    ]
     max_err = 0
-    for i, (p, B) in enumerate(cases):
+    for i, (p, B) in enumerate((p, B) for p in _rot_sets() for B in ROT_BATCHES):
         acc, rev2, a2N = rotation_inputs(p, B, p.n, "rev2", seed=100 + i)
-        got = rot.blind_rotate_rot(acc, rev2, a2N, p)
-        want = rot.blind_rotate_rot_plain(acc, rev2, a2N, p)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        bad = int((got != want).sum())
-        log("kernel", t0, f"{p.name} N={p.N} n={p.n} B={B}: mismatches {bad}, max |err| {err}")
-        if bad:
-            fail(f"kernel != plain at {p.name} B={B}: {bad} mismatches")
-        max_err = max(max_err, err)
+        keyT = card_key(rev2)
+        got = rot.blind_rotate_rot(acc, keyT, a2N, p)
+        max_err = max(max_err, _check_same("kernel", f"#12 {p.name} N={p.N} n={p.n} B={B}", got,
+                                           rot.blind_rotate_rot_plain(acc, rev2, a2N, p), t0))
+        if not torch.equal(got[0], acc[0]):
+            fail(f"kernel changed the a=0 lane at {p.name} B={B}")
+    try:
+        rot.blind_rotate_rot(acc, rev2, a2N, p)
+    except ValueError as e:
+        log("kernel", t0, f"a row-major key on the card is refused: {e}")
+    else:
+        fail("kernel: a row-major rev2 key on the card was not refused")
     p = STD128_OPT
     acc, rev2, a2N = rotation_inputs(p, 2048, 1, "rev2", seed=7)
-    kernel_ms = cuda_time_ms(lambda: rot.blind_rotate_rot(acc, rev2, a2N, p), reps=20)
+    keyT = card_key(rev2)
+    kernel_ms = cuda_time_ms(lambda: rot.blind_rotate_rot(acc, keyT, a2N, p), reps=20)
     plain_ms = cuda_time_ms(lambda: rot.blind_rotate_rot_plain(acc, rev2, a2N, p), reps=5)
-    log("kernel", t0, f"one STD128_OPT step at B=2048: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms")
-    nt, K = p.N // 128, p.N // 128 * 4 * p.d_g_used * 128
-    ops = 2.0 * 2048 * nt * K * 8 * 128
-    nbytes = 2 * acc.numel() * 4 + rev2[0].numel() + a2N.numel() * 4
-    return max_err, kernel_ms, plain_ms, bound(ops, nbytes)
+    log("kernel", t0, f"one STD128_OPT step at B=2048: kernel {kernel_ms:.4f} ms, plain {plain_ms:.3f} ms")
+    return max_err, kernel_ms, plain_ms, _rot_step_bound(p, 2048)
+
+
+def _rot_step_bound(p, B):
+    """One rotated-form step's bound: 67 M MACs per gate; the step's key
+    block, the accumulator in and out and one amount per gate."""
+    nt, R = p.N // 128, 2 * p.d_g_used
+    K = nt * 2 * R * 128
+    block = (2 * nt - 1) * 2 * R * 128 * 8 * 128
+    return bound(2.0 * B * nt * K * 8 * 128, block + 2 * B * 2 * p.N * 4 + B * 4)
+
+
+def phase_rot_sweep():
+    """#12's step time by batch size against its bound; the B=4 and
+    B=2048 splits."""
+    from oece_tpu_torch.fhe import rot
+    from oece_tpu_torch.fhe.params import STD128_OPT
+
+    t0 = time.time()
+    p = dataclasses.replace(STD128_OPT, n=16)
+    res = {}
+    for B in (1, 4, 8, 16, 64, 256, 1024, 2048):
+        acc, rev2, a2N = rotation_inputs(p, B, p.n, "rev2", seed=900 + B)
+        keyT = card_key(rev2)
+        del rev2
+        rotate = lambda: rot.blind_rotate_rot(acc, keyT, a2N, p)  # noqa: E731
+        ms = cuda_time_ms(rotate, reps=10 if B < 1024 else 3) / p.n
+        bnd = _rot_step_bound(p, B)
+        res[B] = {"ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1]}
+        log("rot-sweep", t0, f"STD128_OPT step B={B}: {1e3 * ms:.1f} us, bound {1e3 * bnd[0]:.1f} us "
+            f"({bnd[1]}), {bnd[0] / ms:.1%} of the bound")
+        if B in (4, 2048):
+            gemm = "rot_gemm" if hasattr(rot, "gemm_config") else "int8_mm_kernel"
+            digits, mm, idle = step_split(rotate, p.n, "rot_diff_decompose_kernel", gemm)
+            res[B].update(digits_ms=digits, gemm_ms=mm, gap_ms=idle)
+            log("rot-sweep", t0, f"B={B} per step (profiler timeline): digits {1e3 * digits:.2f} us, "
+                f"GEMM ({gemm}) {1e3 * mm:.2f} us, of which no kernel running {1e3 * idle:.2f} us; "
+                f"events {1e3 * ms:.2f} us")
+        del keyT
+    return res
 
 
 def _ap_inputs(p, B, seed, any_a=False):
@@ -412,6 +520,13 @@ def phase_ap_kernel():
     nt, K = p.N // 128, p.N // 128 * 2 * p.d_g_used * 128
     ops = 2.0 * live * nt * K * 8 * 128 / p.d_r
     nbytes = ext[0].numel() + 2 * acc.numel() * 4 + a2N.numel() * 4 / p.d_r
+    # and at B=4, the lanes of a narrow circuit level
+    acc4, ext4, a4 = _ap_inputs(p, 4, seed=9, any_a=True)
+    ms4 = cuda_time_ms(lambda: ap.blind_rotate_ap(acc4, ext4, a4, p), reps=20) / p.d_r
+    bnd4 = bound(2.0 * int(ap.ap_bits(a4, p).sum()) * nt * K * 8 * 128 / p.d_r,
+                 ext4[0].numel() + 2 * acc4.numel() * 4 + a4.numel() * 4 / p.d_r)
+    log("ap-kernel", t0, f"one STD128_OPT AP step at B=4: kernel {1e3 * ms4:.1f} us, bound "
+        f"{1e3 * bnd4[0]:.2f} us ({bnd4[1]})")
     return max_err, kernel_ms, plain_ms, bound(ops, nbytes)
 
 
@@ -704,31 +819,42 @@ def phase_rot_step():
     rotation against the step loop; the B=2048 step time and bound."""
     import torch
     from oece_tpu_torch.fhe import rot
-    from oece_tpu_torch.fhe.params import MICRO_A, STD128_OPT, TOY
+    from oece_tpu_torch.fhe.params import STD128_OPT
 
     t0 = time.time()
     err = 0
-    for i, (p, B) in enumerate([(STD128_OPT, 37), (MICRO_A, 37), (TOY, 37), (STD128_OPT, 2048)]):
+    for i, (p, B) in enumerate((p, B) for p in _rot_sets() for B in ROT_BATCHES):
         acc, rev2, _ = rotation_inputs(p, B, 1, "rev2", seed=500 + i)
+        keyT = card_key(rev2)
         g = torch.Generator(device="cuda")
         g.manual_seed(i)
         amt = torch.randint(0, 2 * p.N, (B, 2), generator=g, device="cuda", dtype=torch.int32)
-        got = rot.rot_step_true(acc, rev2[0], amt, p)
+        got = rot.rot_step_true(acc, keyT[0], amt, p)
         err = max(err, _check_same("rot-step", f"#11 {p.name} B={B}, any amounts", got,
                                    rot.rot_step_plain(acc, rev2[0], amt, p), t0))
-    # the B=2048 step of the last case
-    step = lambda: rot.rot_step_true(acc, rev2[0], amt, p)  # noqa: E731
+    # the B=2048 step of the last STD128_OPT case
+    p, B = STD128_OPT, 2048
+    acc, rev2, _ = rotation_inputs(p, B, 1, "rev2", seed=500 + len(ROT_BATCHES) - 1)
+    keyT = card_key(rev2)
+    amt = torch.randint(0, 2 * p.N, (B, 2), generator=g, device="cuda", dtype=torch.int32)
+    step = lambda: rot.rot_step_true(acc, keyT[0], amt, p)  # noqa: E731
     ms = cuda_time_ms(step, reps=20)
     plain_ms = cuda_time_ms(lambda: rot.rot_step_plain(acc, rev2[0], amt, p), reps=3)
-    nt, K = p.N // 128, p.N // 128 * 4 * p.d_g_used * 128
-    bnd = bound(2.0 * B * nt * K * 8 * 128, 2 * acc.numel() * 4 + rev2[0].numel() + amt.numel() * 4)
+    bnd = _rot_step_bound(p, B)
     log("rot-step", t0, f"one STD128_OPT step at B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+    # one call at B=4, as OECE_ROT_MEGA=0 makes it on a narrow level
+    acc, rev2, _ = rotation_inputs(p, 4, 1, "rev2", seed=511)
+    keyT = card_key(rev2)
+    amt4 = amt[:4].contiguous()
+    call_ms = cuda_time_ms(lambda: rot.rot_step_true(acc, keyT[0], amt4, p), reps=200)
+    log("rot-step", t0, f"one rot_step_true call at B=4, back to back: {1e3 * call_ms:.1f} us")
     pn = dataclasses.replace(STD128_OPT, n=8)
     acc, rev2, a2N = rotation_inputs(pn, 37, pn.n, "rev2", seed=510)
-    got = rot.blind_rotate_rot_steps(acc, rev2, a2N, pn)
+    keyT = card_key(rev2)
+    got = rot.blind_rotate_rot_steps(acc, keyT, a2N, pn)
     err = max(err, _check_same("rot-step", "blind_rotate_rot_steps vs blind_rotate_rot, n=8 B=37", got,
-                               rot.blind_rotate_rot(acc, rev2, a2N, pn), t0))
+                               rot.blind_rotate_rot(acc, keyT, a2N, pn), t0))
     if not torch.equal(got[0], acc[0]):
         fail("rot-step: the per-step rotation changed the a=0 lane")
     return err, ms, plain_ms, bnd
@@ -992,6 +1118,7 @@ PHASES = {
     "context": phase_context,
     "std-circuit": lambda: phase_circuit("std-circuit", "GINX", host_keys=True),
     "rev-kernel": phase_rev_kernel,
+    "rot-sweep": phase_rot_sweep,
     "rot-step": phase_rot_step,
     "rev-gates": lambda: phase_gates("rev-gates", B=1024, K=3, layout="rev"),
     "rev-circuit": lambda: phase_circuit("rev-circuit", layout="rev"),

@@ -1,6 +1,7 @@
-// Shared pieces of the port's blind-rotation kernels (rot_step.cu for the
-// rotated GINX form, std_step.cu for the standard GINX form, ap_step.cu for
-// the binary-base AP method), for Hopper (sm_90a):
+// Shared pieces of the port's blind-rotation kernels (std_step.cu for the
+// standard GINX form, ap_step.cu for the binary-base AP method; rot_step.cu,
+// the rotated GINX form, takes the modular helpers only), for Hopper
+// (sm_90a):
 //
 //   * the modular helpers of oece_tpu/fhe/modmath.py (red31, mod_q,
 //     mul_pow8_mod) and the gadget decomposition of one coefficient
@@ -16,15 +17,16 @@
 //     limbs mod Q and an epilogue that writes P polynomials per gate.  The
 //     key block is row-major [(2nt-1)*(K/nt), 4P*T] reversed diagonals
 //     (K/nt = 2RT for GINX's part-interleaved rev2, RT for std and AP),
-//     columns (poly, limb, t) at (poly*4 + limb)*T + t; P = 2 (out) for rot
-//     and AP, 4 (part, out) for std.
+//     columns (poly, limb, t) at (poly*4 + limb)*T + t; P = 2 (out) for AP,
+//     4 (part, out) for std.
 //
 // The contraction is exact in int32: |sum| <= K * 128 * 128 <= 2**27.
 // Design: mma.sync m16n8k32 s8 tiles of 64 gates x 128 columns,
 // single-buffered shared memory, a byte transpose of each key tile in
 // registers (the key is row-major in the contraction index, mma wants it
 // packed along it).  The raw negacyclic products (#3, #5) run on
-// wgmma_mm.cuh instead.
+// wgmma_mm.cuh instead, and the rotated form's step (#11, #12) on
+// rot_step.cu's wgmma GEMMs over a K-major key.
 
 #pragma once
 

@@ -8,7 +8,8 @@
 // ext[r, m, ((k - j)*T + t - u) mod 2N] (keys.rev_block).  It serves
 // Pallas kernels #3 (diag_matmul_pallas, the block given) and #5
 // (negacyclic_matmul_pallas, no block) of oece_tpu/fhe/pallas_kernels.py;
-// negacyclic.cu holds their entries.
+// negacyclic.cu holds their entries.  Its TMA, mbarrier, descriptor and
+// wgmma helpers also serve the rotation GEMMs of rot_step.cu (#11, #12).
 //
 // wgmma takes 8-bit operands from shared memory only K-major, so both
 // operands come in as [rows][128 contraction bytes] tiles in the 128-byte
@@ -109,6 +110,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// The box of the 4D `map` at (x, y, z, w).
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int x, int y, int z, int w) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"((uint64_t)map), "r"(bar), "r"(x), "r"(y), "r"(z), "r"(w)
+      : "memory");
+}
+
 // Shared-memory matrix descriptor of a K-major tile in the 128-byte
 // swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO), the
 // leading offset unused; the tile starts 1024-byte aligned, and +2 in the
@@ -120,9 +131,10 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
 
 // The compiler must not move accumulator reads or writes across the
 // asynchronous wgmma and its waits.
-__device__ __forceinline__ void fence_acc(int (&d)[128]) {
+template <int NR>
+__device__ __forceinline__ void fence_acc(int (&d)[NR]) {
 #pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+r"(d[i])::"memory");
+  for (int i = 0; i < NR; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // d (+)= A[64 x 32] * B[256 x 32]^T, int8 -> int32; scale_d = 0 overwrites.
@@ -158,6 +170,73 @@ __device__ __forceinline__ void wgmma_256(int (&d)[128], uint64_t da, uint64_t d
         "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
         "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
         "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// wgmma_s8<NB>: d (+)= A[64 x 32] * B[NB x 32]^T, int8 -> int32, NB/2
+// accumulators a thread; the N of the rotation GEMM (rot_step.cu).
+template <int NB>
+__device__ void wgmma_s8(int (&d)[NB / 2], uint64_t da, uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_s8<256>(int (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+  wgmma_256(d, da, db, scale_d);
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<32>(int (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<64>(int (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<128>(int (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -356,20 +435,34 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 2D int8 map of [rows, row_bytes] (row stride row_bytes), box [box_rows,
-// 128 bytes], 128-byte swizzle, out-of-bounds rows read as zeros, no L2
+// An int8 map of `rank` dimensions (dims[0] the contiguous bytes; strides
+// in bytes of dims 1 .. rank-1, in any order), box `box` (box[0] = 128
+// bytes), 128-byte swizzle, out-of-bounds elements read as zeros, no L2
 // promotion (the operands are L2-resident; promotion read slower).
+inline bool make_map_nd(CUtensorMap* map, const void* base, int rank, const long long* dims,
+                        const long long* strides, const int* box) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr || rank > 5) return false;
+  cuuint64_t d[5], st[4];
+  cuuint32_t bx[5], elem[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = (cuuint64_t)dims[i];
+    bx[i] = (cuuint32_t)box[i];
+    elem[i] = 1;
+    if (i > 0) st[i - 1] = (cuuint64_t)strides[i - 1];
+  }
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, rank, const_cast<void*>(base), d, st, bx, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 2D int8 map of [rows, row_bytes] (row stride row_bytes), box [box_rows,
+// 128 bytes], as make_map_nd.
 inline bool make_map(CUtensorMap* map, const void* base, long long rows, long long row_bytes,
                      int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)row_bytes, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const long long dims[2] = {row_bytes, rows}, strides[1] = {row_bytes};
+  const int box[2] = {BK, box_rows};
+  return make_map_nd(map, base, 2, dims, strides, box);
 }
 
 // dig int8 [B, nt*R*T] against key (kPhase: F [R, M, V, 2N + 128]; else

@@ -104,7 +104,7 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.oece_blind_rotate_rot.restype = i32
-    lib.oece_blind_rotate_rot.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
+    lib.oece_blind_rotate_rot.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
     lib.oece_blind_rotate_ap.restype = i32
     lib.oece_blind_rotate_ap.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
     lib.oece_blind_rotate_std.restype = i32
@@ -124,7 +124,7 @@ def load() -> ctypes.CDLL:
     lib.oece_build_rev.restype = i32
     lib.oece_build_rev.argtypes = [ptr] * 2 + [i32] * 4 + [ptr]
     lib.oece_rot_step.restype = i32
-    lib.oece_rot_step.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
+    lib.oece_rot_step.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
     lib.oece_error_string.restype = ctypes.c_char_p
     lib.oece_error_string.argtypes = [ctypes.c_int]
     _lib = lib

@@ -23,6 +23,17 @@ port's rotations read (T = 128, nt = N/T, R = 2*d_g_used, L = 4 limbs):
              sits at d'*2RT + part*RT + r*T + u, column (out, limb, t) at
              (out*4 + limb)*T + t.  The layout of oece_tpu's devkeygen
              "rev2".  7.9 GB at STD128_OPT.
+             On the card rev2 is K-major instead, the layout its GEMM reads
+             (csrc/rot_step.cu): int8 [n, 8, T, (2*nt-1)*2*R*T], entry
+             [i, out*4 + limb, t, x] = the row-major [i, x, (out*4 + limb)*T
+             + t], each step's block transposed.  The shape tells the two
+             layouts apart: a K-major key has one dimension more (4 for the
+             whole key, 3 for one step's block; row-major 3 and 2).  The
+             CPU holds rev2 row-major (``from_jax`` carries it across so,
+             and every plain twin reads it so); device keygen on the card,
+             ``pack_rotated_form(..., device="cuda")`` and ``BootKeys.to``
+             write it K-major, one step at a time (``rev2_to``), so the card
+             never holds both layouts of a whole key.
   ap_ext   : AP (B_r = 2) only.  int8 [n*d_r, R, 8, 2N]  the limb planes
              (plane = out*4 + limb) of each v=1 step key, over v then -v
              mod Q: oece_tpu's ``_ext_limb_planes`` form, before the TPU's
@@ -37,7 +48,7 @@ layout selects its own rotation (fhe/boot.py): ginx_ext and rev the
 standard form, rev2 the rotated form.
 
 ``build_rev`` and ``build_rev2`` expand GINX refresh keys into rev and
-rev2 one step at a time (fhe/devkeygen.py).  ``pack_bootstrap_key``
+rev2 one step at a time (fhe/devkeygen.py), rev2 in its device's layout.  ``pack_bootstrap_key``
 packs a golden ``BootstrapKey`` (the port's ``fhe/golden.py`` record) as
 the JAX package does on an accelerator (GINX -> ginx_ext, binary-base AP
 -> ap_ext); ``pack_rotated_form`` packs GINX golden keys into rev2
@@ -79,12 +90,14 @@ class BootKeys:
     ginx_ext: Optional[torch.Tensor] = None
 
     def to(self, device) -> "BootKeys":
+        """The keys on ``device``, rev2 in that device's layout."""
         def move(t):
             return None if t is None else t.to(device)
 
         return dataclasses.replace(
             self, ksk=move(self.ksk), tv_table=move(self.tv_table), rev=move(self.rev),
-            rev2=move(self.rev2), ap_ext=move(self.ap_ext), ginx_ext=move(self.ginx_ext),
+            rev2=None if self.rev2 is None else rev2_to(self.rev2, device),
+            ap_ext=move(self.ap_ext), ginx_ext=move(self.ginx_ext),
         )
 
 
@@ -130,30 +143,56 @@ def rev_block(ext_s: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return g.permute(2, 0, 3, 1, 4).reshape(ndiag * R * TILE, M * TILE)
 
 
-def rev2_step(brk_i: torch.Tensor, Q: int, idx: torch.Tensor) -> torch.Tensor:
+def rev2_step(brk_i: torch.Tensor, Q: int, idx: torch.Tensor, kmajor: bool = False) -> torch.Tensor:
     """One step's RGSW pair int32 [part=2, R, out=2, N] mod Q -> its rev2
-    block int8 [(2nt-1)*2*R*T, 8*T]."""
+    block int8 [(2nt-1)*2*R*T, 8*T], or K-major [8, T, (2nt-1)*2*R*T]."""
     _, R, _, N = brk_i.shape
     ndiag = idx.shape[0]
     perm = ext_planes(brk_i, Q).reshape(2, R * 8, 2 * N)
-    g = perm[:, :, idx]  # [part, R*8, ndiag, u, t]
-    g = g.reshape(2, R, 8, ndiag, TILE, TILE).permute(3, 0, 1, 4, 2, 5)
-    return g.reshape(ndiag * 2 * R * TILE, 8 * TILE)
+    g = perm[:, :, idx].reshape(2, R, 8, ndiag, TILE, TILE)  # [part, r, plane, d', u, t]
+    if kmajor:
+        return g.permute(2, 5, 3, 0, 1, 4).reshape(8, TILE, ndiag * 2 * R * TILE)
+    return g.permute(3, 0, 1, 4, 2, 5).reshape(ndiag * 2 * R * TILE, 8 * TILE)
+
+
+def rev2_shape(n: int, R: int, N: int, kmajor: bool) -> tuple:
+    """The shape of a rev2 key of n steps, row-major or K-major."""
+    rows = (2 * (N // TILE) - 1) * 2 * R * TILE
+    return (n, 8, TILE, rows) if kmajor else (n, rows, 8 * TILE)
 
 
 def build_rev2(brk: torch.Tensor, Q: int) -> torch.Tensor:
-    """brk int32 [n, part=2, R, out=2, N] mod Q -> rev2 int8, built one step
-    at a time (a whole-array gather would hold two copies of ~8 GB at
-    STD128_OPT)."""
+    """brk int32 [n, part=2, R, out=2, N] mod Q -> rev2 int8 in its
+    device's layout (K-major on the card), built one step at a time (a
+    whole-array gather would hold two copies of ~8 GB at STD128_OPT)."""
     n, _, R, _, N = brk.shape
     assert N % TILE == 0, "rev2 needs N % 128 == 0"
+    kmajor = brk.is_cuda
     idx = rev_index(N, brk.device)
+    out = torch.empty(rev2_shape(n, R, N, kmajor), dtype=torch.int8, device=brk.device)
+    for i in range(n):
+        out[i] = rev2_step(brk[i], Q, idx, kmajor)
+    return out
+
+
+def rev2_to(rev2: torch.Tensor, device, kmajor: Optional[bool] = None) -> torch.Tensor:
+    """A whole rev2 key on ``device``, K-major on the card and row-major
+    elsewhere unless ``kmajor`` says otherwise.  A change of layout goes
+    one step at a time: the new key plus one step's block."""
+    device = torch.device(device)
+    kmajor = device.type == "cuda" if kmajor is None else kmajor
+    if (rev2.ndim == 4) == kmajor:
+        return rev2.to(device)
+    n, rows = rev2.shape[0], rev2.shape[-1] if rev2.ndim == 4 else rev2.shape[1]
     out = torch.empty(
-        (n, idx.shape[0] * 2 * R * TILE, 8 * TILE), dtype=torch.int8,
-        device=brk.device,
+        (n, 8, TILE, rows) if kmajor else (n, rows, 8 * TILE), dtype=torch.int8, device=device,
     )
     for i in range(n):
-        out[i] = rev2_step(brk[i], Q, idx)
+        blk = rev2[i].to(device)
+        if kmajor:
+            out[i].view(8 * TILE, rows).copy_(blk.t())
+        else:
+            out[i].copy_(blk.view(8 * TILE, rows).t())
     return out
 
 
@@ -269,8 +308,8 @@ def pack_bootstrap_key(bk: golden.BootstrapKey, device="cuda") -> BootKeys:
 
 
 def pack_rotated_form(bk: golden.BootstrapKey, device="cuda") -> BootKeys:
-    """Pack GINX golden keys into rev2, for the rotated-difference form
-    (golden.bootstrap(form="rot") is its twin)."""
+    """Pack GINX golden keys into rev2 (K-major on the card), for the
+    rotated-difference form (golden.bootstrap(form="rot") is its twin)."""
     p, method = _port_record(bk)
     if method != BinFHEMethod.GINX:
         raise ValueError("the rotated form is a GINX key layout")

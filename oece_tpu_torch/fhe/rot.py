@@ -10,8 +10,20 @@ where ⊡ is one int8 contraction per 128-coefficient output tile against the
 step's rev2 diagonals, followed by the Horner combine of the 4 key limbs.
 
 ``blind_rotate_rot`` dispatches on the device of its tensors: CPU tensors
-take ``blind_rotate_rot_plain`` (torch ops), CUDA tensors launch the
-hand-written step loop of ``csrc/rot_step.cu`` or raise.
+take ``blind_rotate_rot_plain`` (torch ops) on the row-major rev2 key,
+CUDA tensors launch the hand-written step loop of ``csrc/rot_step.cu`` on
+the K-major key (keys.py) or raise; a row-major key on the card is
+refused, not transposed per call.  Each step is two kernels: the digits
+of both rotated differences (``rot_diff_digits``), then a TMA + wgmma GEMM
+with 64 key columns (the 4 limbs of 16 coefficients) on wgmma's M and the
+gates on its N (``gemm_config``).  Above 16 gates the tiled GEMM (32-256
+gates per tile) takes the limb combine and the ``red31`` add in its
+epilogue; up to 16 gates the split GEMM reads each key tile once per step
+for all output tiles and adds combined partial sums into a scratch sum,
+which the next step's digits kernel (or, after the last step, a finalize
+kernel) adds to the accumulator.  ``gemm_config``, ``split_groups``,
+``split_digit_box``, ``gemm_tiles`` and ``key_box_origin`` repeat the
+kernels' tiling for the CPU layout tests.
 
 ``rot_step_true`` is one step for any amount pair (c_pos, c_neg) per gate,
 the counterpart of Pallas kernel #11 ``pallas_kernels.rot_step_true``
@@ -32,11 +44,13 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, keys
 from .modmath import combine_limbs_mod_q, red31
 from .params import BinFHEParams
 
 TILE = 128
+GEMM_BK = 128  # contraction bytes per stage of the step GEMM
+GEMM_CHUNK = 16  # coefficients per math warpgroup: 4 limbs x 16 = 64 key columns
 
 LAUNCHES = 0  # blind_rotate_rot calls that launched the CUDA step loop
 PLAIN_LAUNCHES = 0  # calls that ran the plain torch version
@@ -125,7 +139,7 @@ def rot_diff_digits(acc: torch.Tensor, amt: torch.Tensor, p: BinFHEParams) -> to
 
 
 def tile_products_raw(dig: torch.Tensor, rev: torch.Tensor) -> torch.Tensor:
-    """Plain twin of int8_mm_kernel's product: digits int8 [B, K] against
+    """Plain twin of the step loops' int8 product: digits int8 [B, K] against
     reversed diagonals int8 [(2nt-1)*K/nt, M*T], output tile k contracting
     rows [(nt-1-k)*K/nt, +K).  Returns the limb sums int32 [B, M, N],
     plane m at columns k*T + t.  The contraction runs in float64, exact
@@ -151,7 +165,7 @@ def combine_planes(raw: torch.Tensor, Q: int) -> torch.Tensor:
 
 
 def tile_products(dig: torch.Tensor, rev: torch.Tensor, Q: int) -> torch.Tensor:
-    """Plain twin of int8_mm_kernel's product and limb combine: int32
+    """Plain twin of the step loops' product and limb combine: int32
     [B, M/4, N] mod Q, one polynomial per 4 limb planes."""
     return combine_planes(tile_products_raw(dig, rev), Q)
 
@@ -177,6 +191,66 @@ def blind_rotate_rot_plain(
     return acc
 
 
+SPLIT_GROUPS = 8  # the split GEMM's diagonal groups, at most
+SMEM_MAX = 232448  # shared memory a block can use on the H100
+
+
+def split_groups(N: int) -> tuple[int, int]:
+    """(diagonals per group, groups) of the split GEMM: the 2nt-1 diagonals
+    of a block in at most SPLIT_GROUPS groups of consecutive ones."""
+    ndiag = 2 * (N // TILE) - 1
+    dpg = -(-ndiag // SPLIT_GROUPS)
+    return dpg, -(-ndiag // dpg)
+
+
+def gemm_config(B: int, N: int, d_used: int) -> tuple[int, int, bool]:
+    """(NB gates per tile, MW math warpgroups, split) of the step GEMM for B
+    gates: up to 16 gates the split GEMM (NB = 8 or 16) where nt <= 8 and
+    its shared memory holds the digit chunks a block needs (the 2RT/128
+    chunks of dpg + 7 digit tiles of NB gates) beside 8 stages of key
+    tiles; else the narrowest NB >= 32 that holds B, two warpgroups sharing
+    one 256-gate digit tile above 256 gates."""
+    nt, sub = N // TILE, 4 * d_used * TILE // GEMM_BK
+    NB = 8 if B <= 8 else 16
+    dpg = split_groups(N)[0]
+    smem = (1024 + sub * (dpg + 7) * NB * GEMM_BK + 8 * (4 * GEMM_CHUNK * GEMM_BK + 16) + 8
+            + 4 * GEMM_CHUNK * (NB + 1) * 4)
+    if B <= 16 and nt <= 8 and smem <= SMEM_MAX:
+        return NB, 1, True
+    for nb in (32, 64, 128, 256):
+        if B <= nb:
+            return nb, 1, False
+    return 256, 2, False
+
+
+def split_digit_box(c: int, d_lo: int, N: int) -> tuple[int, int]:
+    """(first digit chunk j0, substage c) of the split GEMM's digit box for
+    substage c of a block whose diagonals start at d_lo: the chunks j0 ..
+    j0 + dpg + 6 of the NB gates, chunk j at the contraction bytes j*2RT +
+    128c .. +127; chunks outside [0, nt) read as zeros."""
+    return d_lo - (N // TILE - 1), c
+
+
+def gemm_tiles(B: int, N: int, d_used: int) -> list[tuple[int, int, int]]:
+    """The tiled GEMM's tiles (gate tile gt, output tile k, column tile ct)
+    in the order the persistent blocks take them, gate tile fastest; math
+    warpgroup w of tile ct takes column chunk cc = ct*MW + w."""
+    NB, MW, _ = gemm_config(B, N, d_used)
+    col_tiles = 2 * (TILE // GEMM_CHUNK) // MW
+    return [(gt, k, ct) for k in range(N // TILE) for ct in range(col_tiles)
+            for gt in range(-(-B // NB))]
+
+
+def key_box_origin(x: int, cc: int) -> tuple[int, int, int]:
+    """(contraction byte, coefficient t0, plane) of the TMA box of column
+    chunk cc = o*8 + t0/16 at contraction byte x: planes 4o .. 4o+3 (the 4
+    limbs of poly o), coefficients t0 .. t0+15, bytes x .. x+127 of the
+    K-major block [8, T, rows]; limb l lands at rows 16l of the 64-row
+    tile.  Stage c of the tiled GEMM's output tile k is at x = (nt-1-k)*2RT
+    + 128c; stage (d', s) of the split GEMM at x = d'*2RT + 128s."""
+    return x, cc % (TILE // GEMM_CHUNK) * GEMM_CHUNK, 4 * (cc // (TILE // GEMM_CHUNK))
+
+
 def check_operands(name: str, acc, key, a2N) -> None:
     """What both rotation wrappers require: int32 acc [B, 2, N] and a2N,
     an int8 key, one device, contiguous memory."""
@@ -194,17 +268,36 @@ def check_operands(name: str, acc, key, a2N) -> None:
 
 
 def _check(acc, rev2, amounts, p: BinFHEParams, name="blind_rotate_rot", one_step=False) -> None:
-    """Whole rotations take rev2 [n, rows, 8T] and a2N [B, n]; one step
-    takes its block [rows, 8T] and amount pairs [B, 2]."""
+    """Whole rotations take rev2 [n, rows, 8T] (on the card K-major,
+    [n, 8, T, rows]) and a2N [B, n]; one step takes its block and amount
+    pairs [B, 2]."""
     check_operands(name, acc, rev2, amounts)
     B, _, N = acc.shape
-    block = ((2 * (N // TILE) - 1) * 2 * 2 * p.d_g_used * TILE, 8 * TILE)
-    want = (block, (B, 2)) if one_step else ((rev2.shape[0], *block), (B, rev2.shape[0]))
+    kmajor = acc.is_cuda
+    n = rev2.shape[0] if rev2.ndim == (4 if kmajor else 3) else 1
+    block = keys.rev2_shape(n, 2 * p.d_g_used, N, kmajor)[1:]
+    if kmajor and rev2.ndim == len(block) - one_step and rev2.shape[-1] == 8 * TILE:
+        raise ValueError(
+            f"{name}: a row-major rev2 key on the card: the kernel reads it K-major, "
+            f"{block}; convert it once (keys.rev2_to, BootKeys.to('cuda'))"
+        )
+    want = (block, (B, 2)) if one_step else ((n, *block), (B, n))
     if N != p.N or (rev2.shape, amounts.shape) != want:
         raise ValueError(
             f"{name}: bad shapes acc {tuple(acc.shape)}, rev2 "
             f"{tuple(rev2.shape)}, amounts {tuple(amounts.shape)} for N={p.N}"
         )
+
+
+def _scratch(acc, p: BinFHEParams):
+    """The step loop's scratch: the digits int8 [B, K] and the split GEMM's
+    two sums of products int32 [2, B, 2, N] (empty for the tiled GEMM)."""
+    B, _, N = acc.shape
+    K = N // TILE * 2 * 2 * p.d_g_used * TILE
+    split = gemm_config(B, N, p.d_g_used)[2]
+    dig = torch.empty((B, K), dtype=torch.int8, device=acc.device)
+    sums = torch.empty((2, B, 2, N) if split else (0,), dtype=torch.int32, device=acc.device)
+    return dig, sums
 
 
 def _blind_rotate_rot_cuda(acc, rev2_all, a2N, p: BinFHEParams) -> torch.Tensor:
@@ -214,13 +307,11 @@ def _blind_rotate_rot_cuda(acc, rev2_all, a2N, p: BinFHEParams) -> torch.Tensor:
     if B == 0 or n == 0:
         return acc.clone()
     lib = _build.load()
-    nt = N // TILE
-    K = nt * 2 * 2 * p.d_g_used * TILE
     bufs = (acc.clone(), torch.empty_like(acc))
-    dig = torch.empty((B, K), dtype=torch.int8, device=acc.device)
+    dig, sums = _scratch(acc, p)
     stream = torch.cuda.current_stream(acc.device).cuda_stream
     rc = lib.oece_blind_rotate_rot(
-        bufs[0].data_ptr(), bufs[1].data_ptr(), dig.data_ptr(),
+        bufs[0].data_ptr(), bufs[1].data_ptr(), dig.data_ptr(), sums.data_ptr(),
         rev2_all.data_ptr(), a2N.data_ptr(), B, n, N, p.d_g_used,
         int(math.log2(p.B_g)), p.g_shift, p.Q, stream,
     )
@@ -261,9 +352,9 @@ def _rot_step_cuda(acc, rev2_i, amt, p: BinFHEParams, out) -> torch.Tensor:
     if B == 0:
         return out
     lib = _build.load()
-    dig = torch.empty((B, N // TILE * 2 * 2 * p.d_g_used * TILE), dtype=torch.int8, device=acc.device)
+    dig, sums = _scratch(acc, p)
     rc = lib.oece_rot_step(
-        acc.data_ptr(), out.data_ptr(), dig.data_ptr(), rev2_i.data_ptr(), amt.data_ptr(),
+        acc.data_ptr(), out.data_ptr(), dig.data_ptr(), sums.data_ptr(), rev2_i.data_ptr(), amt.data_ptr(),
         B, N, p.d_g_used, int(math.log2(p.B_g)), p.g_shift, p.Q,
         torch.cuda.current_stream(acc.device).cuda_stream,
     )
@@ -277,7 +368,8 @@ def rot_step_true(
     acc: torch.Tensor, rev2_i: torch.Tensor, amt: torch.Tensor, p: BinFHEParams, out=None
 ) -> torch.Tensor:
     """#11: one step, acc int32 [B, 2, N] in [0, Q), the step's block
-    rev2_i int8 [(2nt-1)*2R*T, 8T] and any amount pair amt int32 [B, 2] in
+    rev2_i int8 [(2nt-1)*2R*T, 8T] (on the card K-major, [8, T,
+    (2nt-1)*2R*T]) and any amount pair amt int32 [B, 2] in
     [0, 2N) -> the next accumulator, written to ``out`` when given (on the
     card it must not overlap acc).  CPU tensors run ``rot_step_plain``;
     CUDA tensors launch ``oece_rot_step`` (or raise)."""

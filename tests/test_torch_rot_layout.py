@@ -1,0 +1,255 @@
+"""The K-major rev2 key and the tiling of the rotation's step GEMM
+(oece_tpu_torch/csrc/rot_step.cu, ``rot_gemm_kernel``), on the CPU, bit for
+bit (tolerance 0).
+
+On the card rev2 is K-major, [n, 8, T, (2nt-1)*2RT], each step's block
+transposed (keys.py); the GEMMs read it by TMA boxes of 4 planes (the
+limbs of one output poly) x 16 coefficients x 128 contraction bytes.  The
+tiled GEMM (B > 16) takes one per stage of an output tile for each math
+warpgroup and the digits by boxes of NB gates; the split GEMM (B <= 16)
+one per stage of a diagonal, all output tiles at once against digit tiles
+it keeps in shared memory, and adds partial sums.  ``rot.gemm_config``,
+``rot.split_groups``, ``rot.split_digit_box``, ``rot.gemm_tiles`` and
+``rot.key_box_origin`` repeat the kernels' choices.  Here:
+
+  * the K-major conversion (``keys.rev2_to``) and the K-major step blocks
+    that ``build_rev2`` writes on the card equal each step's block
+    transposed, for a ``keys.from_jax`` rev2 and for ``build_rev2``, and
+    convert back;
+  * the boxes at their origins rebuild every A tile of every stage from
+    the K-major key (STD128_OPT widths with n=2, MICRO_A, TOY);
+  * the digits times those tiles, summed stage by stage over NB-gate tiles
+    padded with zero rows as the TMA unit pads them (and digit chunks
+    outside the key's range read as zeros), then combined through the
+    epilogue's (limb, coefficient) rows, equal ``rot.rot_step_plain`` and
+    ``rot.blind_rotate_rot_plain`` (ragged B, a=0 lanes, both GEMMs).
+
+The plain twins are held to the JAX package in tests/test_torch_rot*.py;
+the CUDA kernel to them on the card by chip_smoke.py (kernel, rot-step).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from oece_tpu.fhe import devkeygen as jdevkeygen
+from oece_tpu_torch.fhe import keys, modmath, rot
+from oece_tpu_torch.fhe.params import MICRO_A, STD128_OPT, TOY
+from test_torch_copies import jax_params
+
+T = 128
+STD_N2 = dataclasses.replace(STD128_OPT, name="STD128_OPT_N2", n=2)
+
+
+def _brk(p, n, seed):
+    rng = np.random.default_rng(seed)
+    R = 2 * p.d_g_used
+    return torch.from_numpy(rng.integers(0, p.Q, (n, 2, R, 2, p.N)).astype(np.int32))
+
+
+def _transposed(rev2):
+    """Each step's row-major block transposed, as [n, 8, T, rows]."""
+    n, rows, _ = rev2.shape
+    return rev2.transpose(1, 2).reshape(n, 8, T, rows)
+
+
+def test_kmajor_from_jax_rev2():
+    """A JAX device-keygen rev2 carried across by from_jax stays row-major
+    on the CPU; its K-major form is each block transposed, and converts
+    back."""
+    p = MICRO_A
+    _, _, dkeys = jdevkeygen.device_keygen(jax_params(p), seed=7, layout="rev2")
+    kt = keys.from_jax(dkeys)
+    assert kt.rev2.shape == keys.rev2_shape(p.n, 2 * p.d_g_used, p.N, kmajor=False)
+    kT = keys.rev2_to(kt.rev2, "cpu", kmajor=True)
+    assert kT.shape == keys.rev2_shape(p.n, 2 * p.d_g_used, p.N, kmajor=True)
+    assert torch.equal(kT, _transposed(kt.rev2))
+    assert torch.equal(keys.rev2_to(kT, "cpu"), kt.rev2)
+    assert keys.rev2_to(kt.rev2, "cpu") is kt.rev2  # the CPU layout already
+    moved = kt.to("cpu")
+    assert torch.equal(moved.rev2, kt.rev2)
+
+
+def _id(x):
+    return getattr(x, "name", str(x))
+
+
+@pytest.mark.parametrize("p, n", [(MICRO_A, 3), (TOY, 2), (STD_N2, 1)], ids=_id)
+def test_build_rev2_kmajor(p, n):
+    """The step blocks build_rev2 writes on the card (rev2_step K-major),
+    from the same refresh keys, are the CPU's row-major blocks transposed;
+    so is rev2_to's conversion."""
+    brk = _brk(p, n, seed=n + p.N)
+    rm = keys.build_rev2(brk, p.Q)
+    assert rm.shape == keys.rev2_shape(n, 2 * p.d_g_used, p.N, kmajor=False)
+    idx = keys.rev_index(p.N, "cpu")
+    km = torch.stack([keys.rev2_step(brk[i], p.Q, idx, kmajor=True) for i in range(n)])
+    assert torch.equal(km, _transposed(rm))
+    assert torch.equal(keys.rev2_to(rm, "cpu", kmajor=True), km)
+
+
+def _a_tile(keyT_i, x, cc):
+    """The A tile of column chunk cc at contraction byte x: the box of 4
+    planes x 16 coefficients x 128 bytes at its origin, as 64 rows (limb l
+    at rows 16l)."""
+    rows = keyT_i.shape[-1]
+    x, t0, plane = rot.key_box_origin(x, cc)
+    assert 0 <= x and x + rot.GEMM_BK <= rows and t0 + rot.GEMM_CHUNK <= T and plane + 4 <= 8
+    box = keyT_i[plane:plane + 4, t0:t0 + rot.GEMM_CHUNK, x:x + rot.GEMM_BK]
+    return box.reshape(4 * rot.GEMM_CHUNK, rot.GEMM_BK)
+
+
+@pytest.mark.parametrize("p", [STD_N2, MICRO_A, TOY], ids=_id)
+def test_key_boxes_rebuild_every_tile(p):
+    """Every A tile of every stage, for every output tile k and column
+    chunk cc = (o, t0), is the row-major block's contraction rows
+    (nt-1-k)*2RT + 128c .. +127 at the columns (o*4 + l)*T + t0 + j,
+    ordered (l, j), transposed."""
+    n = min(p.n, 2)
+    rm = keys.build_rev2(_brk(p, n, seed=3), p.Q)
+    km = keys.rev2_to(rm, "cpu", kmajor=True)
+    nt, R2T = p.N // T, 4 * p.d_g_used * T
+    t = torch.arange(rot.GEMM_CHUNK)
+    for i in range(n):
+        for k in range(nt):
+            for cc in range(2 * T // rot.GEMM_CHUNK):
+                o, t0 = divmod(cc, T // rot.GEMM_CHUNK)
+                cols = torch.cat([(o * 4 + limb) * T + t0 * rot.GEMM_CHUNK + t for limb in range(4)])
+                x0 = (nt - 1 - k) * R2T
+                want = rm[i, x0:x0 + nt * R2T][:, cols].t()  # [64, K]
+                got = torch.cat([_a_tile(km[i], x0 + c * rot.GEMM_BK, cc)
+                                 for c in range(nt * R2T // rot.GEMM_BK)], dim=1)
+                assert torch.equal(got, want), (i, k, cc)
+            # the split GEMM's stages (d', s) cover every diagonal once
+            full = torch.cat([_a_tile(km[i], x, cc) for x in range(0, (2 * nt - 1) * R2T, rot.GEMM_BK)], dim=1)
+            assert torch.equal(full, rm[i][:, cols].t())
+
+
+def test_gemm_config_picks_the_narrowest_tile():
+    N, d = STD128_OPT.N, STD128_OPT.d_g_used
+    for B in range(1, 600):
+        NB, MW, split = rot.gemm_config(B, N, d)
+        if B <= 16:
+            assert split and MW == 1 and NB == (8 if B <= 8 else 16)
+        elif B > 256:
+            assert (NB, MW, split) == (256, 2, False)
+        else:
+            assert MW == 1 and not split and NB in (32, 64, 128, 256) and B <= NB
+            assert NB == 32 or NB // 2 < B
+    # STD128 (exact gadget, K = 16384): 16 gates' digits do not fit beside the ring
+    assert rot.gemm_config(8, 1024, 4)[2] and not rot.gemm_config(9, 1024, 4)[2]
+    assert rot.split_groups(1024) == (2, 8) and rot.split_groups(512) == (1, 7)
+    assert rot.split_groups(128) == (1, 1)
+
+
+def _combine(d, p):
+    """[64 key columns x NB gates] limb sums -> their combine mod Q, [NB
+    gates, 16 coefficients]: coefficient t combines rows 16l + t."""
+    limbs = d.to(torch.int32).view(4, rot.GEMM_CHUNK, -1).permute(2, 1, 0)  # [gate, t, limb]
+    return modmath.combine_limbs_mod_q(limbs, p.Q)
+
+
+def _step_by_tiles(acc, keyT_i, amt, p):
+    """One step as rot_step.cu computes it: the digits of both rotated
+    differences (the digits kernel's twin), gates padded to the NB-gate
+    tile with zero rows as the TMA unit pads them, A tiles from the key's
+    boxes, sums of A_c x dig_c^T stage by stage (float64, exact: |sum| <=
+    2**27), each coefficient t of a 16-coefficient chunk combining rows
+    16l + t (l = 0..3) mod Q.  The tiled GEMM adds the combined tile to the
+    old accumulator with red31; the split GEMM stores one partial sum per
+    diagonal group, which the next digits kernel (here: the end of the
+    step) adds up with red31."""
+    B, _, N = acc.shape
+    nt, R2T = N // T, 4 * p.d_g_used * T
+    sub = R2T // rot.GEMM_BK
+    NB, MW, split = rot.gemm_config(B, N, p.d_g_used)
+    dig = rot.rot_diff_digits(acc, amt, p)
+    gates = -(-B // NB) * NB
+    padded = torch.zeros((gates, nt * R2T), dtype=torch.float64)
+    padded[:B] = dig.double()
+    chunk = lambda q, rows: rows[:, q * rot.GEMM_BK:(q + 1) * rot.GEMM_BK]  # noqa: E731
+    if split:  # per block (group, cc): one [64 x 8NB] product per stage, k = column // NB
+        dpg, groups = rot.split_groups(N)
+        total = torch.zeros((B, 2, N), dtype=torch.int64)
+        for grp in range(groups):
+            d_lo, d_hi = grp * dpg, min(grp * dpg + dpg, 2 * nt - 1)
+            tiles = torch.zeros((sub, dpg + 7, NB, rot.GEMM_BK), dtype=torch.float64)
+            for c in range(sub):
+                j0, c_box = rot.split_digit_box(c, d_lo, N)
+                for jj in range(dpg + 7):
+                    if 0 <= j0 + jj < nt:  # else the TMA unit reads zeros
+                        tiles[c, jj] = chunk((j0 + jj) * sub + c_box, padded)
+            for cc in range(2 * T // rot.GEMM_CHUNK):
+                o, t0 = divmod(cc, T // rot.GEMM_CHUNK)
+                t0 *= rot.GEMM_CHUNK
+                d = torch.zeros((4 * rot.GEMM_CHUNK, 8 * NB), dtype=torch.float64)
+                for dd in range(d_lo, d_hi):
+                    for s in range(sub):
+                        a = _a_tile(keyT_i, dd * R2T + s * rot.GEMM_BK, cc).double()
+                        d += a @ tiles[s, dd - d_lo:dd - d_lo + 8].reshape(8 * NB, -1).t()
+                for k in range(nt):
+                    comb = _combine(d[:, k * NB:(k + 1) * NB], p)[:B]
+                    assert (comb >= 0).all() and (comb < p.Q).all()
+                    total[:, o, k * T + t0:k * T + t0 + rot.GEMM_CHUNK] += comb
+        assert (total < 8 * p.Q).all()
+        return modmath.red31((acc + total).to(torch.int32), p.Q)
+    out = torch.full_like(acc, -1)
+    for gt, k, ct in rot.gemm_tiles(B, N, p.d_g_used):
+        b_tile = padded[gt * NB:(gt + 1) * NB]
+        for w in range(MW):
+            cc = ct * MW + w
+            o, t0 = divmod(cc, T // rot.GEMM_CHUNK)
+            t0 *= rot.GEMM_CHUNK
+            d = torch.zeros((4 * rot.GEMM_CHUNK, NB), dtype=torch.float64)
+            for c in range(nt * sub):
+                a = _a_tile(keyT_i, (nt - 1 - k) * R2T + c * rot.GEMM_BK, cc).double()
+                d += a @ chunk(c, b_tile).t()
+            n_live = min(NB, B - gt * NB)
+            sl = (slice(gt * NB, gt * NB + n_live), o, slice(k * T + t0, k * T + t0 + rot.GEMM_CHUNK))
+            out[sl] = modmath.red31(acc[sl] + _combine(d, p)[:n_live], p.Q)
+    assert (out >= 0).all()  # every output written
+    return out
+
+
+def _inputs(p, B, seed):
+    rng = np.random.default_rng(seed)
+    acc = torch.from_numpy(rng.integers(0, p.Q, (B, 2, p.N)).astype(np.int32))
+    scale = 2 * p.N // p.q
+    a2N = (scale * rng.integers(0, p.q, (B, p.n))).astype(np.int32)
+    a2N[0] = 0
+    a2N[:, ::3] = 0
+    return acc, torch.from_numpy(a2N)
+
+
+@pytest.mark.parametrize("p, B", [(MICRO_A, 1), (MICRO_A, 13), (MICRO_A, 300), (TOY, 5), (TOY, 37),
+                                  (STD_N2, 13)], ids=_id)
+def test_gemm_by_tiles_equals_plain_step(p, B):
+    """One step for any amount pair (#11), lane 0 with both amounts 0: the
+    split (B <= 16) or the tiled GEMM == rot_step_plain."""
+    acc, _ = _inputs(p, B, seed=B)
+    rng = np.random.default_rng(B + 1)
+    amt = torch.from_numpy(rng.integers(0, 2 * p.N, (B, 2)).astype(np.int32))
+    amt[0] = torch.tensor([0, 0])  # a=0: both differences vanish
+    rm = keys.build_rev2(_brk(p, 1, seed=B), p.Q)
+    km = keys.rev2_to(rm, "cpu", kmajor=True)
+    got = _step_by_tiles(acc, km[0], amt, p)
+    assert torch.equal(got, rot.rot_step_plain(acc, rm[0], amt, p))
+    assert torch.equal(got[0], acc[0])
+
+
+@pytest.mark.parametrize("p, B", [(dataclasses.replace(MICRO_A, n=3), 5), (dataclasses.replace(TOY, n=2), 37),
+                                  (STD_N2, 4)], ids=_id)
+def test_gemm_by_tiles_equals_plain_rotation(p, B):
+    """The step loop of oece_blind_rotate_rot (#12), step i on the K-major
+    key's step i, == blind_rotate_rot_plain on the row-major key."""
+    acc, a2N = _inputs(p, B, seed=7 * B)
+    rm = keys.build_rev2(_brk(p, p.n, seed=B), p.Q)
+    km = keys.rev2_to(rm, "cpu", kmajor=True)
+    amt = rot.amount_pairs(a2N, p.N)
+    got = acc
+    for i in range(p.n):
+        got = _step_by_tiles(got, km[i], amt[:, i], p)
+    assert torch.equal(got, rot.blind_rotate_rot_plain(acc, rm, a2N, p))
+    assert torch.equal(got[0], acc[0])
