@@ -26,11 +26,17 @@ before the result lines):
              adder_32bit.txt in verify mode on 4 random cases; the sums
              must equal a+b, and the rotation must have gone through the
              kernel (launch counter) and never through the plain version.
-  5. ap-kernel   the CUDA AP rotation kernel against its plain torch
-             version on the card, bit-exact: STD128_OPT (n=2) at B = 1,
-             37, 256; MICRO_A and TOY (n=2) with B_r = 2 at B=37; random
-             int8 key bytes, lane 0 with a=0.  Times one STD128_OPT AP step
-             at B=2048 for both versions, and at B=4.
+  5. ap-kernel   the AP rotation #13 (csrc/ap_step.cu: the live-gate
+             table, then per live step the digits and a wgmma GEMM over
+             the live gates, key tiles made on chip) against its plain
+             torch version on the card, bit-exact: STD128_OPT (n=2) at
+             B = 1, 4, 8, 13, 16, 17, 37, 64, 256, 2048, MICRO_AP2 and
+             TOY_AP2 (B_r = 2) at B=37, each with mod-switch amounts and
+             with any amounts; random int8 key bytes, lane 0 with a=0.
+             The table kernel == its plain twin and the steps launched ==
+             the live ones; an all-zero batch comes back unchanged with no
+             step launched; a non-contiguous ap_ext is refused.  Times one
+             STD128_OPT AP step at B=2048 for both versions, and at B=4.
   6. ap-gates    AP device keygen at full STD128_OPT (seed 0), then 2
              chained batches of 1024 random gates over all six types, every
              output decrypted and checked.
@@ -64,6 +70,14 @@ before the result lines):
              step at B=2048 over 8 distinct blocks (126 MB, more than the
              L2), whole (CUDA events) and per kernel (device time), with
              bounds.
+     ap-sweep   one STD128_OPT step of #13 by batch size (B = 1, 4, 8, 16,
+             64, 256, 1024, 2048; a rotation of n=8, 88 steps with
+             mod-switch amounts, dead steps included; CUDA events) against
+             its bound, and at B = 4 and 2048 each kernel's device time and
+             the launch gaps per step (torch.profiler's kernel timeline).
+             It also runs on a package whose AP kernel builds a block per
+             step (rev_build, decompose, int8_mm), to compare trees in one
+             call; it runs after the AP phases, as rot-sweep does.
      rot-sweep  one STD128_OPT step of #12 by batch size (B = 1, 4, 8, 16,
              64, 256, 1024, 2048; a rotation over 16 distinct random
              blocks, 251 MB, so each step reads its block from HBM; CUDA
@@ -167,6 +181,8 @@ def reset_counts() -> None:
         m.PLAIN_LAUNCHES = 0
         m.STEP_LAUNCHES = 0
     rot.SINGLE_STEP_LAUNCHES = 0
+    if hasattr(ap, "KERNEL_LAUNCHES"):  # a package before the live-gate table has none
+        ap.KERNEL_LAUNCHES = 0
     for k in negacyclic.KERNELS:
         negacyclic.LAUNCHES[k] = negacyclic.PLAIN_LAUNCHES[k] = 0
 
@@ -186,11 +202,15 @@ def read_counts() -> dict:
 
 
 def read_step_launches(kernel: str) -> int:
-    """Launches of each CUDA kernel of one path's steps."""
+    """Launches of each CUDA kernel of one path's steps; for AP, every
+    launch of its kernels (the table, the step loop's digits and GEMMs,
+    the last finalize)."""
     from oece_tpu_torch.fhe import ap, rev, rot, std
 
     if kernel == "rot_steps":
         return rot.SINGLE_STEP_LAUNCHES
+    if kernel == "ap" and hasattr(ap, "KERNEL_LAUNCHES"):
+        return ap.KERNEL_LAUNCHES
     return {"rot": rot, "ap": ap, "std": std, "rev": rev}[kernel].STEP_LAUNCHES
 
 
@@ -251,45 +271,6 @@ def device_ms(fn, reps: int, *kernels: str, per_call: int = 1) -> list[float]:
     fail(f"the profiler missed launches of {kernels} in {WINDOWS} windows in a row")
 
 
-def step_split(fn, n: int, first: str, second: str) -> tuple[float, float, float]:
-    """Per step of a loop of n steps, each the kernels ``first`` then
-    ``second`` (names contain them), from one profiler timeline of fn:
-    ``first`` = from the previous step's end to the end of ``first``,
-    ``second`` = from there to the step's end, and the time within those in
-    which neither kernel had started (launch gaps; with programmatic
-    dependent launch a kernel starts before its predecessor ends).  ms,
-    averaged over steps 1 .. n-1.  A window that missed a record is taken
-    again, as in device_ms."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()  # warm-up
-    torch.cuda.synchronize()
-    for _ in range(WINDOWS):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.zeros(1, device="cuda")
-            torch.cuda.synchronize()
-            time.sleep(EDGE_S)
-            fn()
-            torch.cuda.synchronize()
-            time.sleep(EDGE_S)
-        ev = sorted((e.time_range.start, e.time_range.end, first in e.name) for e in prof.events()
-                    if e.device_type == DeviceType.CUDA and (first in e.name or second in e.name))
-        if [e[2] for e in ev] == [True, False] * n:
-            break
-        print(f"step_split: the profiler recorded {len(ev)} of {2 * n} launches; taking the window "
-              "again", flush=True)
-    else:
-        fail(f"the profiler missed launches of {first}, {second} in {WINDOWS} windows in a row")
-    a, b, idle = 0.0, 0.0, 0.0
-    for i in range(1, n):
-        prev_end, (d0, d1, _), (g0, g1, _) = ev[2 * i - 1][1], ev[2 * i], ev[2 * i + 1]
-        a, b = a + d1 - prev_end, b + g1 - d1
-        idle += max(0.0, d0 - prev_end) + max(0.0, g0 - d1)
-    return a / 1e3 / (n - 1), b / 1e3 / (n - 1), idle / 1e3 / (n - 1)
-
-
 def cuda_time_ms(fn, reps: int) -> float:
     import torch
 
@@ -327,18 +308,24 @@ def phase_build():
 
 
 def kernel_registers(build_log: str) -> dict:
-    """{kernel entry (mangled name, shortened): registers} from ptxas -v."""
-    regs, name = {}, None
+    """{kernel entry (mangled name, shortened): registers} from ptxas -v,
+    and the bytes of spill stores of each entry that spills."""
+    regs, name, spills = {}, None, 0
     for ln in build_log.splitlines():
         if "Compiling entry function" in ln:
-            name = ln.split("'")[1]
+            name, spills = ln.split("'")[1], 0
+        elif "bytes spill stores" in ln and name is not None:
+            spills = int(ln.split("bytes spill stores")[0].split(",")[-1])
         elif "registers" in ln and name is not None:
             short = next((k for k in ("int8_mm_kernel", "raw_gemm_kernel", "rot_gemm_kernel",
                                       "rot_gemm_split_kernel", "transpose_kernel",
-                                      "phase_expand_kernel", "rev_build_kernel")
+                                      "phase_expand_kernel", "rev_build_kernel", "ap_split_kernel",
+                                      "ap_gemm_kernel", "ap_digits_kernel", "ap_live_kernel")
                           if k in name), "")
             key = f"{short}{name[name.index(short) + len(short):][:32]}" if short else name[:60]
             regs[key] = int(ln.split("Used")[1].split("registers")[0])
+            if spills:
+                regs[key + " spill bytes"] = spills
             name = None
     return regs
 
@@ -451,7 +438,8 @@ def phase_rot_sweep():
             f"({bnd[1]}), {bnd[0] / ms:.1%} of the bound")
         if B in (4, 2048):
             gemm = "rot_gemm" if hasattr(rot, "gemm_config") else "int8_mm_kernel"
-            digits, mm, idle = step_split(rotate, p.n, "rot_diff_decompose_kernel", gemm)
+            per, _, idle = kernel_timeline(rotate, ("rot_diff_decompose_kernel", gemm), p.n)
+            digits, mm = per["rot_diff_decompose_kernel"], per[gemm]
             res[B].update(digits_ms=digits, gemm_ms=mm, gap_ms=idle)
             log("rot-sweep", t0, f"B={B} per step (profiler timeline): digits {1e3 * digits:.2f} us, "
                 f"GEMM ({gemm}) {1e3 * mm:.2f} us, of which no kernel running {1e3 * idle:.2f} us; "
@@ -460,74 +448,188 @@ def phase_rot_sweep():
     return res
 
 
-def _ap_inputs(p, B, seed, any_a=False):
-    """Random accumulator, random int8 ap_ext bytes and rotation amounts:
-    multiples of 2N/q (what the mod switch gives) or, with any_a, any value
-    in [0, 2N) so that every step selects for about half the gates.  Lane 0
-    has a=0, so it selects nothing."""
+def _ap_inputs(p, B, seed, kind="modswitch", steps=None):
+    """Random accumulator, random int8 ap_ext bytes (``steps`` of them, all
+    n*d_r by default) and rotation amounts: multiples of 2N/q (what the mod
+    switch gives: at STD128_OPT even, so every step j = 0 is dead), any
+    value in [0, 2N) (every step selects for about half the gates), or all
+    0 (nothing selected).  Lane 0 of a batch of more than one has a=0, so
+    it selects nothing."""
     import torch
 
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     R = 2 * p.d_g_used
     acc = torch.randint(0, p.Q, (B, 2, p.N), generator=g, device="cuda", dtype=torch.int32)
-    ext = torch.randint(-128, 128, (p.n * p.d_r, R, 8, 2 * p.N), generator=g, device="cuda", dtype=torch.int8)
-    if any_a:
+    ext = torch.randint(-128, 128, (steps or p.n * p.d_r, R, 8, 2 * p.N), generator=g, device="cuda",
+                        dtype=torch.int8)
+    if kind == "any":
         a2N = torch.randint(0, 2 * p.N, (B, p.n), generator=g, device="cuda", dtype=torch.int32)
     else:
         scale = 2 * p.N // p.q
         a2N = scale * torch.randint(0, p.q, (B, p.n), generator=g, device="cuda", dtype=torch.int32)
-    a2N[0] = 0
+        if kind == "zero":
+            a2N.zero_()
+    if B > 1:
+        a2N[0] = 0
     return acc, ext, a2N.contiguous()
 
 
+AP_BATCHES = (1, 4, 8, 13, 16, 17, 37, 64, 256, 2048)
+
+
+def _ap_step_bound(p, a2N, ext, acc):
+    """One AP step's bound from this run's select bits: 33.6 M MACs per
+    live gate at STD128_OPT; the step key and the accumulator in and out
+    (a step changes only its live gates, but reads and writes are counted
+    for all, as the rotation's in and out)."""
+    from oece_tpu_torch.fhe import ap
+
+    steps = p.n * p.d_r
+    live = int(ap.ap_bits(a2N, p).sum())
+    nt, K = p.N // 128, p.N // 128 * 2 * p.d_g_used * 128
+    ops = 2.0 * live * nt * K * 8 * 128 / steps
+    return bound(ops, ext[0].numel() + 2 * acc.numel() * 4 / steps + a2N.numel() * 4 / steps)
+
+
 def phase_ap_kernel():
+    """#13 against its plain version on the card, bit-exact, at every
+    batch size and amount pattern; the live-gate table against its plain
+    twin; an all-zero batch launches no step; the one-step times at B =
+    2048 and 4."""
     import torch
     from oece_tpu_torch.fhe import ap
     from oece_tpu_torch.fhe.params import MICRO_A, STD128_OPT, TOY
 
     t0 = time.time()
     std2 = dataclasses.replace(STD128_OPT, n=2)
-    cases = [
-        (std2, 1), (std2, 37), (std2, 256),
-        (dataclasses.replace(MICRO_A, name="MICRO_AP2", B_r=2), 37),
-        (dataclasses.replace(TOY, name="TOY_AP2", n=2, B_r=2), 37),
-    ]
+    cases = [(std2, B, kind) for B in AP_BATCHES for kind in ("modswitch", "any")]
+    cases += [(dataclasses.replace(MICRO_A, name="MICRO_AP2", B_r=2), 37, kind) for kind in ("modswitch", "any")]
+    cases += [(dataclasses.replace(TOY, name="TOY_AP2", n=2, B_r=2), 37, kind) for kind in ("modswitch", "any")]
+    cases += [(std2, 4, "zero"), (std2, 37, "zero")]
     max_err = 0
-    for i, (p, B) in enumerate(cases):
-        acc, ext, a2N = _ap_inputs(p, B, seed=200 + i)
+    new = hasattr(ap, "live_table")
+    for i, (p, B, kind) in enumerate(cases):
+        acc, ext, a2N = _ap_inputs(p, B, seed=200 + i, kind=kind)
+        steps0 = ap.STEP_LAUNCHES
         got = ap.blind_rotate_ap(acc, ext, a2N, p)
+        steps = ap.STEP_LAUNCHES - steps0
         want = ap.blind_rotate_ap_plain(acc, ext, a2N, p)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        bad = int((got != want).sum())
-        log("ap-kernel", t0, f"{p.name} N={p.N} n={p.n} steps={p.n * p.d_r} B={B}: "
-            f"mismatches {bad}, max |err| {err}")
-        if bad:
-            fail(f"AP kernel != plain at {p.name} B={B}: {bad} mismatches")
-        if not torch.equal(got[0], acc[0]):
+        max_err = max(max_err, _check_same("ap-kernel", f"{p.name} N={p.N} n={p.n} steps={p.n * p.d_r} "
+                                           f"B={B} {kind} amounts ({steps} steps launched)", got, want, t0))
+        if B > 1 and not torch.equal(got[0], acc[0]):
             fail(f"AP kernel changed the a=0 lane at {p.name} B={B}")
-        max_err = max(max_err, err)
-    # one STD128_OPT rotation digit i (d_r = 11 steps), per step
+        if new:
+            mask, rank0, count = ap.live_table(a2N, p)
+            pm, pr, pc = ap.live_table_plain(a2N, p)
+            if not (torch.equal(mask.long() & 0xFFFFFFFF, pm) and torch.equal(rank0, pr) and torch.equal(count, pc)):
+                fail(f"ap-kernel: the live-gate table kernel != its plain twin at {p.name} B={B} {kind}")
+            if steps != int((pc > 0).sum()):
+                fail(f"ap-kernel: {steps} steps launched, {int((pc > 0).sum())} live at {p.name} B={B} {kind}")
+            if kind == "zero" and (steps != 0 or not torch.equal(got, acc)):
+                fail(f"ap-kernel: an all-zero batch of {B} changed the accumulator or launched a step")
+    if new:
+        try:
+            ap.blind_rotate_ap(acc, ext.transpose(1, 2).contiguous().transpose(1, 2), a2N, std2)
+        except ValueError as e:
+            log("ap-kernel", t0, f"a transposed ap_ext on the card is refused: {e}")
+        else:
+            fail("ap-kernel: a non-compact ap_ext on the card was not refused")
+    # one STD128_OPT rotation digit i (d_r = 11 steps, all live), per step
     p = dataclasses.replace(STD128_OPT, n=1)
-    acc, ext, a2N = _ap_inputs(p, 2048, seed=8, any_a=True)
+    acc, ext, a2N = _ap_inputs(p, 2048, seed=8, kind="any")
     kernel_ms = cuda_time_ms(lambda: ap.blind_rotate_ap(acc, ext, a2N, p), reps=10) / p.d_r
     plain_ms = cuda_time_ms(lambda: ap.blind_rotate_ap_plain(acc, ext, a2N, p), reps=3) / p.d_r
-    log("ap-kernel", t0, f"one STD128_OPT AP step at B=2048: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms")
-    # the products this run's select bits need, per step: 33.6 M MACs per
-    # live gate; the step key (64 KB) and the accumulator in and out
-    live = int(ap.ap_bits(a2N, p).sum())
-    nt, K = p.N // 128, p.N // 128 * 2 * p.d_g_used * 128
-    ops = 2.0 * live * nt * K * 8 * 128 / p.d_r
-    nbytes = ext[0].numel() + 2 * acc.numel() * 4 + a2N.numel() * 4 / p.d_r
+    bnd = _ap_step_bound(p, a2N, ext, acc)
+    log("ap-kernel", t0, f"one STD128_OPT AP step at B=2048 (any amounts): kernel {kernel_ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
     # and at B=4, the lanes of a narrow circuit level
-    acc4, ext4, a4 = _ap_inputs(p, 4, seed=9, any_a=True)
+    acc4, ext4, a4 = _ap_inputs(p, 4, seed=9, kind="any")
     ms4 = cuda_time_ms(lambda: ap.blind_rotate_ap(acc4, ext4, a4, p), reps=20) / p.d_r
-    bnd4 = bound(2.0 * int(ap.ap_bits(a4, p).sum()) * nt * K * 8 * 128 / p.d_r,
-                 ext4[0].numel() + 2 * acc4.numel() * 4 + a4.numel() * 4 / p.d_r)
-    log("ap-kernel", t0, f"one STD128_OPT AP step at B=4: kernel {1e3 * ms4:.1f} us, bound "
+    bnd4 = _ap_step_bound(p, a4, ext4, acc4)
+    log("ap-kernel", t0, f"one STD128_OPT AP step at B=4 (any amounts): kernel {1e3 * ms4:.1f} us, bound "
         f"{1e3 * bnd4[0]:.2f} us ({bnd4[1]})")
-    return max_err, kernel_ms, plain_ms, bound(ops, nbytes)
+    return max_err, kernel_ms, plain_ms, bnd
+
+
+def kernel_timeline(fn, names, steps):
+    """One profiler timeline of fn: the time per step attributed to each
+    kernel whose name contains one of ``names`` (summed over its launches,
+    over ``steps``), and the time per step in which none of them ran
+    between the first one's start and the last one's end (launch gaps).
+    Under programmatic dependent launch a kernel starts, and waits, while
+    its predecessor runs, so each launch is attributed only the time from
+    the end of everything before it to its own end; the attributed times
+    and the gaps add up to the span.  ms.  A window
+    that lost the fill kernel's record or has no record is taken again, as
+    in device_ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    for _ in range(WINDOWS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.zeros(1, device="cuda")
+            torch.cuda.synchronize()
+            time.sleep(EDGE_S)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(EDGE_S)
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        ev = sorted((e.time_range.start, e.time_range.end, next(n for n in names if n in e.name))
+                    for e in evs if any(n in e.name for n in names))
+        if ev and any("FillFunctor" in e.name for e in evs):
+            break
+        print(f"kernel_timeline: the window lost records ({len(ev)} of {names}); taking it again", flush=True)
+    else:
+        fail(f"the profiler missed launches of {names} in {WINDOWS} windows in a row")
+    per = {n: 0.0 for n in names}
+    counts = {n: 0 for n in names}
+    busy, end = 0.0, ev[0][0]
+    for start, stop, name in ev:
+        own = max(0.0, stop - max(start, end))
+        per[name] += own
+        counts[name] += 1
+        busy += own
+        end = max(end, stop)
+    idle = (end - ev[0][0]) - busy
+    return {n: per[n] / 1e3 / steps for n in names}, counts, idle / 1e3 / steps
+
+
+def phase_ap_sweep():
+    """#13's step by batch size against its bound (mod-switch amounts, the
+    traffic circuits and gate batches send; per step of the n*d_r, dead
+    ones included), and at B = 4 and 2048 its kernels' device times and
+    launch gaps per step from the profiler's timeline.  Also runs on a
+    package whose AP kernel builds a block per step (the parent's)."""
+    from oece_tpu_torch.fhe import ap
+    from oece_tpu_torch.fhe.params import STD128_OPT
+
+    t0 = time.time()
+    p = dataclasses.replace(STD128_OPT, n=8)
+    steps = p.n * p.d_r
+    new = hasattr(ap, "live_table")
+    names = (("ap_live_kernel", "ap_digits_kernel", "ap_split_kernel", "ap_gemm_kernel") if new else
+             ("rev_build_kernel", "decompose_kernel", "int8_mm_kernel"))
+    res = {}
+    for B in (1, 4, 8, 16, 64, 256, 1024, 2048):
+        acc, ext, a2N = _ap_inputs(p, B, seed=950 + B)
+        rotate = lambda: ap.blind_rotate_ap(acc, ext, a2N, p)  # noqa: E731
+        ms = cuda_time_ms(rotate, reps=10 if B < 1024 else 3) / steps
+        live_steps = int((ap.ap_bits(a2N, p).sum(0) > 0).sum())
+        bnd = _ap_step_bound(p, a2N, ext, acc)
+        res[B] = {"ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1], "live_steps": live_steps}
+        log("ap-sweep", t0, f"STD128_OPT AP step B={B}: {1e3 * ms:.2f} us per step ({live_steps} of {steps} "
+            f"steps live), bound {1e3 * bnd[0]:.3f} us ({bnd[1]})")
+        if B in (4, 2048):
+            per, counts, gap = kernel_timeline(rotate, names, steps)
+            res[B].update(kernels_ms=per, launches=counts, gap_ms=gap)
+            log("ap-sweep", t0, f"B={B} per step (profiler timeline): "
+                + ", ".join(f"{n} {1e3 * v:.2f} us ({counts[n]} launches)" for n, v in per.items())
+                + f"; no kernel running {1e3 * gap:.2f} us")
+    return res
 
 
 def phase_gates(phase="gates", method="GINX", B=2048, K=3, layout="rev2"):
@@ -549,7 +651,7 @@ def phase_gates(phase="gates", method="GINX", B=2048, K=3, layout="rev2"):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     log(phase, t0, f"{method} {kernel} keygen n={p.n}: {time.time() - t0:.2f}s, key "
-        f"{tuple(key.shape)}, peak device memory {peak / 2**30:.2f} GiB")
+        f"{tuple(key.shape)}, peak device memory {peak / 2**30:.3f} GiB")
     reset_counts()
     rng = np.random.default_rng(1)
     m1, m2 = rng.integers(0, 2, B), rng.integers(0, 2, B)
@@ -577,7 +679,8 @@ def phase_gates(phase="gates", method="GINX", B=2048, K=3, layout="rev2"):
     check_only(phase, read_counts(), kernel)
     ms = 1e3 * float(np.mean(times[1:]))
     log(phase, t0, f"{K} chained batches of {B}, all decrypt correctly; "
-        f"first {1e3 * times[0]:.1f} ms, then {ms:.1f} ms/batch = {B / ms * 1e3:.1f} bootstraps/s")
+        f"first {1e3 * times[0]:.1f} ms, then {ms:.1f} ms/batch = {B / ms * 1e3:.1f} bootstraps/s; "
+        f"peak device memory over keygen and batches {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     del keys, key, x1, x2, out
     torch.cuda.empty_cache()
 
@@ -1118,6 +1221,7 @@ PHASES = {
     "context": phase_context,
     "std-circuit": lambda: phase_circuit("std-circuit", "GINX", host_keys=True),
     "rev-kernel": phase_rev_kernel,
+    "ap-sweep": phase_ap_sweep,
     "rot-sweep": phase_rot_sweep,
     "rot-step": phase_rot_step,
     "rev-gates": lambda: phase_gates("rev-gates", B=1024, K=3, layout="rev"),

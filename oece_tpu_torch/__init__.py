@@ -41,9 +41,10 @@ point:
                      _window_matmul_true_kernel, _matmul_dec_true_kernel
                      and _cmux_epilogue_true_kernel)
   fhe/ap.py          the AP rotation: plain torch version and the wrapper of
-                     csrc/ap_step.cu (replaces the Pallas _ap_megakernel);
-                     the kernels share csrc/int8_mm.cuh and are built by
-                     fhe/_build.py with nvcc at first use
+                     csrc/ap_step.cu (replaces the Pallas _ap_megakernel;
+                     its step GEMMs share csrc/step_gemm.cuh with
+                     rot_step.cu); the kernels share csrc/int8_mm.cuh and
+                     are built by fhe/_build.py with nvcc at first use
   fhe/negacyclic.py  the kernel-level API of the JAX package's tests and
                      step profiler: the raw negacyclic product from a
                      block (replaces the Pallas _diag_matmul_kernel) or

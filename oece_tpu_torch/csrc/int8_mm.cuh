@@ -1,32 +1,31 @@
 // Shared pieces of the port's blind-rotation kernels (std_step.cu for the
-// standard GINX form, ap_step.cu for the binary-base AP method; rot_step.cu,
-// the rotated GINX form, takes the modular helpers only), for Hopper
+// standard GINX form; rot_step.cu and ap_step.cu, the rotated GINX form and
+// the binary-base AP method, take the modular helpers only), for Hopper
 // (sm_90a):
 //
 //   * the modular helpers of oece_tpu/fhe/modmath.py (red31, mod_q,
 //     mul_pow8_mod) and the gadget decomposition of one coefficient
 //     (pallas_kernels.py::_decompose_lanes, exact or approximate);
 //   * decompose_kernel, the gadget digits of an accumulator in the row
-//     order of the reversed diagonals (std and AP);
+//     order of the reversed diagonals (std);
 //   * rev_build_kernel<M>, which expands one step's compact key [R, M, 2N]
-//     into its reversed-diagonal block (std and AP), or with kConj into
-//     that block in the TPU's conjugated basis (negacyclic.cu, #7);
+//     into its reversed-diagonal block (std, negacyclic.cu), or with kConj
+//     into that block in the TPU's conjugated basis (negacyclic.cu, #7);
 //   * int8_mm_kernel, the int8 contraction of one step:
 //       res[b, col] = sum_x dig[b, x] * key[(nt-1-k)*(K/nt) + x, col]
 //     for each output tile k, followed by the Horner combine of the 4 key
-//     limbs mod Q and an epilogue that writes P polynomials per gate.  The
-//     key block is row-major [(2nt-1)*(K/nt), 4P*T] reversed diagonals
-//     (K/nt = 2RT for GINX's part-interleaved rev2, RT for std and AP),
-//     columns (poly, limb, t) at (poly*4 + limb)*T + t; P = 2 (out) for AP,
-//     4 (part, out) for std.
+//     limbs mod Q, written as P polynomials per gate.  The key block is
+//     row-major [(2nt-1)*RT, 4P*T] reversed diagonals, columns (poly,
+//     limb, t) at (poly*4 + limb)*T + t; P = 4 (part, out) or 2.
 //
 // The contraction is exact in int32: |sum| <= K * 128 * 128 <= 2**27.
 // Design: mma.sync m16n8k32 s8 tiles of 64 gates x 128 columns,
 // single-buffered shared memory, a byte transpose of each key tile in
 // registers (the key is row-major in the contraction index, mma wants it
 // packed along it).  The raw negacyclic products (#3, #5) run on
-// wgmma_mm.cuh instead, and the rotated form's step (#11, #12) on
-// rot_step.cu's wgmma GEMMs over a K-major key.
+// wgmma_mm.cuh instead, the rotated form's step (#11, #12) on
+// rot_step.cu's wgmma GEMMs over a K-major key, and the AP step (#13) on
+// ap_step.cu's, which make their key tiles from the compact key.
 
 #pragma once
 
@@ -123,22 +122,16 @@ struct BlockKey {
 // Grid: x = gate tiles of BM; y = (output tile k, poly o, coefficient
 // chunk of TT).  Each block contracts its gates' full digit rows against
 // the 4 limb planes of its TT coefficients, applies the limb combine and
-// writes acc_out = epi(b, acc_in, combined).  An Epilogue with kSelect
-// writes either the combined value or acc_in per gate (epi.live(b)); a
-// block none of whose gates is live copies its tile and skips the product.
-// Epilogue::kPolys is P; an Epilogue with kReadsOld gets acc_in[at] as
-// `old`, others get 0 and acc_in may be null.
-template <class Epilogue>
+// writes out[b, o, k*T + t] for P polynomials per gate.
+template <int P>
 __global__ void __launch_bounds__(THREADS) int8_mm_kernel(
     const int8_t* __restrict__ dig, const int8_t* __restrict__ key_step,
-    const int* __restrict__ acc_in, int* __restrict__ acc_out, int B, int N,
-    int K, int Q, Epilogue epi) {
+    int* __restrict__ out, int B, int N, int K, int Q) {
   __shared__ __align__(16) uint8_t smem[SMEM_BYTES];
   uint8_t* As = smem;                                      // [BM][A_PITCH]
   uint32_t* Bs = (uint32_t*)(smem + BM * A_PITCH);         // [BN][BK/4]
   int* Cs = (int*)smem;                                    // [BM][C_PITCH]
 
-  constexpr int P = Epilogue::kPolys;
   const int MT = P * 4 * T;
   const int nt = N / T;
   const int chunks = T / TT;
@@ -148,19 +141,6 @@ __global__ void __launch_bounds__(THREADS) int8_mm_kernel(
   const int b0 = blockIdx.x * BM;
   const int t0 = tchunk * TT;
   const int tid = threadIdx.x;
-
-  if constexpr (Epilogue::kSelect) {
-    const bool live = tid < BM && b0 + tid < B && epi.live(b0 + tid);
-    if (!__syncthreads_or(live)) {
-      for (int e = tid; e < BM * TT; e += THREADS) {
-        const int b = b0 + e / TT;
-        if (b >= B) continue;
-        const long long at = ((long long)b * P + o) * N + k * T + t0 + e % TT;
-        acc_out[at] = acc_in[at];
-      }
-      return;
-    }
-  }
 
   const BlockKey key(key_step, k, nt, K, MT);
   const int warp = tid >> 5, lane = tid & 31;
@@ -256,10 +236,7 @@ __global__ void __launch_bounds__(THREADS) int8_mm_kernel(
       comb = mul_pow8_mod(comb, Q) + mod_q(cr[l * TT], Q);
       if (comb >= Q) comb -= Q;
     }
-    const long long at = ((long long)b * P + o) * N + k * T + t0 + tt;
-    int old = 0;
-    if constexpr (Epilogue::kReadsOld) old = acc_in[at];
-    acc_out[at] = epi(b, old, comb, Q);
+    out[((long long)b * P + o) * N + k * T + t0 + tt] = comb;
   }
 }
 

@@ -52,7 +52,8 @@
 // gets from its sequential grid.  Every kernel is launched with
 // programmatic dependent launch: it waits for its predecessor inside
 // (griddepcontrol.wait), so its launch and prologue overlap the
-// predecessor's tail.
+// predecessor's tail.  The launch helper, the tile shapes (Cfg, Shape)
+// and the limb combine are in step_gemm.cuh, shared with ap_step.cu.
 //
 // Bounds on the H100.  One step costs nt*K*8T = 67 M int8 MACs per gate at
 // STD128_OPT (K = nt*2R*T = 8192) and streams a 15.7 MB key block that
@@ -70,49 +71,12 @@
 // the compact key instead of the 7.9 GB prebuilt one.
 
 #include <algorithm>
-#include <utility>
 
 #include "int8_mm.cuh"
+#include "step_gemm.cuh"
 #include "wgmma_mm.cuh"
 
 namespace {
-
-// Programmatic dependent launch: each kernel of the step loop is launched
-// while its predecessor still runs, waits here until the predecessor has
-// finished and its writes are visible, and lets its own successor launch.
-__device__ __forceinline__ void pdl_wait_and_release() {
-  asm volatile("griddepcontrol.wait;" ::: "memory");
-  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
-}
-
-constexpr int MAX_DIGITS = 4;  // d_used <= 4: ceil(27 / 7) digits of base 2**7
-
-// The gadget digits of d (gadget_digits of int8_mm.cuh), digit g into
-// byte j of w[g].
-__device__ __forceinline__ void pack_digits(int d, uint32_t (&w)[MAX_DIGITS], int j, int d_used,
-                                            int log_bg, int shift, int Q) {
-  const int bg = 1 << log_bg, half = bg >> 1;
-  int cur = d;
-  if (shift > 0) {
-    const int cen = d >= (Q + 1) / 2 ? d - Q : d;
-    cur = (cen + (1 << (shift - 1))) >> shift;
-  }
-#pragma unroll
-  for (int g = 0; g < MAX_DIGITS; ++g) {
-    if (g >= d_used) break;
-    int r = cur;
-    if (g < d_used - 1) {
-      if (shift > 0) {
-        r = ((cur + half) & (bg - 1)) - half;
-      } else {
-        r = cur & (bg - 1);
-        if (r >= half) r -= bg;
-      }
-      cur = (cur - r) >> log_bg;
-    }
-    w[g] |= (uint32_t)(uint8_t)(int8_t)r << (8 * j);
-  }
-}
 
 // The accumulator value at flat index idx: acc itself or, with the split
 // GEMM's sum of the previous step's products (< 8Q), red31(acc + sum)
@@ -186,47 +150,6 @@ __global__ void rot_finalize_kernel(const int* __restrict__ acc, const int* __re
 }
 
 namespace rotg {
-
-constexpr int COLS = 64;   // key columns per math warpgroup: 4 limbs x 16 coefficients
-constexpr int CHUNK = 16;  // coefficients per math warpgroup
-constexpr int SMEM_MAX = 232448;
-
-// The tile shapes: NB gates per tile, MW math warpgroups (64 key columns
-// each) sharing the digit tile, as many stages as fit (at most 8), the
-// epilogue's staging buffer of [64 columns x EPI_G gates] per warpgroup.
-template <int NB, int MW>
-struct Cfg {
-  static constexpr int A_BYTES = MW * COLS * wgmm::BK;
-  static constexpr int STAGE = A_BYTES + NB * wgmm::BK;
-  static constexpr int EPI_G = NB < 64 ? NB : 64;
-  static constexpr int EPI_PITCH = EPI_G + 1;  // int32 words
-  static constexpr int EPI_BYTES = MW * COLS * EPI_PITCH * 4;
-  static constexpr int FIT = (SMEM_MAX - 1024 - EPI_BYTES) / (STAGE + 16);
-  static constexpr int STAGES = FIT < 8 ? FIT : 8;
-  static constexpr int THREADS = 128 * (1 + MW);
-  static constexpr int SMEM = 1024 + STAGES * (STAGE + 16) + EPI_BYTES;
-  static_assert(STAGES >= 2, "the ring needs two stages");
-};
-
-struct Shape {
-  int B, N, Q;
-  int row_bytes;  // contraction bytes per key column: (2nt-1)*2RT
-  int R2T;        // contraction bytes per diagonal: 2RT
-  int chunks;     // stages per tile: K / 128
-  int gate_tiles, col_tiles, tiles;
-};
-
-// tile -> (gate tile, output tile k, column tile ct), gate tile fastest.
-__device__ __forceinline__ void tile_coords(const Shape& g, int tile, int& gt, int& k, int& ct) {
-  gt = tile % g.gate_tiles;
-  const int rest = tile / g.gate_tiles;
-  ct = rest % g.col_tiles;
-  k = rest / g.col_tiles;
-}
-
-__device__ __forceinline__ void wg_sync(int wg) {
-  asm volatile("bar.sync %0, 128;" ::"r"(wg + 1) : "memory");
-}
 
 // One step of the rotation at key step `step`: acc_in int32 [B, 2, N] ->
 // acc_out = red31(acc_in + products), from the digits (dig_map, [B, K])
@@ -349,12 +272,7 @@ __global__ void __launch_bounds__(Cfg<NB, MW>::THREADS, 1) rot_gemm_kernel(
       for (int it = 0; it < C::EPI_G / 8; ++it) {  // one (gate, coefficient t) each
         const int gg = lt / CHUNK + 8 * it, b = gt * NB + q * C::EPI_G + gg;
         if (b >= g.B) continue;
-        int comb = mod_q(cs[(3 * CHUNK + t) * C::EPI_PITCH + gg], g.Q);
-#pragma unroll
-        for (int l = 2; l >= 0; --l) {
-          comb = mul_pow8_mod(comb, g.Q) + mod_q(cs[(l * CHUNK + t) * C::EPI_PITCH + gg], g.Q);
-          if (comb >= g.Q) comb -= g.Q;
-        }
+        const int comb = combine_staged(cs, C::EPI_PITCH, t, gg, g.Q);
         acc_out[(long long)b * 2 * g.N + at0] = red31(old[q * C::EPI_G / 8 + it] + comb, g.Q);
       }
     }
@@ -476,12 +394,7 @@ __global__ void __launch_bounds__(256, 1) rot_gemm_split_kernel(
     for (int it = 0; it < NB / 8; ++it) {
       const int b = lt / CHUNK + 8 * it;
       if (b >= g.B) continue;
-      int comb = mod_q(cs[(3 * CHUNK + t) * EPI_PITCH + b], g.Q);
-#pragma unroll
-      for (int l = 2; l >= 0; --l) {
-        comb = mul_pow8_mod(comb, g.Q) + mod_q(cs[(l * CHUNK + t) * EPI_PITCH + b], g.Q);
-        if (comb >= g.Q) comb -= g.Q;
-      }
+      const int comb = combine_staged(cs, EPI_PITCH, t, b, g.Q);
       atomicAdd(sum + ((long long)b * 2 + o) * g.N + k * T + t0 + t, comb);
     }
   }
@@ -504,34 +417,6 @@ struct Loop {
 };
 
 constexpr int SPLIT_GROUPS = 8;  // diagonal groups of the split GEMM, at most
-
-// Launch with programmatic dependent launch (pdl_wait_and_release).
-template <typename... P, typename... A>
-cudaError_t launch(void (*kernel)(P...), int grid, int threads, int smem, cudaStream_t st,
-                   A&&... args) {
-  cudaLaunchAttribute pdl[1];
-  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  pdl[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg{dim3(grid), dim3(threads), (size_t)smem, st, pdl, 1};
-  return cudaLaunchKernelEx(&cfg, kernel, std::forward<A>(args)...);
-}
-
-// Let `kernel` use all the shared memory of a block; `done` is the
-// caller's flag for that kernel instance.
-cudaError_t allow_smem(const void* kernel, bool& done) {
-  if (done) return cudaSuccess;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
-  done = e == cudaSuccess;
-  return e;
-}
-
-int sm_count() {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms;
-}
 
 Shape shape_of(const Loop& L, int NB, int MW) {
   const int nt = L.N / T, R2T = 4 * L.d_used * T;

@@ -32,7 +32,7 @@
 //       (pallas_kernels.py:401-402).
 //   decompose_kernel      gadget digits of the accumulator, int8 scratch
 //       dig[b, j*RT + (poly*d_used + g)*T + u] for coefficient j*T + u.
-//   int8_mm_kernel<Store<4>>  (#4, #8) for each output tile k, the
+//   int8_mm_kernel<4>     (#4, #8) for each output tile k, the
 //       contraction of K = nt*RT digits against rows [(nt-1-k)*RT, +K) of
 //       the block, the limb combine mod Q, written as
 //       P4[b, part*2 + out, k*T + t] in [0, Q).
@@ -68,16 +68,6 @@
 #include "int8_mm.cuh"
 
 namespace {
-
-// #4's and #8's epilogue: write the combined product of P polynomials; no
-// accumulator is read.
-template <int P>
-struct Store {
-  static constexpr bool kSelect = false;
-  static constexpr bool kReadsOld = false;
-  static constexpr int kPolys = P;
-  __device__ int operator()(int, int, int comb, int) const { return comb; }
-};
 
 // P(X) * X^c at coefficient m, c in [0, 2N): a cyclic rotation by c mod N
 // and the negacyclic sign (boot.monomial_rotate).
@@ -126,9 +116,8 @@ void window_matmul(const void* dig, const void* block, void* out, int B,
                    int N, int R, int Q, cudaStream_t st) {
   const int nt = N / T;
   const dim3 grid((B + BM - 1) / BM, nt * P * (T / TT));
-  int8_mm_kernel<Store<P>><<<grid, THREADS, 0, st>>>(
-      (const int8_t*)dig, (const int8_t*)block, nullptr, (int*)out, B, N,
-      nt * R * T, Q, Store<P>{});
+  int8_mm_kernel<P><<<grid, THREADS, 0, st>>>(
+      (const int8_t*)dig, (const int8_t*)block, (int*)out, B, N, nt * R * T, Q);
 }
 
 // One step after the block is in place: digits, #8 (P4 [B, 4, N]), then the

@@ -106,7 +106,9 @@ def load() -> ctypes.CDLL:
     lib.oece_blind_rotate_rot.restype = i32
     lib.oece_blind_rotate_rot.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
     lib.oece_blind_rotate_ap.restype = i32
-    lib.oece_blind_rotate_ap.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
+    lib.oece_blind_rotate_ap.argtypes = [ptr] * 8 + [i32] * 8 + [ptr]
+    lib.oece_ap_live_table.restype = i32
+    lib.oece_ap_live_table.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
     lib.oece_blind_rotate_std.restype = i32
     lib.oece_blind_rotate_std.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
     lib.oece_blind_rotate_rev.restype = i32

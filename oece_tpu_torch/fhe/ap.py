@@ -16,8 +16,20 @@ golden.blind_rotate_ap is the same function (it skips v = 0 steps).
 
 ``blind_rotate_ap`` dispatches on the device of its tensors: CPU tensors
 take ``blind_rotate_ap_plain`` (torch ops), CUDA tensors launch the
-hand-written kernel of ``csrc/ap_step.cu`` or raise.  ``LAUNCHES`` and
-``PLAIN_LAUNCHES`` count the calls that reached each version.
+hand-written kernels of ``csrc/ap_step.cu`` or raise.  On the card the
+select bits, which are public, decide what runs: ``live_table`` (one
+kernel per rotation) gives each step's live gates, their count comes to
+the host in one transfer, and the step loop launches nothing for a step
+without a live gate and, for a live one, a digits kernel and a wgmma GEMM
+over its live gates only, in compact rows: the split GEMM up to 16 live
+gates, the tiled one above (``gemm_config``).  The GEMMs make the step's
+key tiles on chip from ``ap_ext`` as it is (no card layout; the CPU's
+[n*d_r, R, 8, 2N] int8 planes): ``span_start``, ``span_offset`` and
+``swizzled_chunk`` repeat their arithmetic for the CPU layout tests.
+``LAUNCHES`` and ``PLAIN_LAUNCHES`` count the calls that reached each
+version, ``STEP_LAUNCHES`` the live steps the step loop launched (each a
+digits kernel and a GEMM) and ``KERNEL_LAUNCHES`` every kernel launch of
+``csrc/ap_step.cu`` (the table, the steps' kernels, the last finalize).
 """
 
 from __future__ import annotations
@@ -29,11 +41,17 @@ import torch
 from . import _build
 from .keys import TILE, rev_block, rev_index
 from .params import BinFHEParams
-from .rot import check_operands, tile_digits, tile_products
+from .rot import SMEM_MAX, check_operands, split_groups, tile_digits, tile_products
 
-LAUNCHES = 0  # calls that launched the CUDA kernel (one per rotation)
+GEMM_BK = 128  # contraction bytes of a key tile row
+GEMM_CHUNK = 16  # coefficients of a key tile: 4 limbs x 16 = 64 rows
+SPLIT_MAX = 16  # live gates of the split GEMM, at most
+SPAN = 160  # plane bytes a key tile reads per limb, staged in shared memory
+
+LAUNCHES = 0  # calls that launched the CUDA kernels (one per rotation)
 PLAIN_LAUNCHES = 0  # calls that ran the plain torch version
-STEP_LAUNCHES = 0  # launches of each kernel of the CUDA step loop (one per step)
+STEP_LAUNCHES = 0  # live steps the CUDA step loop launched (each: digits + GEMM)
+KERNEL_LAUNCHES = 0  # every launch of an ap_step.cu kernel (table, digits, GEMMs)
 
 
 def ap_bits(a2N: torch.Tensor, p: BinFHEParams) -> torch.Tensor:
@@ -69,7 +87,93 @@ def blind_rotate_ap_plain(
     return acc
 
 
+def live_table_plain(a2N: torch.Tensor, p: BinFHEParams):
+    """The live-gate table of a rotation, as ``ap_live_kernel`` writes it:
+    mask int64 [S, W] (W = ceil(B/32); bit b%32 of word b/32 is gate b's
+    select bit), rank0 int32 [S, W] (live gates before each word) and
+    count int32 [S].  Live gate b of step s sits at compact row rank0[s,
+    b/32] + popcount(mask[s, b/32] & ((1 << b%32) - 1))."""
+    bits = ap_bits(a2N, p).t().to(torch.int64)  # [S, B]
+    S, B = bits.shape
+    W = -(-B // 32)
+    padded = torch.zeros((S, W * 32), dtype=torch.int64, device=a2N.device)
+    padded[:, :B] = bits
+    words = padded.view(S, W, 32)
+    mask = (words << torch.arange(32, device=a2N.device)).sum(-1)
+    per_word = words.sum(-1)
+    rank0 = (per_word.cumsum(-1) - per_word).to(torch.int32)
+    return mask, rank0, bits.sum(-1).to(torch.int32)
+
+
+def live_table(a2N: torch.Tensor, p: BinFHEParams):
+    """``live_table_plain`` for CPU tensors; on the card ``ap_live_kernel``
+    (mask as int32 words there: the same bits)."""
+    if not a2N.is_cuda:
+        return live_table_plain(a2N, p)
+    B = a2N.shape[0]
+    S, W = p.n * p.d_r, -(-B // 32)
+    mask = torch.empty((S, W), dtype=torch.int32, device=a2N.device)
+    rank0 = torch.empty((S, W), dtype=torch.int32, device=a2N.device)
+    count = torch.empty((S,), dtype=torch.int32, device=a2N.device)
+    lib = _build.load()
+    rc = lib.oece_ap_live_table(
+        a2N.data_ptr(), mask.data_ptr(), rank0.data_ptr(), count.data_ptr(), B, p.n, p.d_r, p.N,
+        torch.cuda.current_stream(a2N.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"ap_step.cu launch failed: {lib.oece_error_string(rc).decode()}")
+    return mask, rank0, count
+
+
+def split_smem(NB: int, R: int, dpg: int) -> int:
+    """Shared memory of the split GEMM: dpg*R key tiles of 8 KB, the digit
+    chunks of R substages x (dpg + 7) chunks x NB gates, a barrier, the
+    tiles' spans (4 x SPAN bytes each) and the epilogue's staging buffer."""
+    return (1024 + dpg * R * 64 * GEMM_BK + R * (dpg + 7) * NB * GEMM_BK + 16 + dpg * R * 4 * SPAN
+            + 64 * (NB + 1) * 4)
+
+
+def gemm_config(L: int, N: int, d_used: int) -> tuple[int, int, bool]:
+    """(NB gates per tile, MW math warpgroups, split) of the GEMM of a step
+    with L live gates: the split GEMM (NB = 8 or 16) up to 16 where nt <=
+    8 and its key tiles and digit chunks fit in shared memory, else the
+    tiled GEMM at the narrowest NB >= L of 32 .. 256, two math warpgroups
+    above 256."""
+    NB = 8 if L <= 8 else 16
+    if L <= SPLIT_MAX and N // TILE <= 8 and split_smem(NB, 2 * d_used, split_groups(N)[0]) <= SMEM_MAX:
+        return NB, 1, True
+    for nb in (32, 64, 128, 256):
+        if L <= nb:
+            return nb, 1, False
+    return 256, 2, False
+
+
+def span_start(dp: int, t0: int, N: int) -> int:
+    """The first plane byte of the span that the key tile of diagonal dp
+    and coefficients t0 .. t0+15 reads from each limb plane: SPAN bytes
+    from ((nt-1-dp)*T + t0 - 128) mod 2N, 16-byte aligned."""
+    return ((N // TILE - 1 - dp) * TILE + t0 - 128) % (2 * N)
+
+
+def span_offset(tt: int, q: int) -> int:
+    """The first of the 16 ascending span bytes a .. a+15 that hold bytes
+    u = 16q .. 16q+15 of the tile row of coefficient t0 + tt, reversed
+    (row byte u = span byte 128 + tt - u): a = 113 + tt - 16q.  The thread
+    reads the span's words a//4 .. a//4 + 4."""
+    return 113 + tt - 16 * q
+
+
+def swizzled_chunk(rho: int, q: int) -> int:
+    """Where chunk q (16 bytes) of row rho of a 64 x 128-byte key tile
+    lies in shared memory: the 128-byte swizzle of wgmma's descriptor,
+    byte offset rho*128 + (q ^ rho%8)*16."""
+    return rho * GEMM_BK + ((q ^ (rho % 8)) * 16)
+
+
 def _check(acc, ap_ext, a2N, p: BinFHEParams) -> None:
+    """The compact planes int8 [n*d_r, R, 8, 2N], contiguous, on both
+    devices; anything else (the JAX package's int32 windows, a transposed
+    view) is refused before any launch."""
     check_operands("blind_rotate_ap", acc, ap_ext, a2N)
     B, _, N = acc.shape
     R = 2 * p.d_g_used
@@ -85,37 +189,41 @@ def _check(acc, ap_ext, a2N, p: BinFHEParams) -> None:
 
 
 def _blind_rotate_ap_cuda(acc, ap_ext, a2N, p: BinFHEParams) -> torch.Tensor:
-    global LAUNCHES, STEP_LAUNCHES
+    global LAUNCHES, STEP_LAUNCHES, KERNEL_LAUNCHES
     B, _, N = acc.shape
-    steps = ap_ext.shape[0]
-    if B == 0 or steps == 0:
-        return acc.clone()
+    out = acc.clone()  # the step loop updates it in place
+    if B == 0 or ap_ext.shape[0] == 0:
+        return out
+    mask, rank0, count = live_table(a2N, p)
+    KERNEL_LAUNCHES += 1
+    counts = count.cpu()  # the rotation's one transfer (and wait)
     lib = _build.load()
-    nt = N // TILE
-    RT = 2 * p.d_g_used * TILE
-    bufs = (acc.clone(), torch.empty_like(acc))
-    dig = torch.empty((B, nt * RT), dtype=torch.int8, device=acc.device)
-    rev = torch.empty(((2 * nt - 1) * RT, 8 * TILE), dtype=torch.int8, device=acc.device)
-    stream = torch.cuda.current_stream(acc.device).cuda_stream
+    L_max, live = int(counts.max()), int((counts > 0).sum())
+    K = N // TILE * 2 * p.d_g_used * TILE
+    dig = torch.empty((L_max, K), dtype=torch.int8, device=acc.device)
+    res = torch.empty((L_max, 2, N), dtype=torch.int32, device=acc.device)
+    sums = torch.empty((2, SPLIT_MAX, 2, N), dtype=torch.int32, device=acc.device)
     rc = lib.oece_blind_rotate_ap(
-        bufs[0].data_ptr(), bufs[1].data_ptr(), dig.data_ptr(), rev.data_ptr(),
-        ap_ext.data_ptr(), a2N.data_ptr(), B, p.n, p.d_r, N, p.d_g_used,
-        int(math.log2(p.B_g)), p.g_shift, p.Q, stream,
+        out.data_ptr(), res.data_ptr(), sums.data_ptr(), dig.data_ptr(), ap_ext.data_ptr(),
+        mask.data_ptr(), rank0.data_ptr(), counts.data_ptr(), B, L_max, ap_ext.shape[0], N,
+        p.d_g_used, int(math.log2(p.B_g)), p.g_shift, p.Q,
+        torch.cuda.current_stream(acc.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(
             f"ap_step.cu launch failed: {lib.oece_error_string(rc).decode()}"
         )
     LAUNCHES += 1
-    STEP_LAUNCHES += steps
-    return bufs[steps % 2]
+    STEP_LAUNCHES += live
+    KERNEL_LAUNCHES += 2 * live + (live > 0)  # digits + GEMM per live step, the last finalize
+    return out
 
 
 def blind_rotate_ap(
     acc: torch.Tensor, ap_ext: torch.Tensor, a2N: torch.Tensor, p: BinFHEParams
 ) -> torch.Tensor:
     """The whole rotation.  CPU tensors run the plain version; CUDA tensors
-    launch the kernel (or raise); any other device raises."""
+    launch the kernels (or raise); any other device raises."""
     _check(acc, ap_ext, a2N, p)
     if acc.device.type == "cpu":
         return blind_rotate_ap_plain(acc, ap_ext, a2N, p)
