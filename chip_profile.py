@@ -9,11 +9,13 @@ Six measurements, all at STD128_OPT:
                 per step and int8 TOPS, and at B = 4 and 2048 each
                 kernel's device time inside the step (build #1, digits,
                 matmul #4, epilogue; torch.profiler);
-  2. rev-sweep  the same for the step on prebuilt "rev" blocks (fhe/rev.py:
-                digits + matmul #9/#8, epilogue #10), timed over 8 distinct
-                blocks (126 MB, more than the 50 MB L2, as a rotation reads
-                them from HBM); at B = 4 and 2048 also on one block that
-                stays in L2 (hbm/l2 device time per kernel);
+  2. rev-sweep  the same for the step on prebuilt "rev" blocks (fhe/rev.py
+                -> csrc/rev_step.cu on the K-major key: the digits kernel
+                with the previous step's CMUX, the GEMM of #9/#8), timed
+                over 8 distinct blocks (126 MB, more than the 50 MB L2, as
+                a rotation reads them from HBM); at B = 4 and 2048 also on
+                one block that stays in L2 (hbm/l2 time per kernel and step
+                from the profiler's timeline, and the launch gap);
   3. context    one chained EvalBinGateBatch of 2048 random gates on
                 seed-0 golden host keys under torch.profiler: wall time,
                 device kernel time by kernel name, device busy share;
@@ -75,12 +77,20 @@ def profile(fn, label: str) -> dict:
 
 NAMES = {"build": "rev_build_kernel", "digits": "decompose_kernel",
          "matmul": "int8_mm_kernel", "cmux": "std_cmux_kernel"}
+REV_NAMES = {"digits": "rev_digits_kernel", "gemm": "rev_gemm"}
 
 
-def _parts_us(fn, steps: int, names) -> dict:
-    """Device µs per step of each kernel in ``names`` inside fn."""
-    ms_each = cs.device_ms(fn, 10, *[NAMES[k] for k in names], per_call=steps)
-    return {k: 1e3 * v / steps for k, v in zip(names, ms_each)}
+def _parts_us(fn, steps: int, table: dict) -> dict:
+    """Device µs per step of each kernel of ``table`` inside fn: its
+    device time (NAMES, one launch each per step), or for the rev step
+    loop, whose kernels start under programmatic dependent launch while
+    their predecessor runs, the time the profiler's timeline attributes to
+    it, and the gap in which none ran."""
+    if table is NAMES:
+        ms_each = cs.device_ms(fn, 10, *table.values(), per_call=steps)
+        return {k: 1e3 * v / steps for k, v in zip(table, ms_each)}
+    per, _, gap = cs.kernel_timeline(fn, tuple(table.values()), steps, want=2 * steps + 1)
+    return {**{k: 1e3 * per[name] for k, name in table.items()}, "gap": 1e3 * gap}
 
 
 def sweep(label: str = "sweep") -> dict:
@@ -97,23 +107,23 @@ def sweep(label: str = "sweep") -> dict:
     for B in (1, 4, 16, 64, 256, 1024, 2048, 4096):
         if label == "sweep":
             acc, key, a2N = cs.rotation_inputs(p, B, 1, "ginx_ext", seed=B)
-            rotate, names = std.blind_rotate_std, list(NAMES)
+            rotate, table = std.blind_rotate_std, NAMES
         else:
             acc, key, a2N = cs.rotation_inputs(p, B, steps, "rev", seed=B)
-            rotate, names = rev.blind_rotate_rev, list(NAMES)[1:]
+            key = cs.card_rev(key)
+            rotate, table = rev.blind_rotate_rev, REV_NAMES
         fn = lambda: rotate(acc, key, a2N, p)  # noqa: E731
         ms = cs.cuda_time_ms(fn, reps=50 // steps) / steps
         res["step_us"][B] = 1e3 * ms
         print(f"[{label}] B={B}: {1e3 * ms:.1f} us/step, "
               f"{2 * B * macs / (ms * 1e-3) / 1e12:.1f} TOPS", flush=True)
         if B in (4, 2048):
-            parts = {"hbm" if steps > 1 else "l2": _parts_us(fn, steps, names)}
+            split = {"hbm" if steps > 1 else "l2": _parts_us(fn, steps, table)}
             if steps > 1:  # the first block alone, warm in L2 after its first launch
                 one = dataclasses.replace(p, n=1)
-                parts["l2"] = _parts_us(lambda: rotate(acc, key[:1], a2N[:, :1].contiguous(), one),
-                                        1, names)
-            res["parts_us"][B] = parts
-            for where, us in parts.items():
+                split["l2"] = _parts_us(lambda: rotate(acc, key[:1], a2N[:, :1].contiguous(), one), 1, table)
+            res["parts_us"][B] = split
+            for where, us in split.items():
                 print(f"[{label}] B={B} parts, block in {where} (us): "
                       + ", ".join(f"{k} {v:.1f}" for k, v in us.items()), flush=True)
     return res

@@ -61,14 +61,21 @@ before the result lines):
              OECE_HOST_KEYGEN=1 runs adder_32bit verify at T=4: sums == a+b,
              the rotation through the std kernel only.
  11. rev-kernel  the standard form on prebuilt "rev" blocks
-             (fhe/rev.py -> csrc/std_step.cu: digits + matmul #9 with the
-             matmul #8, the epilogue #10) against its plain version,
-             bit-exact: blind_rotate_rev at STD128_OPT (n=8) B = 1, 37,
-             256, MICRO (n=4) and TOY (n=3) at B=37, random int8 blocks,
-             a=0 lanes unchanged; #8 (16 and 8 planes), #9 and #10 (any
-             amount pairs) alone at B = 37 and 2048.  Times a STD128_OPT
-             step at B=2048 over 8 distinct blocks (126 MB, more than the
-             L2), whole (CUDA events) and per kernel (device time), with
+             (fhe/rev.py -> csrc/rev_step.cu on the K-major rev key: per
+             step the digits kernel, which also applies the previous
+             step's CMUX (#10's function), and a wgmma GEMM, the split one
+             up to 16 gates, the tiled one above: #9 and #8) against its
+             plain version on the row-major key, bit-exact:
+             blind_rotate_rev at STD128_OPT (n=8) B = 1, 4, 8, 13, 16, 17,
+             37, 64, 256, 2048, STD128 (R=8, n=2), MICRO (n=4) and TOY
+             (n=3) at B = 4, 13, 37, random int8 blocks, a=0 lanes
+             unchanged; #8 and #9 alone on K-major blocks of 16 and 8
+             planes and #10 (any amount pairs) at B = 4, 13, 37, 2048; a
+             row-major key or block on the card is refused, and the
+             rotation at B = 4 and 2048 launches no kernel of
+             csrc/std_step.cu (profiler names).  Times a STD128_OPT step
+             at B=2048 over 8 distinct blocks (126 MB, more than the L2),
+             whole (CUDA events) and per kernel (device time), with
              bounds.
      ap-sweep   one STD128_OPT step of #13 by batch size (B = 1, 4, 8, 16,
              64, 256, 1024, 2048; a rotation of n=8, 88 steps with
@@ -88,6 +95,11 @@ before the result lines):
              trees in one call.  It runs after the long phases: in runs
              where its profiler windows came before the AP phases'
              million launches, later windows lost records.
+     rev-sweep  the same for the rev step (#9/#8, csrc/rev_step.cu): 16
+             distinct random blocks, B = 1 ... 2048, against the bound; at
+             B = 4 and 2048 its digits kernel, GEMM and gaps per step.
+             Both rev phases also run on a package whose rev kernels read
+             the row-major key, to compare trees in one call.
  12. rot-step    #11 (fhe/rot.py rot_step_true -> csrc/rot_step.cu
              oece_rot_step: the same two kernels) against its plain
              version for any amount pairs (STD128_OPT, MICRO_A and TOY at
@@ -320,7 +332,8 @@ def kernel_registers(build_log: str) -> dict:
             short = next((k for k in ("int8_mm_kernel", "raw_gemm_kernel", "rot_gemm_kernel",
                                       "rot_gemm_split_kernel", "transpose_kernel",
                                       "phase_expand_kernel", "rev_build_kernel", "ap_split_kernel",
-                                      "ap_gemm_kernel", "ap_digits_kernel", "ap_live_kernel")
+                                      "ap_gemm_kernel", "ap_digits_kernel", "ap_live_kernel",
+                                      "rev_gemm_kernel", "rev_gemm_split_kernel", "rev_digits_kernel")
                           if k in name), "")
             key = f"{short}{name[name.index(short) + len(short):][:32]}" if short else name[:60]
             regs[key] = int(ln.split("Used")[1].split("registers")[0])
@@ -376,6 +389,20 @@ def card_key(rev2):
     from oece_tpu_torch.fhe import keys
 
     return keys.rev2_to(rev2, "cuda") if hasattr(keys, "rev2_to") else rev2
+
+
+def card_rev(rev):
+    """A rev key [n, rows, 16T] (or one step's block [rows, M*T]) in the
+    layout of the card's kernels: K-major (keys.rev_to; a block as [M, T,
+    rows]); a package whose rev kernels read the row-major key takes it as
+    it is."""
+    from oece_tpu_torch.fhe import keys, rev as rev_mod
+
+    if not hasattr(rev_mod, "gemm_config"):
+        return rev
+    if rev.ndim == 3:
+        return keys.rev_to(rev, "cuda")
+    return rev.t().reshape(rev.shape[1] // 128, 128, rev.shape[0]).contiguous()
 
 
 def phase_kernel():
@@ -438,7 +465,7 @@ def phase_rot_sweep():
             f"({bnd[1]}), {bnd[0] / ms:.1%} of the bound")
         if B in (4, 2048):
             gemm = "rot_gemm" if hasattr(rot, "gemm_config") else "int8_mm_kernel"
-            per, _, idle = kernel_timeline(rotate, ("rot_diff_decompose_kernel", gemm), p.n)
+            per, _, idle = kernel_timeline(rotate, ("rot_diff_decompose_kernel", gemm), p.n, want=2 * p.n)
             digits, mm = per["rot_diff_decompose_kernel"], per[gemm]
             res[B].update(digits_ms=digits, gemm_ms=mm, gap_ms=idle)
             log("rot-sweep", t0, f"B={B} per step (profiler timeline): digits {1e3 * digits:.2f} us, "
@@ -552,7 +579,7 @@ def phase_ap_kernel():
     return max_err, kernel_ms, plain_ms, bnd
 
 
-def kernel_timeline(fn, names, steps):
+def kernel_timeline(fn, names, steps, want=0):
     """One profiler timeline of fn: the time per step attributed to each
     kernel whose name contains one of ``names`` (summed over its launches,
     over ``steps``), and the time per step in which none of them ran
@@ -560,9 +587,11 @@ def kernel_timeline(fn, names, steps):
     Under programmatic dependent launch a kernel starts, and waits, while
     its predecessor runs, so each launch is attributed only the time from
     the end of everything before it to its own end; the attributed times
-    and the gaps add up to the span.  ms.  A window
-    that lost the fill kernel's record or has no record is taken again, as
-    in device_ms."""
+    and the gaps add up to the span.  ms.  A window that has no record
+    is taken again, as in device_ms, and so is one that lost the fill
+    kernel's record, unless ``want`` (the records of ``names`` that one
+    call launches) says that it kept every timed record; with ``want``, a
+    window with fewer is taken again."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -580,9 +609,13 @@ def kernel_timeline(fn, names, steps):
         evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         ev = sorted((e.time_range.start, e.time_range.end, next(n for n in names if n in e.name))
                     for e in evs if any(n in e.name for n in names))
-        if ev and any("FillFunctor" in e.name for e in evs):
+        fill = any("FillFunctor" in e.name for e in evs)
+        if ev and (len(ev) == want or (fill and not want)):
+            if not fill:
+                print(f"kernel_timeline: the profiler dropped the fill's record, timing {names}", flush=True)
             break
-        print(f"kernel_timeline: the window lost records ({len(ev)} of {names}); taking it again", flush=True)
+        print(f"kernel_timeline: the window lost records ({len(ev)} of {names}"
+              f"{f', want {want}' if want else ''}); taking it again", flush=True)
     else:
         fail(f"the profiler missed launches of {names} in {WINDOWS} windows in a row")
     per = {n: 0.0 for n in names}
@@ -840,53 +873,120 @@ def _check_same(phase: str, what: str, got, want, t0: float) -> int:
     return err
 
 
+REV_BATCHES = (1, 4, 8, 13, 16, 17, 37, 64, 256, 2048)
+
+
+def kernel_names(fn) -> set:
+    """The names of the CUDA kernels that one call of fn launched
+    (torch.profiler, with device_ms's fill kernel and waits)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        time.sleep(EDGE_S)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(EDGE_S)
+    return {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
+
+
+def _rev_step_bound(p, B):
+    """One rev step's bound: 67.1 M MACs per gate at STD128_OPT; the step's
+    block, the accumulator in and out and one amount per gate."""
+    nt, R = p.N // 128, 2 * p.d_g_used
+    K = nt * R * 128
+    block = (2 * nt - 1) * R * 128 * 16 * 128
+    return bound(2.0 * B * nt * K * 16 * 128, block + 2 * B * 2 * p.N * 4 + B * 4)
+
+
 def phase_rev_kernel():
-    """The rev rotation and its kernels #8, #9, #10 against their plain
-    versions, then a STD128_OPT step at B=2048 over 8 distinct blocks:
-    timed whole and kernel by kernel (device time), with bounds."""
+    """The rev rotation (#9 and #8 with the CMUX of #10 in its step loop,
+    csrc/rev_step.cu on the K-major key) against its plain version on the
+    row-major key, bit-exact, at every batch size and gadget; #8 (M = 16
+    and 8) and #9 alone on K-major blocks; #10 alone; a row-major key or
+    block on the card refused; no kernel of csrc/std_step.cu in the
+    rotation.  Then a STD128_OPT rotation at B=2048 over 8 distinct
+    blocks: timed whole (CUDA events) and per kernel (device time), with
+    bounds.  On a package whose rev kernels read the row-major key (the
+    parent's), the same checks run on that key."""
     import torch
     from oece_tpu_torch.fhe import rev
-    from oece_tpu_torch.fhe.params import MICRO, STD128_OPT, TOY
+    from oece_tpu_torch.fhe.params import MICRO, STD128, STD128_OPT, TOY
 
     t0 = time.time()
+    new = hasattr(rev, "gemm_config")
     std8 = dataclasses.replace(STD128_OPT, n=8)
-    cases = [(std8, 1), (std8, 37), (std8, 256), (dataclasses.replace(MICRO, n=4), 37),
-             (dataclasses.replace(TOY, n=3), 37), (std8, 2048)]
+    cases = [(std8, B) for B in REV_BATCHES]
+    cases += [(dataclasses.replace(q, n=n), B) for q, n in ((STD128, 2), (MICRO, 4), (TOY, 3))
+              for B in (4, 13, 37)]
     err = 0
     for i, (p, B) in enumerate(cases):
         acc, rev_all, a2N = rotation_inputs(p, B, p.n, "rev", seed=400 + i)
-        got = rev.blind_rotate_rev(acc, rev_all, a2N, p)
-        err = max(err, _check_same("rev-kernel", f"rotation {p.name} N={p.N} n={p.n} B={B}", got,
-                                   rev.blind_rotate_rev_plain(acc, rev_all, a2N, p), t0))
+        got = rev.blind_rotate_rev(acc, card_rev(rev_all), a2N, p)
+        what = (f"rotation {p.name} N={p.N} R={2 * p.d_g_used} n={p.n} B={B}"
+                + (f" {rev.gemm_config(B, p.N, p.d_g_used)}" if new else ""))
+        err = max(err, _check_same("rev-kernel", what, got, rev.blind_rotate_rev_plain(acc, rev_all, a2N, p), t0))
         if not torch.equal(got[0], acc[0]):
             fail(f"rev kernel changed the a=0 lane at {p.name} B={B}")
 
-    # #8 (16 and 8 planes), #9 and #10 alone; #10 with any amount pairs
+    # #8 (16 and 8 planes) and #9 alone, #10 alone with any amount pairs
     p, R, nt = std8, 2 * std8.d_g_used, std8.N // 128
     g = torch.Generator(device="cuda")
     g.manual_seed(9)
-    for B in (37, 2048):
+    for B in (4, 13, 37, 2048):
         acc, rev_all, _ = rotation_inputs(p, B, 1, "rev", seed=B)
         dig = torch.randint(-128, 128, (B, nt * R * 128), generator=g, device="cuda", dtype=torch.int8)
         half = rev_all[0, :, : 8 * 128].contiguous()
         for blk, M in ((rev_all[0], 16), (half, 8)):
-            err = max(err, _check_same("rev-kernel", f"#8 M={M} B={B}", rev.window_matmul_true(dig, blk, R, p.Q),
+            err = max(err, _check_same("rev-kernel", f"#8 M={M} B={B}",
+                                       rev.window_matmul_true(dig, card_rev(blk), R, p.Q),
                                        rev.window_matmul_true_plain(dig, blk, p.Q), t0))
-        err = max(err, _check_same("rev-kernel", f"#9 B={B}", rev.window_matmul_dec_true(acc, rev_all[0], p),
-                                   rev.window_matmul_dec_true_plain(acc, rev_all[0], p), t0))
+            err = max(err, _check_same("rev-kernel", f"#9 M={M} B={B}",
+                                       rev.window_matmul_dec_true(acc, card_rev(blk), p),
+                                       rev.window_matmul_dec_true_plain(acc, blk, p), t0))
         P = torch.randint(0, p.Q, (B, 2, 2, p.N), generator=g, device="cuda", dtype=torch.int32)
         amt = torch.randint(0, 2 * p.N, (B, 2), generator=g, device="cuda", dtype=torch.int32)
         err = max(err, _check_same("rev-kernel", f"#10 any amounts B={B}", rev.cmux_epilogue_true(P, acc, amt, p.Q),
                                    rev.cmux_epilogue_true_plain(P, acc, amt, p.Q), t0))
 
-    # the B=2048 rotation of the last case: 8 steps, each on its own block
-    acc, rev_all, a2N = rotation_inputs(std8, 2048, 8, "rev", seed=400 + len(cases) - 1)
+    # the B=2048 rotation: 8 steps, each on its own block
     B, n = 2048, 8
-    rotate = lambda: rev.blind_rotate_rev(acc, rev_all, a2N, p)  # noqa: E731
+    acc, rev_all, a2N = rotation_inputs(std8, B, n, "rev", seed=400 + len(cases))
+    key = card_rev(rev_all)
+    rotate = lambda: rev.blind_rotate_rev(acc, key, a2N, p)  # noqa: E731
+    if new:
+        for bad in ((lambda: rev.blind_rotate_rev(acc, rev_all, a2N, p)),
+                    (lambda: rev.window_matmul_true(dig, rev_all[0], R, p.Q)),
+                    (lambda: rev.window_matmul_dec_true(acc, rev_all[0], p))):
+            try:
+                bad()
+            except ValueError as e:
+                log("rev-kernel", t0, f"a row-major key or block on the card is refused: {e}")
+            else:
+                fail("rev-kernel: a row-major rev key or block on the card was not refused")
+        for Bn in (4, B):
+            acc_n, a_n = acc[:Bn].contiguous(), a2N[:Bn].contiguous()
+            names = kernel_names(lambda: rev.blind_rotate_rev(acc_n, key, a_n, p))
+            old = [k for k in names if any(o in k for o in ("int8_mm_kernel", "std_cmux_kernel", "decompose_kernel"))]
+            if old or not any("rev_gemm" in k for k in names):
+                fail(f"rev-kernel: the rotation at B={Bn} launched {sorted(names)}: want rev_step.cu's only")
+            log("rev-kernel", t0, f"kernels of the B={Bn} rotation: {sorted(k[:48] for k in names)}")
     res = {"step": {"max_abs_err": err, "ms": cuda_time_ms(rotate, reps=5) / n,
                     "plain_ms": cuda_time_ms(lambda: rev.blind_rotate_rev_plain(acc, rev_all, a2N, p), reps=1) / n}}
-    names = {"digits": "decompose_kernel", "matmul": "int8_mm_kernel", "cmux": "std_cmux_kernel"}
-    dev = {k: v / n for k, v in zip(names, device_ms(rotate, 5, *names.values(), per_call=n))}
+    # per step from the profiler's timeline: under programmatic dependent
+    # launch a kernel's own duration includes its wait for its predecessor
+    if new:  # the digits kernel runs once more per rotation, for the last CMUX
+        per, _, _ = kernel_timeline(rotate, ("rev_digits_kernel", "rev_gemm"), n, want=2 * n + 1)
+        dev = {"digits": per["rev_digits_kernel"], "matmul": per["rev_gemm"], "cmux": per["rev_digits_kernel"]}
+    else:
+        names = {"digits": "decompose_kernel", "matmul": "int8_mm_kernel", "cmux": "std_cmux_kernel"}
+        per, _, _ = kernel_timeline(rotate, tuple(names.values()), n, want=3 * n)
+        dev = {k: per[v] for k, v in names.items()}
     dig = torch.randint(-128, 128, (B, nt * R * 128), generator=g, device="cuda", dtype=torch.int8)
     P4 = rev.window_matmul_true_plain(dig, rev_all[0], p.Q)
     amt = torch.stack([(2 * p.N - a2N[:, 0]) & (2 * p.N - 1), a2N[:, 0]], dim=1).contiguous()
@@ -896,24 +996,61 @@ def phase_rev_kernel():
         "matmul_dec": lambda: rev.window_matmul_dec_true_plain(acc, rev_all[0], p),
         "cmux": lambda: rev.cmux_epilogue_true_plain(P, acc, amt, p.Q),
     }
+    # #8 is the GEMM, #9 the digits kernel and the GEMM; on the new route the
+    # CMUX of #10 runs inside the digits kernel, which is timed whole
     res["window_matmul"] = {"ms": dev["matmul"]}
     res["matmul_dec"] = {"ms": dev["digits"] + dev["matmul"]}
     res["cmux"] = {"ms": dev["cmux"]}
     ops_mm = 2.0 * B * nt * (nt * R * 128) * 16 * 128
     blk, acc_b, P4_b = rev_all[0].numel(), acc.numel() * 4, P4.numel() * 4
+    cmux_bytes = P4_b + 2 * acc_b + amt.numel() * 4 + (dig.numel() if new else 0)
     bounds = {  # (int8 operations, bytes) the function needs
         "window_matmul": (ops_mm, dig.numel() + blk + P4_b),
         "matmul_dec": (ops_mm, acc_b + blk + P4_b),
-        "cmux": (0.0, P4_b + 2 * acc_b + amt.numel() * 4),
-        "step": (ops_mm, blk + 2 * acc_b + B * 4),
+        "cmux": (0.0, cmux_bytes),
+        "step": _rev_step_bound(p, B),
     }
     for name, r in res.items():
         if name in plain:
             r.update(max_abs_err=err, plain_ms=cuda_time_ms(plain[name], reps=3))
-        r["bound_ms"], r["bound_by"] = bound(*bounds[name])
+        r["bound_ms"], r["bound_by"] = bound(*bounds[name]) if name != "step" else bounds[name]
         log("rev-kernel", t0, f"STD128_OPT B={B} {name}: kernel {r['ms']:.4f} ms"
             f"{' on the device' if name in plain else ''}, plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return res
+
+
+def phase_rev_sweep():
+    """The rev step by batch size against its bound (a rotation over 16
+    distinct random blocks, 251 MB, so each step reads its block from HBM;
+    CUDA events), and at B = 4 and 2048 the step split into its kernels and
+    the launch gaps (torch.profiler's kernel timeline).  On a package whose
+    rev kernels read the row-major key (the parent's) it times that route."""
+    from oece_tpu_torch.fhe import rev
+    from oece_tpu_torch.fhe.params import STD128_OPT
+
+    t0 = time.time()
+    p = dataclasses.replace(STD128_OPT, n=16)
+    new = hasattr(rev, "gemm_config")
+    names = ("rev_digits_kernel", "rev_gemm") if new else ("decompose_kernel", "int8_mm_kernel", "std_cmux_kernel")
+    res = {}
+    for B in (1, 4, 8, 16, 64, 256, 1024, 2048):
+        acc, rev_all, a2N = rotation_inputs(p, B, p.n, "rev", seed=800 + B)
+        key = card_rev(rev_all)
+        del rev_all
+        rotate = lambda: rev.blind_rotate_rev(acc, key, a2N, p)  # noqa: E731
+        ms = cuda_time_ms(rotate, reps=10 if B < 1024 else 3) / p.n
+        bnd = _rev_step_bound(p, B)
+        res[B] = {"ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1]}
+        log("rev-sweep", t0, f"STD128_OPT step B={B}: {1e3 * ms:.1f} us, bound {1e3 * bnd[0]:.1f} us "
+            f"({bnd[1]}), {bnd[0] / ms:.1%} of the bound")
+        if B in (4, 2048):
+            per, counts, idle = kernel_timeline(rotate, names, p.n, want=(2 if new else 3) * p.n + new)
+            res[B].update(kernels_ms=per, launches=counts, gap_ms=idle)
+            log("rev-sweep", t0, f"B={B} per step (profiler timeline): "
+                + ", ".join(f"{k} {1e3 * v:.2f} us ({counts[k]} launches)" for k, v in per.items())
+                + f"; no kernel running {1e3 * idle:.2f} us; events {1e3 * ms:.2f} us")
+        del key
     return res
 
 
@@ -1134,8 +1271,8 @@ def phase_profile_boot():
     d, ext0, R = inp.digs0, inp.ext[0], inp.ext.shape[1]
     got = rot.combine_planes(ng.negacyclic_matmul_split(d, ext0), p.Q)
     block = ng.build_diagonals_plain(ext0)
-    _check_same("profile-boot", "scan G's step, combined == #4's P4 (kernel)", got,
-                rev.window_matmul_true(d, block, R, p.Q), t0)
+    _check_same("profile-boot", "scan G's step, combined == #8 on its K-major block (kernel)", got,
+                rev.window_matmul_true(d, card_rev(block), R, p.Q), t0)
     _check_same("profile-boot", "scan G's step, combined == #4's P4 (plain)", got,
                 std.diag_matmul_combine_plain(d, block, p.Q), t0)
     return launches
@@ -1223,6 +1360,7 @@ PHASES = {
     "rev-kernel": phase_rev_kernel,
     "ap-sweep": phase_ap_sweep,
     "rot-sweep": phase_rot_sweep,
+    "rev-sweep": phase_rev_sweep,
     "rot-step": phase_rot_step,
     "rev-gates": lambda: phase_gates("rev-gates", B=1024, K=3, layout="rev"),
     "rev-circuit": lambda: phase_circuit("rev-circuit", layout="rev"),
@@ -1265,7 +1403,9 @@ def main() -> None:
         *[entry(f"std_{k}", "oece_tpu_torch/csrc/std_step.cu", line, std_launches,
                 *fields(std_res[k]), std_res[k].get("library_ms"))
           for k, line in (("build", 71), ("matmul", 147))],
-        *[entry(f"rev_{k}", "oece_tpu_torch/csrc/std_step.cu", line, res["rev-circuit"], *fields(rev_res[k]))
+        # #8 is rev_step.cu's GEMM, #9 its digits kernel and the GEMM; the rev
+        # path's CMUX (#10's function) runs inside the digits kernel
+        *[entry(f"rev_{k}", "oece_tpu_torch/csrc/rev_step.cu", line, res["rev-circuit"], *fields(rev_res[k]))
           for k, line in (("window_matmul", 757), ("matmul_dec", 816), ("cmux", 900))],
         entry("rot_step_true", "oece_tpu_torch/csrc/rot_step.cu", 1047, res["rot-steps-circuit"],
               *res["rot-step"]),

@@ -36,10 +36,14 @@ point:
                      (replaces the Pallas _build_diag_kernel and
                      _diag_matmul_combine_kernel, with the CMUX epilogue)
   fhe/rev.py         the GINX rotation, standard form on prebuilt rev
-                     blocks (device keys, OECE_LAYOUT=rev): plain twins and
-                     the wrappers of csrc/std_step.cu (replaces the Pallas
-                     _window_matmul_true_kernel, _matmul_dec_true_kernel
-                     and _cmux_epilogue_true_kernel)
+                     blocks (device keys, OECE_LAYOUT=rev, K-major on the
+                     card): plain twins and the wrappers of
+                     csrc/rev_step.cu (replaces the Pallas
+                     _window_matmul_true_kernel and _matmul_dec_true_kernel,
+                     with the CMUX of _cmux_epilogue_true_kernel in its
+                     step loop; its GEMMs are rot_step.cu's, shared in
+                     csrc/step_gemm.cuh) and, for #10 alone, of
+                     csrc/std_step.cu
   fhe/ap.py          the AP rotation: plain torch version and the wrapper of
                      csrc/ap_step.cu (replaces the Pallas _ap_megakernel;
                      its step GEMMs share csrc/step_gemm.cuh with
@@ -52,7 +56,7 @@ point:
                      the conjugated-basis build (_build_rev_kernel), all
                      in csrc/negacyclic.cu, and the window matmul and CMUX
                      epilogue (_window_matmul_kernel, _cmux_epilogue_kernel)
-                     on the kernels of fhe/rev.py
+                     on the kernels of csrc/std_step.cu
   tools/profile_boot.py  the step profiler (python -m
                      oece_tpu_torch.tools.profile_boot)
   fhe/boot.py        batched gate bootstrapping; the key layout selects the

@@ -1,6 +1,7 @@
 // Shared pieces of the port's blind-rotation kernels (std_step.cu for the
-// standard GINX form; rot_step.cu and ap_step.cu, the rotated GINX form and
-// the binary-base AP method, take the modular helpers only), for Hopper
+// standard GINX form; rot_step.cu, rev_step.cu and ap_step.cu, the rotated
+// GINX form, the standard form on rev keys and the binary-base AP method,
+// take the modular helpers only), for Hopper
 // (sm_90a):
 //
 //   * the modular helpers of oece_tpu/fhe/modmath.py (red31, mod_q,
@@ -23,9 +24,10 @@
 // single-buffered shared memory, a byte transpose of each key tile in
 // registers (the key is row-major in the contraction index, mma wants it
 // packed along it).  The raw negacyclic products (#3, #5) run on
-// wgmma_mm.cuh instead, the rotated form's step (#11, #12) on
-// rot_step.cu's wgmma GEMMs over a K-major key, and the AP step (#13) on
-// ap_step.cu's, which make their key tiles from the compact key.
+// wgmma_mm.cuh instead, the rotated form's step (#11, #12) and the rev
+// step (#8, #9) on step_gemm.cuh's wgmma GEMMs over a K-major key, and the
+// AP step (#13) on ap_step.cu's, which make their key tiles from the
+// compact key.
 
 #pragma once
 

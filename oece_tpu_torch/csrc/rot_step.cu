@@ -53,7 +53,9 @@
 // programmatic dependent launch: it waits for its predecessor inside
 // (griddepcontrol.wait), so its launch and prologue overlap the
 // predecessor's tail.  The launch helper, the tile shapes (Cfg, Shape)
-// and the limb combine are in step_gemm.cuh, shared with ap_step.cu.
+// and the limb combine are in step_gemm.cuh, shared with ap_step.cu, and
+// so are both GEMMs' bodies (gemm_tiled, gemm_split), which rev_step.cu's
+// kernels share.
 //
 // Bounds on the H100.  One step costs nt*K*8T = 67 M int8 MACs per gate at
 // STD128_OPT (K = nt*2R*T = 8192) and streams a 15.7 MB key block that
@@ -153,251 +155,27 @@ namespace rotg {
 
 // One step of the rotation at key step `step`: acc_in int32 [B, 2, N] ->
 // acc_out = red31(acc_in + products), from the digits (dig_map, [B, K])
-// and the K-major key (key_map, [n, 8T, row_bytes]).
+// and the K-major key (key_map, [n, 8T, row_bytes]); step_gemm.cuh's
+// gemm_tiled.
 template <int NB, int MW>
 __global__ void __launch_bounds__(Cfg<NB, MW>::THREADS, 1) rot_gemm_kernel(
     const __grid_constant__ CUtensorMap dig_map, const __grid_constant__ CUtensorMap key_map,
     const int* __restrict__ acc_in, int* __restrict__ acc_out, Shape g, int step) {
-  using C = Cfg<NB, MW>;
-  constexpr int BK = wgmm::BK;
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t raw = wgmm::smem_addr(smem_raw);
-  const uint32_t ring = (raw + 1023) & ~1023u;  // the swizzle repeats every 1024 bytes
-  const uint32_t full0 = ring + C::STAGES * C::STAGE, empty0 = full0 + C::STAGES * 8;
-  int* epi = (int*)(smem_raw + (ring - raw) + C::STAGES * (C::STAGE + 16));
-  const int tid = threadIdx.x;
-  const int nt = g.N / T;
-
-  if (tid == 0) {
-    for (int s = 0; s < C::STAGES; ++s) {
-      wgmm::mbar_init(full0 + 8 * s, 1);
-      wgmm::mbar_init(empty0 + 8 * s, MW);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  pdl_wait_and_release();  // the digits and acc_in are complete from here
-
-  if (tid < 128) {  // the loader
-    if constexpr (MW == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
-    if (tid != 0) return;
-    int s = 0;
-    uint32_t ph = 0;
-    for (int tile = blockIdx.x; tile < g.tiles; tile += gridDim.x) {
-      int gt, k, ct;
-      tile_coords(g, tile, gt, k, ct);
-      const int x0 = (nt - 1 - k) * g.R2T;
-      for (int c = 0; c < g.chunks; ++c) {
-        const uint32_t a_s = ring + s * C::STAGE, b_s = a_s + C::A_BYTES;
-        const uint32_t full = full0 + 8 * s;
-        wgmm::mbar_wait(empty0 + 8 * s, ph ^ 1);
-        wgmm::mbar_expect_tx(full, C::STAGE);
-        for (int w = 0; w < MW; ++w) {  // planes 4o .. 4o+3, coefficients t0 .. t0+15
-          const int cc = ct * MW + w, o = cc / (T / CHUNK), t0 = cc % (T / CHUNK) * CHUNK;
-          wgmm::tma_load_4d(a_s + w * COLS * BK, &key_map, full, x0 + c * BK, t0, 4 * o, step);
-        }
-        wgmm::tma_load(b_s, &dig_map, full, c * BK, gt * NB);
-        if (++s == C::STAGES) {
-          s = 0;
-          ph ^= 1;
-        }
-      }
-    }
-    return;
-  }
-
-  // the math: warpgroup wg takes key columns (ct*MW + wg) of each tile
-  if constexpr (MW == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
-  const int wg = tid / 128 - 1, lt = tid % 128, warp = lt / 32, lane = lt % 32;
-  int* cs = epi + wg * COLS * C::EPI_PITCH;
-  int d[NB / 2];
-#pragma unroll
-  for (int i = 0; i < NB / 2; ++i) d[i] = 0;
-  int s = 0;
-  uint32_t ph = 0;
-  for (int tile = blockIdx.x; tile < g.tiles; tile += gridDim.x) {
-    int gt, k, ct;
-    tile_coords(g, tile, gt, k, ct);
-    const int cc = ct * MW + wg, o = cc / (T / CHUNK), t0 = cc % (T / CHUNK) * CHUNK;
-    // the epilogue's old accumulator values, loaded while the products run:
-    // element r of this thread is coefficient t0 + lt%16 of gate
-    // gt*NB + lt/16 + 8r
-    const long long at0 = (long long)o * g.N + k * T + t0 + lt % CHUNK;
-    int old[NB / 8];
-#pragma unroll
-    for (int r = 0; r < NB / 8; ++r) {
-      const int b = gt * NB + lt / CHUNK + 8 * r;
-      old[r] = b < g.B ? acc_in[(long long)b * 2 * g.N + at0] : 0;
-    }
-    int prev = 0;
-    for (int c = 0; c < g.chunks; ++c) {
-      const uint32_t a_s = ring + s * C::STAGE, b_s = a_s + C::A_BYTES;
-      wgmm::mbar_wait(full0 + 8 * s, ph);
-      const uint64_t da = wgmm::smem_desc(a_s + wg * COLS * BK), db = wgmm::smem_desc(b_s);
-      wgmm::fence_acc(d);
-      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-#pragma unroll
-      for (int kk = 0; kk < BK / 32; ++kk)
-        wgmm::wgmma_s8<NB>(d, da + 2 * kk, db + 2 * kk, c > 0 || kk > 0);
-      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-      wgmm::fence_acc(d);
-      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
-      wgmm::fence_acc(d);
-      if (c > 0 && lt == 0) wgmm::mbar_arrive(empty0 + 8 * prev);  // stage c-1 is read
-      prev = s;
-      if (++s == C::STAGES) {
-        s = 0;
-        ph ^= 1;
-      }
-    }
-    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-    wgmm::fence_acc(d);
-    if (lt == 0) wgmm::mbar_arrive(empty0 + 8 * prev);
-
-    // accumulator i: key column 16*warp + lane/4 (+8 for i & 2) of the
-    // warpgroup's 64 (limb = warp), gate 8*(i/4) + 2*(lane%4) + (i & 1)
-#pragma unroll
-    for (int q = 0; q < NB / C::EPI_G; ++q) {
-      wg_sync(wg);  // the previous pass has read cs
-#pragma unroll
-      for (int i = 0; i < NB / 2; ++i) {  // this pass's gates: i / (EPI_G/2) == q
-        if (i / (C::EPI_G / 2) != q) continue;
-        const int row = 16 * warp + lane / 4 + 8 * ((i >> 1) & 1);
-        const int col = 8 * (i / 4) + 2 * (lane % 4) + (i & 1) - q * C::EPI_G;
-        cs[row * C::EPI_PITCH + col] = d[i];
-      }
-      wg_sync(wg);
-      const int t = lt % CHUNK;
-#pragma unroll
-      for (int it = 0; it < C::EPI_G / 8; ++it) {  // one (gate, coefficient t) each
-        const int gg = lt / CHUNK + 8 * it, b = gt * NB + q * C::EPI_G + gg;
-        if (b >= g.B) continue;
-        const int comb = combine_staged(cs, C::EPI_PITCH, t, gg, g.Q);
-        acc_out[(long long)b * 2 * g.N + at0] = red31(old[q * C::EPI_G / 8 + it] + comb, g.Q);
-      }
-    }
-  }
+  gemm_tiled<NB, MW, true>(&dig_map, &key_map, acc_in, acc_out, g, step);
 }
 
-// The split GEMM of narrow batches (B <= NB <= 16): each block owns one
-// column chunk cc (as a math warpgroup of rot_gemm_kernel) and a group of
-// `dpg` consecutive diagonals d' of the block, and reads each of their key
-// tiles once.  The stage (d', s) of 128 contraction bytes serves every
-// output tile k, against digit chunk j*SUB + s with j = d' - (nt-1-k)
-// (SUB = 2RT / 128).  The block keeps the digits it needs in shared
-// memory as [s][jj][NB gates] with jj = j - (d_lo - nt + 1), chunks of j
-// outside [0, nt) read as zeros by the TMA unit, so the B tile of stage
-// (d', s) for k = 0 .. 7 is the 8*NB consecutive rows from (s, d' - d_lo):
-// one wgmma.m64n(8NB)k32 per 32 bytes computes all output tiles at once
-// (column k*NB + b; columns of k >= nt are not used).  So the 15.7 MB
-// block is read from L2 about once per step (rot_gemm_kernel's tiles read
-// 64 MB), over the 16 x 8 blocks.  The epilogue combines each k's limb
-// sums mod Q (the combine is linear mod Q, so partial sums combine as the
-// whole does) and adds them atomically into sum [B, 2, N] (< 8Q): the
-// next step's digits kernel, or rot_finalize_kernel, takes red31(acc +
-// sum).
+// The split GEMM of narrow batches (B <= NB <= 16), step_gemm.cuh's
+// gemm_split: each block owns a column chunk and `dpg` diagonals, one
+// wgmma per 32 bytes serves all 8 output tiles, and the limb-combined
+// partial sums meet in sum [B, 2, N] (< 8Q) by atomics, which the next
+// step's digits kernel, or rot_finalize_kernel, adds to the accumulator
+// with red31.  So the 15.7 MB block is read from L2 about once per step
+// (rot_gemm_kernel's tiles read 64 MB), over the 16 x 8 blocks.
 template <int NB>
 __global__ void __launch_bounds__(256, 1) rot_gemm_split_kernel(
     const __grid_constant__ CUtensorMap dig_map, const __grid_constant__ CUtensorMap key_map,
     int* __restrict__ sum, Shape g, int step, int dpg) {
-  constexpr int BK = wgmm::BK, A_BYTES = COLS * BK, STAGES = 8, EPI_PITCH = NB + 1;
-  constexpr int TILE_B = NB * BK;  // one digit chunk of the NB gates
-  extern __shared__ uint8_t smem_raw[];
-  const int tid = threadIdx.x, nt = g.N / T, sub = g.R2T / BK, jjs = dpg + 7;
-  const uint32_t raw = wgmm::smem_addr(smem_raw);
-  const uint32_t digits = (raw + 1023) & ~1023u;
-  const uint32_t ring = digits + sub * jjs * TILE_B;
-  const uint32_t full0 = ring + STAGES * A_BYTES, empty0 = full0 + STAGES * 8;
-  const uint32_t dig_bar = empty0 + STAGES * 8;
-  int* cs = (int*)(smem_raw + (dig_bar + 8 - raw));
-  const int cc = blockIdx.x % (2 * T / CHUNK), grp = blockIdx.x / (2 * T / CHUNK);
-  const int o = cc / (T / CHUNK), t0 = cc % (T / CHUNK) * CHUNK;
-  const int d_lo = grp * dpg, d_hi = min(d_lo + dpg, 2 * nt - 1);
-
-  if (tid == 0) {
-    for (int i = 0; i < STAGES; ++i) {
-      wgmm::mbar_init(full0 + 8 * i, 1);
-      wgmm::mbar_init(empty0 + 8 * i, 1);
-    }
-    wgmm::mbar_init(dig_bar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  pdl_wait_and_release();  // the digits are complete from here
-
-  if (tid < 128) {  // the loader: the digit chunks once, then the key tiles
-    if (tid != 0) return;
-    wgmm::mbar_expect_tx(dig_bar, sub * jjs * TILE_B);
-    for (int c = 0; c < sub; ++c)  // chunks j = d_lo - nt + 1 .. +jjs-1 of substage c
-      wgmm::tma_load_4d(digits + c * jjs * TILE_B, &dig_map, dig_bar, 0, 0, d_lo - nt + 1, c);
-    int s = 0;
-    uint32_t ph = 0;
-    for (int dd = d_lo; dd < d_hi; ++dd)
-      for (int c = 0; c < sub; ++c) {
-        wgmm::mbar_wait(empty0 + 8 * s, ph ^ 1);
-        wgmm::mbar_expect_tx(full0 + 8 * s, A_BYTES);
-        wgmm::tma_load_4d(ring + s * A_BYTES, &key_map, full0 + 8 * s, dd * g.R2T + c * BK, t0,
-                          4 * o, step);
-        if (++s == STAGES) {
-          s = 0;
-          ph ^= 1;
-        }
-      }
-    return;
-  }
-
-  const int lt = tid - 128, warp = lt / 32, lane = lt % 32;
-  int d[4 * NB];  // [64 columns x 8*NB (k, gate)]
-#pragma unroll
-  for (int i = 0; i < 4 * NB; ++i) d[i] = 0;
-  wgmm::mbar_wait(dig_bar, 0);
-  int s = 0, prev = 0;
-  uint32_t ph = 0;
-  for (int dd = d_lo; dd < d_hi; ++dd)
-    for (int c = 0; c < sub; ++c) {
-      wgmm::mbar_wait(full0 + 8 * s, ph);
-      const uint64_t da = wgmm::smem_desc(ring + s * A_BYTES);
-      const uint64_t db = wgmm::smem_desc(digits + (c * jjs + dd - d_lo) * TILE_B);
-      wgmm::fence_acc(d);
-      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-#pragma unroll
-      for (int kk = 0; kk < BK / 32; ++kk) wgmm::wgmma_s8<8 * NB>(d, da + 2 * kk, db + 2 * kk, 1);
-      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-      wgmm::fence_acc(d);
-      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
-      wgmm::fence_acc(d);
-      if ((dd > d_lo || c > 0) && lt == 0) wgmm::mbar_arrive(empty0 + 8 * prev);  // stage read
-      prev = s;
-      if (++s == STAGES) {
-        s = 0;
-        ph ^= 1;
-      }
-    }
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-  wgmm::fence_acc(d);
-
-  // accumulator i: key column 16*warp + lane/4 (+8 for i & 2), column
-  // 8*(i/4) + 2*(lane%4) + (i & 1) = k*NB + gate, so k = i / (NB/2)
-  const int t = lt % CHUNK;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    if (k >= nt) break;
-    wg_sync(0);  // the previous k has read cs
-#pragma unroll
-    for (int i = 0; i < 4 * NB; ++i) {
-      if (i / (NB / 2) != k) continue;
-      cs[(16 * warp + lane / 4 + 8 * ((i >> 1) & 1)) * EPI_PITCH + 8 * (i / 4) + 2 * (lane % 4) +
-         (i & 1) - k * NB] = d[i];
-    }
-    wg_sync(0);
-#pragma unroll
-    for (int it = 0; it < NB / 8; ++it) {
-      const int b = lt / CHUNK + 8 * it;
-      if (b >= g.B) continue;
-      const int comb = combine_staged(cs, EPI_PITCH, t, b, g.Q);
-      atomicAdd(sum + ((long long)b * 2 + o) * g.N + k * T + t0 + t, comb);
-    }
-  }
+  gemm_split<NB>(&dig_map, &key_map, sum, g, step, dpg);
 }
 
 // The arguments of a step loop: steps 0 .. n-1 over the key's first n
@@ -419,29 +197,12 @@ struct Loop {
 constexpr int SPLIT_GROUPS = 8;  // diagonal groups of the split GEMM, at most
 
 Shape shape_of(const Loop& L, int NB, int MW) {
-  const int nt = L.N / T, R2T = 4 * L.d_used * T;
-  Shape g{L.B, L.N, L.Q, (2 * nt - 1) * R2T, R2T, nt * R2T / wgmm::BK, (L.B + NB - 1) / NB,
-          2 * (T / CHUNK) / MW, 0};
-  g.tiles = g.gate_tiles * nt * g.col_tiles;
-  return g;
+  return step_shape(L.B, L.N, L.Q, 4 * L.d_used * T, 2, NB, MW);
 }
 
-// The key as [steps, 8 planes, T, row_bytes], boxes of 4 planes x 16
-// coefficients x 128 bytes; the digits as [B, K] with boxes of NB gates x
-// 128 bytes, or for the split GEMM as [SUB substages, nt chunks j, B,
-// 128 bytes] (strides 128, 2RT, K) with boxes of dpg+7 chunks x NB gates.
-bool make_maps(const Loop& L, const Shape& g, int NB, int dpg, CUtensorMap* dig_map,
-               CUtensorMap* key_map) {
-  const long long K = (long long)g.chunks * wgmm::BK, BK = wgmm::BK;
-  const long long kdims[4] = {g.row_bytes, T, 8, L.key_steps};
-  const long long kstrides[3] = {g.row_bytes, (long long)T * g.row_bytes, 8LL * T * g.row_bytes};
-  const int kbox[4] = {wgmm::BK, CHUNK, 4, 1};
-  const long long sdims[4] = {BK, L.B, L.N / T, g.R2T / BK};
-  const long long sstrides[3] = {K, g.R2T, BK};
-  const int sbox[4] = {wgmm::BK, NB, dpg + 7, 1};
-  return wgmm::make_map_nd(key_map, L.keyT, 4, kdims, kstrides, kbox) &&
-         (dpg ? wgmm::make_map_nd(dig_map, L.dig, 4, sdims, sstrides, sbox)
-              : wgmm::make_map(dig_map, L.dig, L.B, K, NB));
+bool maps_of(const Loop& L, const Shape& g, int NB, int dpg, CUtensorMap* dig_map,
+             CUtensorMap* key_map) {
+  return make_maps(L.keyT, L.key_steps, 8, L.dig, g, NB, dpg, dig_map, key_map);
 }
 
 cudaError_t digits(const Loop& L, int i, const int* acc, const int* sum_in, int* acc_new,
@@ -457,7 +218,7 @@ int run_tiled(const Loop& L) {
   using C = Cfg<NB, MW>;
   const Shape g = shape_of(L, NB, MW);
   CUtensorMap dig_map, key_map;
-  if (!make_maps(L, g, NB, 0, &dig_map, &key_map)) return (int)cudaErrorInvalidValue;
+  if (!maps_of(L, g, NB, 0, &dig_map, &key_map)) return (int)cudaErrorInvalidValue;
   static bool smem_set = false;
   cudaError_t e = allow_smem((const void*)rot_gemm_kernel<NB, MW>, smem_set);
   const int grid = std::min(g.tiles, sm_count());
@@ -470,13 +231,6 @@ int run_tiled(const Loop& L) {
   return (int)(e == cudaSuccess ? cudaGetLastError() : e);
 }
 
-// Shared memory of the split GEMM: the digit chunks, 8 stages of key
-// tiles, their barriers, the epilogue's staging buffer.
-int split_smem(int NB, int N, int d_used, int dpg) {
-  const int sub = 4 * d_used * T / wgmm::BK;
-  return 1024 + sub * (dpg + 7) * NB * wgmm::BK + 8 * (COLS * wgmm::BK + 16) + 8 + COLS * (NB + 1) * 4;
-}
-
 // The split GEMM: step i adds its products into sums[i%2], which the
 // digits kernel of step i zeroes first; the digits kernel of step i >= 1
 // finalizes a_i = red31(a_{i-1} + sums[(i-1)%2]) from bufs[(i-1)%2] into
@@ -487,10 +241,10 @@ int run_split(const Loop& L, int dpg) {
   const int groups = (2 * (L.N / T) - 1 + dpg - 1) / dpg;
   const long long plane = (long long)L.B * 2 * L.N;
   CUtensorMap dig_map, key_map;
-  if (!make_maps(L, g, NB, dpg, &dig_map, &key_map)) return (int)cudaErrorInvalidValue;
+  if (!maps_of(L, g, NB, dpg, &dig_map, &key_map)) return (int)cudaErrorInvalidValue;
   static bool smem_set = false;
   cudaError_t e = allow_smem((const void*)rot_gemm_split_kernel<NB>, smem_set);
-  const int smem = split_smem(NB, L.N, L.d_used, dpg);
+  const int smem = split_smem(NB, 4 * L.d_used, dpg);
   for (int i = 0; i < L.n && e == cudaSuccess; ++i) {
     int* sum = L.sums + (i & 1) * plane;
     e = i == 0 ? digits(L, i, L.bufs[0], nullptr, nullptr, sum)
@@ -514,7 +268,7 @@ int dispatch(const Loop& L) {
   if (L.d_used > MAX_DIGITS || L.n < 1) return (int)cudaErrorInvalidValue;
   const int nt = L.N / T, NB = L.B <= 8 ? 8 : 16;
   const int dpg = (2 * nt - 1 + SPLIT_GROUPS - 1) / SPLIT_GROUPS;
-  if (L.B <= 16 && nt <= 8 && split_smem(NB, L.N, L.d_used, dpg) <= SMEM_MAX)
+  if (L.B <= 16 && nt <= 8 && split_smem(NB, 4 * L.d_used, dpg) <= SMEM_MAX)
     return NB == 8 ? run_split<8>(L, dpg) : run_split<16>(L, dpg);
   if (L.B <= 32) return run_tiled<32, 1>(L);
   if (L.B <= 64) return run_tiled<64, 1>(L);

@@ -1,5 +1,5 @@
 // GINX blind rotation, standard (non-rotated) form, for Hopper (sm_90a),
-// on keys expanded per step (ginx_ext) or prebuilt at keygen (rev).
+// on keys expanded per step (ginx_ext).
 //
 // Replaces, on the host-key GINX path of oece_tpu/fhe/boot.py
 // (_external_cmux_pallas, one lax.scan step per key step), the TPU kernels
@@ -8,15 +8,13 @@
 //      -> the step's 2nt-1 dense negacyclic diagonal blocks;
 //   #4 _diag_matmul_combine_kernel (diag_matmul_combine_pallas): digits x
 //      diagonal blocks with the Horner combine of the 4 key limbs fused;
-// and the jnp epilogue around them (boot.py:358-363).  On the device-key
-// path of OECE_LAYOUT=rev (_external_cmux_prebuilt, boot.py:401-422) it
-// replaces, against blocks prebuilt at keygen:
-//   #8 _window_matmul_true_kernel (window_matmul_true): digits x block with
-//      the limb combine fused, M = 16 or 8 planes;
-//   #9 _matmul_dec_true_kernel (window_matmul_dec_true): the gadget digits
-//      of the accumulator, then #8;
-//   #10 _cmux_epilogue_true_kernel (cmux_epilogue_true): the rotations and
-//      the CMUX add, which is also the function of the jnp epilogue.
+// and the jnp epilogue around them (boot.py:358-363).  Its matmul also
+// serves #2 (negacyclic.window_matmul: #8's function on a row-major block)
+// and its epilogue #10 alone (_cmux_epilogue_true_kernel,
+// rev.cmux_epilogue_true: the rotations and the CMUX add for any amount
+// pair) and #6; the device-key path of OECE_LAYOUT=rev (#8, #9 and the
+// CMUX inside its step loop) runs on rev_step.cu's wgmma GEMMs over a
+// K-major key instead.
 // For each step i and gate b, with a = a2N[b, i] (T = 128, nt = N/T,
 // R = 2*d_used, RT = R*T):
 //
@@ -32,11 +30,11 @@
 //       (pallas_kernels.py:401-402).
 //   decompose_kernel      gadget digits of the accumulator, int8 scratch
 //       dig[b, j*RT + (poly*d_used + g)*T + u] for coefficient j*T + u.
-//   int8_mm_kernel<4>     (#4, #8) for each output tile k, the
+//   int8_mm_kernel<4>     (#4; #2 with <2> too) for each output tile k, the
 //       contraction of K = nt*RT digits against rows [(nt-1-k)*RT, +K) of
 //       the block, the limb combine mod Q, written as
 //       P4[b, part*2 + out, k*T + t] in [0, Q).
-//   std_cmux_kernel       (#10) acc <- red31(acc + X^c0 P0 + X^c1 P1 + 2Q - P0 - P1)
+//   std_cmux_kernel       acc <- red31(acc + X^c0 P0 + X^c1 P1 + 2Q - P0 - P1)
 //       where P_part = P4[b, part, :, :] and (c0, c1) = (2N - a, a); each
 //       sum is below 5Q < 2**31.  A gate with a = 0 gets acc back unchanged
 //       (golden skips that step).
@@ -44,17 +42,15 @@
 // Bounds on the H100.  A step contracts nt * K * 16T = 67.1 M int8 MACs per
 // gate at STD128_OPT (nt = 8, K = 4,096), the same as a rotated-form step:
 // at B = 2048, 275 G ops, 139 us at the 1,979 TOPS int8 peak, so the matmul
-// is tensor-core bound at large batches (its mma.sync issue rate, as for
-// rot_step.cu).  The build writes a 15.7 MB block per step whatever the
-// batch (4.7 us of HBM bandwidth; the block fits the 50 MB L2, where the
-// matmul then finds it); on the rev path the matmul reads that block from
-// HBM instead (one of n blocks, 7.9 GB in all at STD128_OPT).  The
-// epilogue moves 4 ints per gate and coefficient (50 MB at B = 2048,
+// is tensor-core bound at large batches (its mma.sync issue rate).  The
+// build writes a 15.7 MB block per step whatever the batch (4.7 us of HBM
+// bandwidth; the block fits the 50 MB L2, where the matmul then finds
+// it).  The epilogue moves 4 ints per gate and coefficient (50 MB at B = 2048,
 // 15 us).  At circuit batches (4-8 gates) the matmul grid has 128 blocks
 // (nt * 4 polys * 4 column chunks) walking K = 4,096, against 64 blocks
 // walking 8,192 for rot_step.
 //
-// The design is the simple one: four launches per step (three on rev), the
+// The design is the simple one: four launches per step, the
 // step loop on the host side of this file, scratch allocated by the
 // wrapper.  The accumulator is updated in place by the epilogue (each
 // thread reads and writes only its own element; the rotations read P4).
@@ -109,8 +105,8 @@ __global__ void std_cmux_kernel(const int* acc_in, int* acc_out,
   acc_out[gid] = red31(y, Q);
 }
 
-// #8 on one block: digits dig [B, nt*R*T] x block [(2nt-1)*R*T, 4P*T] ->
-// out [B, P, N] mod Q.
+// The matmul on one row-major block (#4; #2): digits dig [B, nt*R*T] x
+// block [(2nt-1)*R*T, 4P*T] -> out [B, P, N] mod Q.
 template <int P>
 void window_matmul(const void* dig, const void* block, void* out, int B,
                    int N, int R, int Q, cudaStream_t st) {
@@ -120,7 +116,7 @@ void window_matmul(const void* dig, const void* block, void* out, int B,
       (const int8_t*)dig, (const int8_t*)block, (int*)out, B, N, nt * R * T, Q);
 }
 
-// One step after the block is in place: digits, #8 (P4 [B, 4, N]), then the
+// One step after the block is in place: digits, #4 (P4 [B, 4, N]), then the
 // CMUX epilogue on acc in place, with a = a2N[b*n + i].
 void prebuilt_step(void* acc, void* dig, const void* block, void* P4,
                    const void* a2N, int i, int B, int n, int N, int d_used,
@@ -162,28 +158,9 @@ extern "C" int oece_blind_rotate_std(void* acc, void* dig, void* rev, void* P4,
   return 0;
 }
 
-// The whole rotation on the rev key: n steps of (decompose, matmul,
-// epilogue) against rev_all int8 [n, (2nt-1)*R*T, 16T], step i's block at
-// rev_all + i*(2nt-1)*R*T*16T; otherwise as oece_blind_rotate_std.
-extern "C" int oece_blind_rotate_rev(void* acc, void* dig, void* P4,
-                                     const void* rev_all, const void* a2N,
-                                     int B, int n, int N, int d_used,
-                                     int log_bg, int shift, int Q,
-                                     void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int nt = N / T;
-  const long long step_elems = (long long)(2 * nt - 1) * 2 * d_used * T * 16 * T;
-  for (int i = 0; i < n; ++i) {
-    prebuilt_step(acc, dig, (const int8_t*)rev_all + i * step_elems, P4, a2N,
-                  i, B, n, N, d_used, log_bg, shift, Q, st);
-    const int e = check_launch();
-    if (e != 0) return e;
-  }
-  return 0;
-}
-
-// #8 alone: dig int8 [B, nt*R*T] x block int8 [(2nt-1)*R*T, 4*polys*T]
-// -> out int32 [B, polys, N] mod Q, polys = 4 (M = 16) or 2 (M = 8).
+// #2 (#8's function on a row-major block): dig int8 [B, nt*R*T] x block
+// int8 [(2nt-1)*R*T, 4*polys*T] -> out int32 [B, polys, N] mod Q, polys =
+// 4 (M = 16) or 2 (M = 8).
 extern "C" int oece_window_matmul_true(const void* dig, const void* block,
                                        void* out, int B, int N, int R,
                                        int polys, int Q, void* stream) {
@@ -196,21 +173,6 @@ extern "C" int oece_window_matmul_true(const void* dig, const void* block,
     return (int)cudaErrorInvalidValue;
   }
   return check_launch();
-}
-
-// #9 alone: the digits of acc int32 [B, 2, N] into scratch dig, then #8.
-extern "C" int oece_window_matmul_dec_true(const void* acc, void* dig,
-                                           const void* block, void* out,
-                                           int B, int N, int d_used,
-                                           int log_bg, int shift, int polys,
-                                           int Q, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  decompose_kernel<<<blocks_for((long long)B * 2 * N), 256, 0, st>>>(
-      (const int*)acc, (int8_t*)dig, B, N, d_used, log_bg, shift, Q);
-  const int e = check_launch();
-  if (e != 0) return e;
-  return oece_window_matmul_true(dig, block, out, B, N, 2 * d_used, polys, Q,
-                                 stream);
 }
 
 // #10 alone: out = red31(acc + X^amt0 P0 + X^amt1 P1 + 2Q - P0 - P1) for P

@@ -1,9 +1,13 @@
 // The pieces that the step loops of the rotated GINX form (rot_step.cu,
-// #11 and #12) and of the binary-base AP rotation (ap_step.cu, #13) share,
-// for Hopper (sm_90a): programmatic dependent launch, the gadget digits of
-// four coefficients packed into words, the wgmma GEMMs' tile shapes (64
-// key columns, the 4 limbs of 16 coefficients, on wgmma's M and NB gates
-// on its N), the limb combine of the staged sums, and the launch helpers.
+// #11 and #12), of the standard GINX form on prebuilt rev blocks
+// (rev_step.cu, #8 and #9) and of the binary-base AP rotation (ap_step.cu,
+// #13) share, for Hopper (sm_90a): programmatic dependent launch, the
+// gadget digits of four coefficients packed into words, the wgmma GEMMs'
+// tile shapes (64 key columns, the 4 limbs of 16 coefficients, on wgmma's
+// M and NB gates on its N), the limb combine of the staged sums, the
+// launch helpers, and the two GEMMs over a K-major prebuilt key
+// (gemm_tiled, gemm_split: the bodies of rot_step.cu's and rev_step.cu's
+// kernels; their design is described in rot_step.cu).
 
 #pragma once
 
@@ -82,10 +86,11 @@ struct Cfg {
 // row_bytes is unused).
 struct Shape {
   int B, N, Q;
-  int row_bytes;  // contraction bytes per key column: (2nt-1)*2RT
-  int R2T;        // contraction bytes per diagonal: 2RT (AP: RT)
+  int row_bytes;  // contraction bytes per key column: (2nt-1)*2RT (rev: (2nt-1)*RT)
+  int R2T;        // contraction bytes per diagonal: 2RT (AP, rev: RT)
   int chunks;     // stages per tile: K / 128
   int gate_tiles, col_tiles, tiles;
+  int polys;      // output polys per gate (4 key planes each): rot 2, rev 4 or 2
 };
 
 // tile -> (gate tile, output tile k, column tile ct), gate tile fastest.
@@ -139,6 +144,304 @@ inline int sm_count() {
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   return sms;
+}
+
+
+// The tiled GEMM of one step (the body of rot_step.cu's rot_gemm_kernel and
+// rev_step.cu's rev_gemm_kernel, launched with Cfg<NB, MW>::THREADS
+// threads and Cfg<NB, MW>::SMEM bytes): persistent blocks walk tiles of
+// (output tile k, MW column chunks, NB gates) over the digits (dig_map, [B,
+// K]) and the K-major key (key_map, [steps, planes, T, row_bytes]) at key
+// step `step`.  kAdd: out = red31(acc_in + comb), acc_in and out [B, 2, N]
+// (rot); else out = comb in [0, Q), out [B, polys, N] (rev), acc_in unused.
+template <int NB, int MW, bool kAdd>
+__device__ __forceinline__ void gemm_tiled(const CUtensorMap* dig_map, const CUtensorMap* key_map,
+                                           const int* __restrict__ acc_in, int* __restrict__ out,
+                                           const Shape& g, int step) {
+  using C = Cfg<NB, MW>;
+  constexpr int BK = wgmm::BK;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = wgmm::smem_addr(smem_raw);
+  const uint32_t ring = (raw + 1023) & ~1023u;  // the swizzle repeats every 1024 bytes
+  const uint32_t full0 = ring + C::STAGES * C::STAGE, empty0 = full0 + C::STAGES * 8;
+  int* epi = (int*)(smem_raw + (ring - raw) + C::STAGES * (C::STAGE + 16));
+  const int tid = threadIdx.x;
+  const int nt = g.N / T;
+
+  if (tid == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      wgmm::mbar_init(full0 + 8 * s, 1);
+      wgmm::mbar_init(empty0 + 8 * s, MW);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  pdl_wait_and_release();  // the digits and acc_in are complete from here
+
+  if (tid < 128) {  // the loader
+    if constexpr (MW == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    if (tid != 0) return;
+    int s = 0;
+    uint32_t ph = 0;
+    for (int tile = blockIdx.x; tile < g.tiles; tile += gridDim.x) {
+      int gt, k, ct;
+      tile_coords(g, tile, gt, k, ct);
+      const int x0 = (nt - 1 - k) * g.R2T;
+      for (int c = 0; c < g.chunks; ++c) {
+        const uint32_t a_s = ring + s * C::STAGE, b_s = a_s + C::A_BYTES;
+        const uint32_t full = full0 + 8 * s;
+        wgmm::mbar_wait(empty0 + 8 * s, ph ^ 1);
+        wgmm::mbar_expect_tx(full, C::STAGE);
+        for (int w = 0; w < MW; ++w) {  // planes 4o .. 4o+3, coefficients t0 .. t0+15
+          const int cc = ct * MW + w, o = cc / (T / CHUNK), t0 = cc % (T / CHUNK) * CHUNK;
+          wgmm::tma_load_4d(a_s + w * COLS * BK, key_map, full, x0 + c * BK, t0, 4 * o, step);
+        }
+        wgmm::tma_load(b_s, dig_map, full, c * BK, gt * NB);
+        if (++s == C::STAGES) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // the math: warpgroup wg takes key columns (ct*MW + wg) of each tile
+  if constexpr (MW == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+  const int wg = tid / 128 - 1, lt = tid % 128, warp = lt / 32, lane = lt % 32;
+  int* cs = epi + wg * COLS * C::EPI_PITCH;
+  int d[NB / 2];
+#pragma unroll
+  for (int i = 0; i < NB / 2; ++i) d[i] = 0;
+  int s = 0;
+  uint32_t ph = 0;
+  for (int tile = blockIdx.x; tile < g.tiles; tile += gridDim.x) {
+    int gt, k, ct;
+    tile_coords(g, tile, gt, k, ct);
+    const int cc = ct * MW + wg, o = cc / (T / CHUNK), t0 = cc % (T / CHUNK) * CHUNK;
+    // element r of this thread is coefficient t0 + lt%16 of gate
+    // gt*NB + lt/16 + 8r; with kAdd its old accumulator values are loaded
+    // while the products run
+    const long long at0 = (long long)o * g.N + k * T + t0 + lt % CHUNK;
+    const long long gate_stride = (long long)g.polys * g.N;
+    int old[kAdd ? NB / 8 : 1];
+    if constexpr (kAdd) {
+#pragma unroll
+      for (int r = 0; r < NB / 8; ++r) {
+        const int b = gt * NB + lt / CHUNK + 8 * r;
+        old[r] = b < g.B ? acc_in[b * gate_stride + at0] : 0;
+      }
+    }
+    int prev = 0;
+    for (int c = 0; c < g.chunks; ++c) {
+      const uint32_t a_s = ring + s * C::STAGE, b_s = a_s + C::A_BYTES;
+      wgmm::mbar_wait(full0 + 8 * s, ph);
+      const uint64_t da = wgmm::smem_desc(a_s + wg * COLS * BK), db = wgmm::smem_desc(b_s);
+      wgmm::fence_acc(d);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < BK / 32; ++kk)
+        wgmm::wgmma_s8<NB>(d, da + 2 * kk, db + 2 * kk, c > 0 || kk > 0);
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      wgmm::fence_acc(d);
+      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+      wgmm::fence_acc(d);
+      if (c > 0 && lt == 0) wgmm::mbar_arrive(empty0 + 8 * prev);  // stage c-1 is read
+      prev = s;
+      if (++s == C::STAGES) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    wgmm::fence_acc(d);
+    if (lt == 0) wgmm::mbar_arrive(empty0 + 8 * prev);
+
+    // accumulator i: key column 16*warp + lane/4 (+8 for i & 2) of the
+    // warpgroup's 64 (limb = warp), gate 8*(i/4) + 2*(lane%4) + (i & 1)
+#pragma unroll
+    for (int q = 0; q < NB / C::EPI_G; ++q) {
+      wg_sync(wg);  // the previous pass has read cs
+#pragma unroll
+      for (int i = 0; i < NB / 2; ++i) {  // this pass's gates: i / (EPI_G/2) == q
+        if (i / (C::EPI_G / 2) != q) continue;
+        const int row = 16 * warp + lane / 4 + 8 * ((i >> 1) & 1);
+        const int col = 8 * (i / 4) + 2 * (lane % 4) + (i & 1) - q * C::EPI_G;
+        cs[row * C::EPI_PITCH + col] = d[i];
+      }
+      wg_sync(wg);
+      const int t = lt % CHUNK;
+#pragma unroll
+      for (int it = 0; it < C::EPI_G / 8; ++it) {  // one (gate, coefficient t) each
+        const int gg = lt / CHUNK + 8 * it, b = gt * NB + q * C::EPI_G + gg;
+        if (b >= g.B) continue;
+        const int comb = combine_staged(cs, C::EPI_PITCH, t, gg, g.Q);
+        if constexpr (kAdd)
+          out[b * gate_stride + at0] = red31(old[q * C::EPI_G / 8 + it] + comb, g.Q);
+        else
+          out[b * gate_stride + at0] = comb;
+      }
+    }
+  }
+}
+
+// The split GEMM of narrow batches (B <= NB <= 16; the body of
+// rot_step.cu's rot_gemm_split_kernel and rev_step.cu's
+// rev_gemm_split_kernel, 256 threads, split_smem bytes): block (column
+// chunk cc = blockIdx % (polys*T/16), diagonal group blockIdx /
+// (polys*T/16)) owns `dpg` consecutive diagonals d' of the block and reads
+// each of their key tiles once.  Stage (d', s) of 128 contraction bytes
+// serves every output tile k, against digit chunk j = d' - (nt-1-k) at
+// substage s (SUB = R2T / 128 substages per chunk).  The block keeps the
+// digits it needs in shared memory as [s][jj][NB gates] with jj = j -
+// (d_lo - nt + 1), chunks of j outside [0, nt) read as zeros by the TMA
+// unit (dig_map: [SUB, nt, B, 128 bytes], boxes of dpg+7 chunks x NB
+// gates), so the B tile of stage (d', s) for k = 0 .. 7 is the 8*NB
+// consecutive rows from (s, d' - d_lo): one wgmma.m64n(8NB)k32 per 32
+// bytes computes all output tiles at once (column k*NB + b; columns of
+// k >= nt are not used).  The epilogue combines each k's limb sums mod Q
+// (the combine is linear mod Q, so partial sums combine as the whole
+// does) and adds them atomically into sum [B, polys, N]: with at most 8
+// groups, sum < 8Q.
+template <int NB>
+__device__ __forceinline__ void gemm_split(const CUtensorMap* dig_map, const CUtensorMap* key_map,
+                                           int* __restrict__ sum, const Shape& g, int step, int dpg) {
+  constexpr int BK = wgmm::BK, A_BYTES = COLS * BK, STAGES = 8, EPI_PITCH = NB + 1;
+  constexpr int TILE_B = NB * BK;  // one digit chunk of the NB gates
+  extern __shared__ uint8_t smem_raw[];
+  const int tid = threadIdx.x, nt = g.N / T, sub = g.R2T / BK, jjs = dpg + 7;
+  const uint32_t raw = wgmm::smem_addr(smem_raw);
+  const uint32_t digits = (raw + 1023) & ~1023u;
+  const uint32_t ring = digits + sub * jjs * TILE_B;
+  const uint32_t full0 = ring + STAGES * A_BYTES, empty0 = full0 + STAGES * 8;
+  const uint32_t dig_bar = empty0 + STAGES * 8;
+  int* cs = (int*)(smem_raw + (dig_bar + 8 - raw));
+  const int chunks = g.polys * (T / CHUNK);
+  const int cc = blockIdx.x % chunks, grp = blockIdx.x / chunks;
+  const int o = cc / (T / CHUNK), t0 = cc % (T / CHUNK) * CHUNK;
+  const int d_lo = grp * dpg, d_hi = min(d_lo + dpg, 2 * nt - 1);
+
+  if (tid == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      wgmm::mbar_init(full0 + 8 * i, 1);
+      wgmm::mbar_init(empty0 + 8 * i, 1);
+    }
+    wgmm::mbar_init(dig_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  pdl_wait_and_release();  // the digits are complete from here
+
+  if (tid < 128) {  // the loader: the digit chunks once, then the key tiles
+    if (tid != 0) return;
+    wgmm::mbar_expect_tx(dig_bar, sub * jjs * TILE_B);
+    for (int c = 0; c < sub; ++c)  // chunks j = d_lo - nt + 1 .. +jjs-1 of substage c
+      wgmm::tma_load_4d(digits + c * jjs * TILE_B, dig_map, dig_bar, 0, 0, d_lo - nt + 1, c);
+    int s = 0;
+    uint32_t ph = 0;
+    for (int dd = d_lo; dd < d_hi; ++dd)
+      for (int c = 0; c < sub; ++c) {
+        wgmm::mbar_wait(empty0 + 8 * s, ph ^ 1);
+        wgmm::mbar_expect_tx(full0 + 8 * s, A_BYTES);
+        wgmm::tma_load_4d(ring + s * A_BYTES, key_map, full0 + 8 * s, dd * g.R2T + c * BK, t0,
+                          4 * o, step);
+        if (++s == STAGES) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+    return;
+  }
+
+  const int lt = tid - 128, warp = lt / 32, lane = lt % 32;
+  int d[4 * NB];  // [64 columns x 8*NB (k, gate)]
+#pragma unroll
+  for (int i = 0; i < 4 * NB; ++i) d[i] = 0;
+  wgmm::mbar_wait(dig_bar, 0);
+  int s = 0, prev = 0;
+  uint32_t ph = 0;
+  for (int dd = d_lo; dd < d_hi; ++dd)
+    for (int c = 0; c < sub; ++c) {
+      wgmm::mbar_wait(full0 + 8 * s, ph);
+      const uint64_t da = wgmm::smem_desc(ring + s * A_BYTES);
+      const uint64_t db = wgmm::smem_desc(digits + (c * jjs + dd - d_lo) * TILE_B);
+      wgmm::fence_acc(d);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < BK / 32; ++kk) wgmm::wgmma_s8<8 * NB>(d, da + 2 * kk, db + 2 * kk, 1);
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      wgmm::fence_acc(d);
+      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+      wgmm::fence_acc(d);
+      if ((dd > d_lo || c > 0) && lt == 0) wgmm::mbar_arrive(empty0 + 8 * prev);  // stage read
+      prev = s;
+      if (++s == STAGES) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+  wgmm::fence_acc(d);
+
+  // accumulator i: key column 16*warp + lane/4 (+8 for i & 2), column
+  // 8*(i/4) + 2*(lane%4) + (i & 1) = k*NB + gate, so k = i / (NB/2)
+  const int t = lt % CHUNK;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    if (k >= nt) break;
+    wg_sync(0);  // the previous k has read cs
+#pragma unroll
+    for (int i = 0; i < 4 * NB; ++i) {
+      if (i / (NB / 2) != k) continue;
+      cs[(16 * warp + lane / 4 + 8 * ((i >> 1) & 1)) * EPI_PITCH + 8 * (i / 4) + 2 * (lane % 4) +
+         (i & 1) - k * NB] = d[i];
+    }
+    wg_sync(0);
+#pragma unroll
+    for (int it = 0; it < NB / 8; ++it) {
+      const int b = lt / CHUNK + 8 * it;
+      if (b >= g.B) continue;
+      const int comb = combine_staged(cs, EPI_PITCH, t, b, g.Q);
+      atomicAdd(sum + ((long long)b * g.polys + o) * g.N + k * T + t0 + t, comb);
+    }
+  }
+}
+
+// Shared memory of the split GEMM: the digit chunks (sub = R2T / 128
+// substages of dpg+7 chunks of NB gates), 8 stages of key tiles, their
+// barriers, the epilogue's staging buffer.
+inline int split_smem(int NB, int sub, int dpg) {
+  return 1024 + sub * (dpg + 7) * NB * wgmm::BK + 8 * (COLS * wgmm::BK + 16) + 8 + COLS * (NB + 1) * 4;
+}
+
+// The TMA maps of a step GEMM: the key keyT as [steps, planes, T,
+// row_bytes], boxes of 4 planes x 16 coefficients x 128 bytes; the digits
+// dig as [B, K] with boxes of NB gates x 128 bytes (dpg = 0, the tiled
+// GEMM), or for the split GEMM as [SUB substages, nt chunks j, B, 128
+// bytes] (strides 128, R2T, K) with boxes of dpg+7 chunks x NB gates.
+inline bool make_maps(const void* keyT, int key_steps, int planes, const void* dig, const Shape& g,
+                      int NB, int dpg, CUtensorMap* dig_map, CUtensorMap* key_map) {
+  const long long K = (long long)g.chunks * wgmm::BK, BK = wgmm::BK;
+  const long long kdims[4] = {g.row_bytes, T, planes, key_steps};
+  const long long kstrides[3] = {g.row_bytes, (long long)T * g.row_bytes,
+                                 (long long)planes * T * g.row_bytes};
+  const int kbox[4] = {wgmm::BK, CHUNK, 4, 1};
+  const long long sdims[4] = {BK, g.B, g.N / T, g.R2T / BK};
+  const long long sstrides[3] = {K, g.R2T, BK};
+  const int sbox[4] = {wgmm::BK, NB, dpg + 7, 1};
+  return wgmm::make_map_nd(key_map, keyT, 4, kdims, kstrides, kbox) &&
+         (dpg ? wgmm::make_map_nd(dig_map, dig, 4, sdims, sstrides, sbox)
+              : wgmm::make_map(dig_map, dig, g.B, K, NB));
+}
+
+// A step GEMM's geometry for B gates, N, R2T contraction bytes per
+// diagonal, `polys` output polys, NB gates per tile and MW warpgroups.
+inline Shape step_shape(int B, int N, int Q, int R2T, int polys, int NB, int MW) {
+  const int nt = N / T;
+  Shape g{B, N, Q, (2 * nt - 1) * R2T, R2T, nt * R2T / wgmm::BK, (B + NB - 1) / NB,
+          polys * (T / CHUNK) / MW, 0, polys};
+  g.tiles = g.gate_tiles * nt * g.col_tiles;
+  return g;
 }
 
 }  // namespace rotg

@@ -113,10 +113,12 @@ def load() -> ctypes.CDLL:
     lib.oece_blind_rotate_std.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
     lib.oece_blind_rotate_rev.restype = i32
     lib.oece_blind_rotate_rev.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
+    lib.oece_rev_window_matmul.restype = i32
+    lib.oece_rev_window_matmul.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+    lib.oece_rev_matmul_dec.restype = i32
+    lib.oece_rev_matmul_dec.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
     lib.oece_window_matmul_true.restype = i32
     lib.oece_window_matmul_true.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
-    lib.oece_window_matmul_dec_true.restype = i32
-    lib.oece_window_matmul_dec_true.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
     lib.oece_cmux_epilogue_true.restype = i32
     lib.oece_cmux_epilogue_true.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
     lib.oece_diag_matmul.restype = i32

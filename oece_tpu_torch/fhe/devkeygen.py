@@ -209,7 +209,7 @@ def _secret_key(params: BinFHEParams, s: torch.Tensor) -> golden.LWESecretKey:
 def device_keygen(params: BinFHEParams, seed_words=None, device="cuda", layout: str = "rev"):
     """Generate GINX keys on ``device`` (the card unless the caller asks
     for the CPU) in ``layout``: "rev" (the default, as in the JAX package)
-    or "rev2" (K-major on the card, keys.py).  Returns (sk_host, keys): the LWE secret comes back to the
+    or "rev2", each K-major on the card and row-major on the CPU (keys.py).  Returns (sk_host, keys): the LWE secret comes back to the
     host (n int8 values) for host-side encryption and decryption; the keys
     stay on the device."""
     _check_layout(layout)

@@ -16,6 +16,10 @@ port's rotations read (T = 128, nt = N/T, R = 2*d_g_used, L = 4 limbs):
              (m, t) at m*T + t with plane m = (part*2 + out)*4 + limb
              (``rev_block``).  The layout of oece_tpu's devkeygen "rev",
              the default of its ``device_keygen``.  7.9 GB at STD128_OPT.
+             On the card rev is K-major, as rev2 is (below): int8 [n, 16,
+             T, (2*nt-1)*R*T], entry [i, m, t, x] = the row-major [i, x,
+             m*T + t] (csrc/rev_step.cu reads it so); ``build_rev``,
+             ``rev_to`` and ``BootKeys.to`` follow the device the same way.
   rev2     : GINX, rotated-difference form (fhe/rot.py: one step loop, or
              one rot_step_true call per step under OECE_ROT_MEGA=0).  int8
              [n, (2*nt-1)*2*R*T, 8*T]  part-interleaved prebuilt reversed
@@ -48,7 +52,7 @@ layout selects its own rotation (fhe/boot.py): ginx_ext and rev the
 standard form, rev2 the rotated form.
 
 ``build_rev`` and ``build_rev2`` expand GINX refresh keys into rev and
-rev2 one step at a time (fhe/devkeygen.py), rev2 in its device's layout.  ``pack_bootstrap_key``
+rev2 one step at a time (fhe/devkeygen.py), each in its device's layout.  ``pack_bootstrap_key``
 packs a golden ``BootstrapKey`` (the port's ``fhe/golden.py`` record) as
 the JAX package does on an accelerator (GINX -> ginx_ext, binary-base AP
 -> ap_ext); ``pack_rotated_form`` packs GINX golden keys into rev2
@@ -90,12 +94,13 @@ class BootKeys:
     ginx_ext: Optional[torch.Tensor] = None
 
     def to(self, device) -> "BootKeys":
-        """The keys on ``device``, rev2 in that device's layout."""
+        """The keys on ``device``, rev and rev2 in that device's layout."""
         def move(t):
             return None if t is None else t.to(device)
 
         return dataclasses.replace(
-            self, ksk=move(self.ksk), tv_table=move(self.tv_table), rev=move(self.rev),
+            self, ksk=move(self.ksk), tv_table=move(self.tv_table),
+            rev=None if self.rev is None else rev_to(self.rev, device),
             rev2=None if self.rev2 is None else rev2_to(self.rev2, device),
             ap_ext=move(self.ap_ext), ginx_ext=move(self.ginx_ext),
         )
@@ -175,39 +180,72 @@ def build_rev2(brk: torch.Tensor, Q: int) -> torch.Tensor:
     return out
 
 
-def rev2_to(rev2: torch.Tensor, device, kmajor: Optional[bool] = None) -> torch.Tensor:
-    """A whole rev2 key on ``device``, K-major on the card and row-major
-    elsewhere unless ``kmajor`` says otherwise.  A change of layout goes
-    one step at a time: the new key plus one step's block."""
+def _key_to(key: torch.Tensor, planes: int, device, kmajor: Optional[bool]) -> torch.Tensor:
+    """A whole prebuilt key of ``planes`` key planes (rev 16, rev2 8) on
+    ``device``: row-major [n, rows, planes*T] or K-major [n, planes, T,
+    rows], K-major on the card and row-major elsewhere unless ``kmajor``
+    says otherwise.  A change of layout goes one step at a time: the new
+    key plus one step's block."""
     device = torch.device(device)
     kmajor = device.type == "cuda" if kmajor is None else kmajor
-    if (rev2.ndim == 4) == kmajor:
-        return rev2.to(device)
-    n, rows = rev2.shape[0], rev2.shape[-1] if rev2.ndim == 4 else rev2.shape[1]
+    if (key.ndim == 4) == kmajor:
+        return key.to(device)
+    n, rows = key.shape[0], key.shape[-1] if key.ndim == 4 else key.shape[1]
     out = torch.empty(
-        (n, 8, TILE, rows) if kmajor else (n, rows, 8 * TILE), dtype=torch.int8, device=device,
+        (n, planes, TILE, rows) if kmajor else (n, rows, planes * TILE), dtype=torch.int8,
+        device=device,
     )
     for i in range(n):
-        blk = rev2[i].to(device)
+        blk = key[i].to(device)
         if kmajor:
-            out[i].view(8 * TILE, rows).copy_(blk.t())
+            out[i].view(planes * TILE, rows).copy_(blk.t())
         else:
-            out[i].copy_(blk.view(8 * TILE, rows).t())
+            out[i].copy_(blk.view(planes * TILE, rows).t())
     return out
 
 
-def build_rev(brk: torch.Tensor, Q: int) -> torch.Tensor:
-    """brk int32 [n, part=2, R, out=2, N] mod Q -> rev int8
-    [n, (2nt-1)*R*T, 16*T]: each step's ginx_ext planes through
-    ``rev_block``, built one step at a time as ``build_rev2`` is."""
+def rev2_to(rev2: torch.Tensor, device, kmajor: Optional[bool] = None) -> torch.Tensor:
+    """A whole rev2 key on ``device``, K-major on the card and row-major
+    elsewhere unless ``kmajor`` says otherwise (``_key_to``)."""
+    return _key_to(rev2, 8, device, kmajor)
+
+
+def rev_to(rev: torch.Tensor, device, kmajor: Optional[bool] = None) -> torch.Tensor:
+    """A whole rev key on ``device``, K-major on the card ([n, 16, T,
+    rows]) and row-major elsewhere ([n, rows, 16T]) unless ``kmajor`` says
+    otherwise (``_key_to``)."""
+    return _key_to(rev, 16, device, kmajor)
+
+
+def rev_shape(n: int, R: int, N: int, kmajor: bool) -> tuple:
+    """The shape of a rev key of n steps, row-major or K-major."""
+    rows = (2 * (N // TILE) - 1) * R * TILE
+    return (n, 16, TILE, rows) if kmajor else (n, rows, 16 * TILE)
+
+
+def rev_step(brk_i: torch.Tensor, Q: int, idx: torch.Tensor, kmajor: bool = False) -> torch.Tensor:
+    """One step's RGSW pair int32 [part=2, R, out=2, N] mod Q -> its rev
+    block int8 [(2nt-1)*R*T, 16*T] (``rev_block`` of its ginx_ext planes),
+    or K-major [16, T, (2nt-1)*R*T]."""
+    ext_s = ginx_ext_planes(brk_i[None], Q)[0]  # [R, 16, 2N]
+    if not kmajor:
+        return rev_block(ext_s, idx)
+    R, ndiag = ext_s.shape[0], idx.shape[0]
+    g = ext_s[:, :, idx]  # [R, M, ndiag, u, t]
+    return g.permute(1, 4, 2, 0, 3).reshape(16, TILE, ndiag * R * TILE)
+
+
+def build_rev(brk: torch.Tensor, Q: int, kmajor: Optional[bool] = None) -> torch.Tensor:
+    """brk int32 [n, part=2, R, out=2, N] mod Q -> rev int8 in its
+    device's layout (K-major on the card) unless ``kmajor`` says
+    otherwise, built one step at a time as ``build_rev2`` is."""
     n, _, R, _, N = brk.shape
     assert N % TILE == 0, "rev needs N % 128 == 0"
+    kmajor = brk.is_cuda if kmajor is None else kmajor
     idx = rev_index(N, brk.device)
-    out = torch.empty(
-        (n, idx.shape[0] * R * TILE, 16 * TILE), dtype=torch.int8, device=brk.device,
-    )
+    out = torch.empty(rev_shape(n, R, N, kmajor), dtype=torch.int8, device=brk.device)
     for i in range(n):
-        out[i] = rev_block(ginx_ext_planes(brk[i : i + 1], Q)[0], idx)
+        out[i] = rev_step(brk[i], Q, idx, kmajor)
     return out
 
 

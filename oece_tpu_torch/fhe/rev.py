@@ -16,16 +16,33 @@ reaches:
 
 A rev block is what the standard form's build #1 makes from ginx_ext
 (``keys.rev_block``), so a step here is a fhe/std.py step without the
-build: the same function and the same CUDA kernels (csrc/std_step.cu).
-``blind_rotate_rev`` on ``keys.build_rev(brk)`` equals ``blind_rotate_std``
-on ``keys.ginx_ext_planes(brk)``; for step i and gate b, with a = a2N[b, i],
-(c0, c1) = (2N - a, a).
+build: ``blind_rotate_rev`` on ``keys.build_rev(brk)`` equals
+``blind_rotate_std`` on ``keys.ginx_ext_planes(brk)``; for step i and gate
+b, with a = a2N[b, i], (c0, c1) = (2N - a, a).
 
-Each wrapper runs its plain twin (``*_plain``) for CPU tensors and launches
-its CUDA kernels for CUDA tensors, or raises.  ``LAUNCHES`` counts the
-wrapper calls that launched on the card, ``PLAIN_LAUNCHES`` those that ran
-a plain twin, ``STEP_LAUNCHES`` the launches of each kernel of
-``blind_rotate_rev``'s step loop (one digits, matmul and epilogue per step).
+Each wrapper runs its plain twin (``*_plain``) for CPU tensors, on the
+row-major key or block; for CUDA tensors it launches its kernels or
+raises.  On the card ``blind_rotate_rev``, ``window_matmul_true`` and
+``window_matmul_dec_true`` take the rev key K-major, [n, 16, T, rows] (one
+step's block [M, T, rows]; keys.py), and refuse a row-major one: they run
+csrc/rev_step.cu, two kernels per step, the digits (with the previous
+step's CMUX) and a TMA + wgmma GEMM with 64 key columns on wgmma's M and
+the gates on its N (``gemm_config``): up to 16 gates a split GEMM that
+reads each key tile once and adds partial sums by atomics, above 16 a
+tiled one that writes the products mod Q.  ``gemm_config``,
+``split_groups`` and ``gemm_tiles`` repeat the kernels' tiling for the
+CPU layout tests; the TMA boxes start where rot.py's
+``key_box_origin`` and ``split_digit_box`` say, with RT contraction
+bytes per diagonal instead of 2RT.  ``cmux_epilogue_true`` (#10 alone,
+any amount pairs) and ``window_matmul_counted`` (#2: #8's function on a
+row-major block, for fhe/negacyclic.py) launch csrc/std_step.cu's
+kernels.
+
+``LAUNCHES`` counts the wrapper calls that launched on the card,
+``PLAIN_LAUNCHES`` those that ran a plain twin, ``STEP_LAUNCHES`` the
+steps of ``blind_rotate_rev``'s step loop launched on the card: per step
+one digits kernel (with the previous step's CMUX) and one GEMM, and per
+rotation one more digits launch for the last step's CMUX.
 """
 
 from __future__ import annotations
@@ -34,15 +51,18 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, keys
 from .keys import TILE
 from .modmath import red31
 from .params import BinFHEParams
-from .rot import amount_pairs, check_operands, monomial_rotate, tile_digits, tile_products
+from .rot import (GEMM_CHUNK, SMEM_MAX, amount_pairs, check_operands, monomial_rotate, split_smem,
+                  tile_digits, tile_products)
 
 LAUNCHES = 0  # wrapper calls that launched CUDA kernels
 PLAIN_LAUNCHES = 0  # wrapper calls that ran a plain twin
-STEP_LAUNCHES = 0  # launches of each kernel of blind_rotate_rev's step loop
+STEP_LAUNCHES = 0  # steps of blind_rotate_rev's step loop launched on the card
+
+SPLIT_BLOCKS = 128  # the split GEMM's blocks, at most (one wave on the H100's 132 SMs)
 
 
 def window_matmul_true_plain(digs_rows: torch.Tensor, rev_flat: torch.Tensor, Q: int) -> torch.Tensor:
@@ -117,15 +137,16 @@ def _plain(fn, *args) -> torch.Tensor:
     return fn(*args)
 
 
-def _launch(name: str, rc: int, lib) -> None:
+def _launch(name: str, rc: int, lib, source: str = "std_step.cu") -> None:
     global LAUNCHES
     if rc != 0:
-        raise RuntimeError(f"{name}: std_step.cu launch failed: {lib.oece_error_string(rc).decode()}")
+        raise RuntimeError(f"{name}: {source} launch failed: {lib.oece_error_string(rc).decode()}")
     LAUNCHES += 1
 
 
 def _aligned(name: str, *ts: torch.Tensor) -> None:
-    """The matmul loads digits 16 bytes and key words 4 bytes at a time."""
+    """The matmuls load digits and key 16 bytes at a time (TMA boxes
+    start 16-byte aligned)."""
     if any(t.data_ptr() % 16 for t in ts):
         raise ValueError(f"{name}: digits and block must be 16-byte aligned")
 
@@ -143,18 +164,57 @@ def _check_digits(name: str, dig: torch.Tensor, R: int, N: int = 0) -> tuple[int
     return dig.shape[0], dig.shape[1] // (R * TILE)
 
 
+def _kmajor_planes(name: str, block: torch.Tensor, R: int, nt: int) -> int:
+    """The plane count M of a K-major block int8 [M, T, (2nt-1)*R*T], M = 16
+    or 8; a row-major block on the card is refused."""
+    rows = (2 * nt - 1) * R * TILE
+    if block.dtype != torch.int8:
+        raise TypeError(f"{name}: want an int8 block, got {block.dtype}")
+    if block.ndim == 2 and block.shape[0] == rows:
+        raise ValueError(
+            f"{name}: a row-major rev block on the card: the kernel reads it K-major, "
+            f"(M, {TILE}, {rows}); convert the key once (keys.rev_to, BootKeys.to('cuda'))"
+        )
+    if block.ndim != 3 or block.shape[1:] != (TILE, rows) or block.shape[0] not in (16, 8):
+        raise ValueError(f"{name}: bad K-major block shape {tuple(block.shape)}: want "
+                         f"(M, {TILE}, {rows}) with M = 16 or 8")
+    return block.shape[0]
+
+
+def _rev_launch(name: str, rc: int, lib) -> None:
+    _launch(name, rc, lib, "rev_step.cu")
+
+
 def window_matmul_true(digs_rows: torch.Tensor, rev_flat: torch.Tensor, R: int, Q: int) -> torch.Tensor:
     """#8: digs_rows int8 [B, nt*R*T] (tile_digits order) against one step's
-    block rev_flat int8 [(2nt-1)*R*T, M*T], M = 16 or 8 -> int32
-    [B, M/4, N] limb-combined mod Q, true columns."""
-    return window_matmul_counted("window_matmul_true", digs_rows, rev_flat, R, Q, _plain, _launch)
+    block, M = 16 or 8 planes -> int32 [B, M/4, N] limb-combined mod Q,
+    true columns.  On the CPU rev_flat is the row-major block int8
+    [(2nt-1)*R*T, M*T]; on the card the K-major block [M, T, (2nt-1)*R*T]
+    (csrc/rev_step.cu's GEMM)."""
+    name = "window_matmul_true"
+    B, nt = _check_digits(name, digs_rows, R)
+    if not _on_card(name, digs_rows, rev_flat):
+        _block_planes(name, rev_flat, R, nt)
+        return _plain(window_matmul_true_plain, digs_rows, rev_flat, Q)
+    M = _kmajor_planes(name, rev_flat, R, nt)
+    _aligned(name, digs_rows, rev_flat)
+    out = torch.empty((B, M // 4, nt * TILE), dtype=torch.int32, device=digs_rows.device)
+    if B == 0:
+        return out
+    lib = _build.load()
+    rc = lib.oece_rev_window_matmul(digs_rows.data_ptr(), rev_flat.data_ptr(), out.data_ptr(), B,
+                                    nt * TILE, R, M // 4, Q, _stream(out))
+    _rev_launch(name, rc, lib)
+    return out
 
 
 def window_matmul_counted(name: str, digs_rows: torch.Tensor, rev_flat: torch.Tensor, R: int, Q: int,
                           plain, launch) -> torch.Tensor:
-    """#8 under the caller's counts: ``plain(fn, *args)`` runs the plain
-    twin, ``launch(name, rc, lib)`` checks a launch's return code and counts
-    it (fhe/negacyclic.py's #2 is this function)."""
+    """#8's function on a row-major block rev_flat int8 [(2nt-1)*R*T, M*T]
+    on either device, csrc/std_step.cu's mma.sync matmul on the card,
+    under the caller's counts: ``plain(fn, *args)`` runs the plain twin,
+    ``launch(name, rc, lib)`` checks a launch's return code and counts it
+    (fhe/negacyclic.py's #2 is this function)."""
     B, nt = _check_digits(name, digs_rows, R)
     M = _block_planes(name, rev_flat, R, nt)
     if not _on_card(name, digs_rows, rev_flat):
@@ -182,25 +242,27 @@ def _check_acc(name: str, acc: torch.Tensor, p: BinFHEParams) -> None:
 
 def window_matmul_dec_true(acc: torch.Tensor, rev_flat: torch.Tensor, p: BinFHEParams) -> torch.Tensor:
     """#9: acc int32 [B, 2, N] -> its gadget digits -> #8 against one
-    step's block rev_flat int8 [(2nt-1)*R*T, M*T] -> int32 [B, M/4, N]."""
+    step's block (row-major on the CPU, K-major on the card, as for
+    ``window_matmul_true``) -> int32 [B, M/4, N]."""
     name = "window_matmul_dec_true"
     _check_acc(name, acc, p)
     B, _, N = acc.shape
     R, nt = 2 * p.d_g_used, N // TILE
-    M = _block_planes(name, rev_flat, R, nt)
     if not _on_card(name, acc, rev_flat):
+        _block_planes(name, rev_flat, R, nt)
         return _plain(window_matmul_dec_true_plain, acc, rev_flat, p)
+    M = _kmajor_planes(name, rev_flat, R, nt)
     _aligned(name, rev_flat)
     out = torch.empty((B, M // 4, N), dtype=torch.int32, device=acc.device)
     if B == 0:
         return out
     lib = _build.load()
     dig = torch.empty((B, nt * R * TILE), dtype=torch.int8, device=acc.device)
-    rc = lib.oece_window_matmul_dec_true(
+    rc = lib.oece_rev_matmul_dec(
         acc.data_ptr(), dig.data_ptr(), rev_flat.data_ptr(), out.data_ptr(), B, N,
         p.d_g_used, int(math.log2(p.B_g)), p.g_shift, M // 4, p.Q, _stream(out),
     )
-    _launch(name, rc, lib)
+    _rev_launch(name, rc, lib)
     return out
 
 
@@ -241,16 +303,60 @@ def cmux_epilogue_counted(name: str, P: torch.Tensor, acc: torch.Tensor, amt: to
     return out
 
 
+def split_groups(N: int, polys: int = 4) -> tuple[int, int]:
+    """(diagonals per group, groups) of the split GEMM: the 2nt-1 diagonals
+    of a block in at most SPLIT_BLOCKS / (polys * T/16) groups of
+    consecutive ones (4 at 16 planes, 8 at 8), one block per (group,
+    column chunk)."""
+    ndiag = 2 * (N // TILE) - 1
+    dpg = -(-ndiag // (SPLIT_BLOCKS // (polys * (TILE // GEMM_CHUNK))))
+    return dpg, -(-ndiag // dpg)
+
+
+def gemm_config(B: int, N: int, d_used: int, polys: int = 4) -> tuple[int, int, bool]:
+    """(NB gates per tile, MW math warpgroups, split) of the step GEMM for B
+    gates (csrc/rev_step.cu: dispatch): up to 16 gates the split GEMM (NB
+    = 8 or 16) where nt <= 8 and its shared memory holds the digit chunks
+    a block needs (the R substages of dpg + 7 digit tiles of NB gates)
+    beside 8 stages of key tiles; else the narrowest NB >= 32 that holds
+    B, two warpgroups sharing one 256-gate digit tile above 256 gates."""
+    nt, NB = N // TILE, 8 if B <= 8 else 16
+    if B <= 16 and nt <= 8 and split_smem(NB, 2 * d_used, split_groups(N, polys)[0]) <= SMEM_MAX:
+        return NB, 1, True
+    for nb in (32, 64, 128, 256):
+        if B <= nb:
+            return nb, 1, False
+    return 256, 2, False
+
+
+def gemm_tiles(B: int, N: int, d_used: int, polys: int = 4) -> list[tuple[int, int, int]]:
+    """The tiled GEMM's tiles (gate tile gt, output tile k, column tile ct)
+    in the order the persistent blocks take them, gate tile fastest; math
+    warpgroup w of tile ct takes column chunk cc = ct*MW + w (poly cc //
+    8, coefficients 16*(cc % 8) ..)."""
+    NB, MW, _ = gemm_config(B, N, d_used, polys)
+    col_tiles = polys * (TILE // GEMM_CHUNK) // MW
+    return [(gt, k, ct) for k in range(N // TILE) for ct in range(col_tiles)
+            for gt in range(-(-B // NB))]
+
+
 def _check(acc, rev_all, a2N, p: BinFHEParams) -> None:
+    """rev_all is [n, rows, 16T] on the CPU, K-major [n, 16, T, rows] on
+    the card, where a row-major key is refused."""
     check_operands("blind_rotate_rev", acc, rev_all, a2N)
     B, _, N = acc.shape
-    RT = 2 * p.d_g_used * TILE
+    R, kmajor = 2 * p.d_g_used, acc.is_cuda
     n = rev_all.shape[0]
-    if (N != p.N or rev_all.shape[1:] != ((2 * (N // TILE) - 1) * RT, 16 * TILE)
-            or a2N.shape != (B, n)):
+    want = keys.rev_shape(n, R, N, kmajor)
+    if kmajor and rev_all.ndim == 3 and rev_all.shape[-1] == 16 * TILE:
+        raise ValueError(
+            f"blind_rotate_rev: a row-major rev key on the card: the kernel reads it K-major, "
+            f"{want}; convert it once (keys.rev_to, BootKeys.to('cuda'))"
+        )
+    if N != p.N or tuple(rev_all.shape) != want or a2N.shape != (B, n):
         raise ValueError(
             f"blind_rotate_rev: bad shapes acc {tuple(acc.shape)}, rev "
-            f"{tuple(rev_all.shape)}, a2N {tuple(a2N.shape)} for {p.name} (N={p.N}, R={RT // TILE})"
+            f"{tuple(rev_all.shape)}, a2N {tuple(a2N.shape)} for {p.name} (N={p.N}, R={R})"
         )
 
 
@@ -262,13 +368,14 @@ def _blind_rotate_rev_cuda(acc, rev_all, a2N, p: BinFHEParams) -> torch.Tensor:
     if B == 0 or n == 0:
         return out
     lib = _build.load()
+    split = gemm_config(B, N, p.d_g_used)[2]
     dig = torch.empty((B, N // TILE * 2 * p.d_g_used * TILE), dtype=torch.int8, device=acc.device)
-    P4 = torch.empty((B, 4, N), dtype=torch.int32, device=acc.device)
+    prod = torch.empty((2, B, 4, N) if split else (B, 4, N), dtype=torch.int32, device=acc.device)
     rc = lib.oece_blind_rotate_rev(
-        out.data_ptr(), dig.data_ptr(), P4.data_ptr(), rev_all.data_ptr(), a2N.data_ptr(),
+        out.data_ptr(), prod.data_ptr(), dig.data_ptr(), rev_all.data_ptr(), a2N.data_ptr(),
         B, n, N, p.d_g_used, int(math.log2(p.B_g)), p.g_shift, p.Q, _stream(out),
     )
-    _launch("blind_rotate_rev", rc, lib)
+    _rev_launch("blind_rotate_rev", rc, lib)
     STEP_LAUNCHES += n
     return out
 
@@ -276,9 +383,10 @@ def _blind_rotate_rev_cuda(acc, rev_all, a2N, p: BinFHEParams) -> torch.Tensor:
 def blind_rotate_rev(
     acc: torch.Tensor, rev_all: torch.Tensor, a2N: torch.Tensor, p: BinFHEParams
 ) -> torch.Tensor:
-    """The whole rotation.  CPU tensors run the plain version; CUDA tensors
-    launch the step loop of csrc/std_step.cu (or raise); any other device
-    raises."""
+    """The whole rotation: acc int32 [B, 2, N], the rev key of n steps,
+    a2N int32 [B, n] in [0, 2N).  CPU tensors run the plain version on the
+    row-major key; CUDA tensors launch csrc/rev_step.cu's step loop on the
+    K-major key (or raise); any other device raises."""
     _check(acc, rev_all, a2N, p)
     if acc.device.type == "cpu":
         return blind_rotate_rev_plain(acc, rev_all, a2N, p)

@@ -203,6 +203,14 @@ def split_groups(N: int) -> tuple[int, int]:
     return dpg, -(-ndiag // dpg)
 
 
+def split_smem(NB: int, sub: int, dpg: int) -> int:
+    """Shared memory of a split GEMM block (step_gemm.cuh: split_smem): the
+    digit chunks (sub substages of dpg + 7 chunks of NB gates), 8 stages
+    of key tiles and their barriers, the epilogue's staging buffer."""
+    return (1024 + sub * (dpg + 7) * NB * GEMM_BK + 8 * (4 * GEMM_CHUNK * GEMM_BK + 16) + 8
+            + 4 * GEMM_CHUNK * (NB + 1) * 4)
+
+
 def gemm_config(B: int, N: int, d_used: int) -> tuple[int, int, bool]:
     """(NB gates per tile, MW math warpgroups, split) of the step GEMM for B
     gates: up to 16 gates the split GEMM (NB = 8 or 16) where nt <= 8 and
@@ -210,12 +218,8 @@ def gemm_config(B: int, N: int, d_used: int) -> tuple[int, int, bool]:
     chunks of dpg + 7 digit tiles of NB gates) beside 8 stages of key
     tiles; else the narrowest NB >= 32 that holds B, two warpgroups sharing
     one 256-gate digit tile above 256 gates."""
-    nt, sub = N // TILE, 4 * d_used * TILE // GEMM_BK
-    NB = 8 if B <= 8 else 16
-    dpg = split_groups(N)[0]
-    smem = (1024 + sub * (dpg + 7) * NB * GEMM_BK + 8 * (4 * GEMM_CHUNK * GEMM_BK + 16) + 8
-            + 4 * GEMM_CHUNK * (NB + 1) * 4)
-    if B <= 16 and nt <= 8 and smem <= SMEM_MAX:
+    nt, NB = N // TILE, 8 if B <= 8 else 16
+    if B <= 16 and nt <= 8 and split_smem(NB, 4 * d_used, split_groups(N)[0]) <= SMEM_MAX:
         return NB, 1, True
     for nb in (32, 64, 128, 256):
         if B <= nb:

@@ -137,8 +137,8 @@ def test_kernel_build_location(monkeypatch):
     assert so.parent == repo / "build" / "oece_tpu_torch"
     assert "build/" in (repo / ".gitignore").read_text().split()
     assert [s.name for s in _build._sources()] == [
-        "ap_step.cu", "negacyclic.cu", "rot_step.cu", "std_step.cu", "int8_mm.cuh", "step_gemm.cuh",
-        "wgmma_mm.cuh",
+        "ap_step.cu", "negacyclic.cu", "rev_step.cu", "rot_step.cu", "std_step.cu", "int8_mm.cuh",
+        "step_gemm.cuh", "wgmma_mm.cuh",
     ]
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     monkeypatch.setattr(_build.os.path, "isfile", lambda path: False)
