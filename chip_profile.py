@@ -4,11 +4,13 @@
     python3 chip_profile.py [OUT]    # from the root of a checkout
 
 Six measurements, all at STD128_OPT:
-  1. sweep      one standard-form rotation step on ginx_ext (csrc/std_step.cu,
-                the block built per step) by batch size, CUDA events: µs
+  1. sweep      the standard-form rotation step on ginx_ext (csrc/rev_step.cu's
+                step loop, the block built per step into a ring of two)
+                by batch size over 8 distinct step keys, CUDA events: µs
                 per step and int8 TOPS, and at B = 4 and 2048 each
-                kernel's device time inside the step (build #1, digits,
-                matmul #4, epilogue; torch.profiler);
+                kernel's time per step (the K-major build #1, the digits
+                with the previous CMUX, the GEMM #4) and the gap, from the
+                profiler's timeline;
   2. rev-sweep  the same for the step on prebuilt "rev" blocks (fhe/rev.py
                 -> csrc/rev_step.cu on the K-major key: the digits kernel
                 with the previous step's CMUX, the GEMM of #9/#8), timed
@@ -75,38 +77,36 @@ def profile(fn, label: str) -> dict:
     return res
 
 
-NAMES = {"build": "rev_build_kernel", "digits": "decompose_kernel",
-         "matmul": "int8_mm_kernel", "cmux": "std_cmux_kernel"}
+NAMES = {"build": "std_build_kernel", "digits": "rev_digits_kernel", "gemm": "rev_gemm"}
 REV_NAMES = {"digits": "rev_digits_kernel", "gemm": "rev_gemm"}
 
 
 def _parts_us(fn, steps: int, table: dict) -> dict:
-    """Device µs per step of each kernel of ``table`` inside fn: its
-    device time (NAMES, one launch each per step), or for the rev step
-    loop, whose kernels start under programmatic dependent launch while
-    their predecessor runs, the time the profiler's timeline attributes to
-    it, and the gap in which none ran."""
-    if table is NAMES:
-        ms_each = cs.device_ms(fn, 10, *table.values(), per_call=steps)
-        return {k: 1e3 * v / steps for k, v in zip(table, ms_each)}
-    per, _, gap = cs.kernel_timeline(fn, tuple(table.values()), steps, want=2 * steps + 1)
+    """Device µs per step of each kernel of ``table`` inside fn, and the
+    gap in which none ran: the kernels of the std (NAMES) and rev step
+    loops start under programmatic dependent launch while their
+    predecessor runs, so each gets the time the profiler's timeline
+    attributes to it; both loops launch each kernel once per step and the
+    digits kernel once more for the last CMUX."""
+    per, _, gap = cs.kernel_timeline(fn, tuple(table.values()), steps, want=len(table) * steps + 1)
     return {**{k: 1e3 * per[name] for k, name in table.items()}, "gap": 1e3 * gap}
 
 
 def sweep(label: str = "sweep") -> dict:
-    """Step µs by batch of the std rotation ("sweep") or the rev rotation
-    ("rev-sweep"; 8 distinct blocks, and one L2-resident block)."""
+    """Step µs by batch of the std rotation ("sweep"; 8 distinct step keys,
+    each block built into the ring) or the rev rotation ("rev-sweep"; 8
+    distinct blocks, and one L2-resident block)."""
     from oece_tpu_torch.fhe import rev, std
     from oece_tpu_torch.fhe.params import STD128_OPT
 
-    steps = 1 if label == "sweep" else 8
+    steps = 8
     p = dataclasses.replace(STD128_OPT, n=steps)
     nt, RT = p.N // 128, 2 * p.d_g_used * 128
     macs = nt * (nt * RT) * 16 * 128  # per gate per step
     res = {"step_us": {}, "parts_us": {}}
     for B in (1, 4, 16, 64, 256, 1024, 2048, 4096):
         if label == "sweep":
-            acc, key, a2N = cs.rotation_inputs(p, B, 1, "ginx_ext", seed=B)
+            acc, key, a2N = cs.rotation_inputs(p, B, steps, "ginx_ext", seed=B)
             rotate, table = std.blind_rotate_std, NAMES
         else:
             acc, key, a2N = cs.rotation_inputs(p, B, steps, "rev", seed=B)
@@ -118,8 +118,8 @@ def sweep(label: str = "sweep") -> dict:
         print(f"[{label}] B={B}: {1e3 * ms:.1f} us/step, "
               f"{2 * B * macs / (ms * 1e-3) / 1e12:.1f} TOPS", flush=True)
         if B in (4, 2048):
-            split = {"hbm" if steps > 1 else "l2": _parts_us(fn, steps, table)}
-            if steps > 1:  # the first block alone, warm in L2 after its first launch
+            split = {"hbm" if table is REV_NAMES else "ring": _parts_us(fn, steps, table)}
+            if table is REV_NAMES:  # the first block alone, warm in L2 after its first launch
                 one = dataclasses.replace(p, n=1)
                 split["l2"] = _parts_us(lambda: rotate(acc, key[:1], a2N[:, :1].contiguous(), one), 1, table)
             res["parts_us"][B] = split

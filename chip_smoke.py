@@ -42,16 +42,24 @@ before the result lines):
              output decrypted and checked.
   7. ap-circuit  phase 4 with method="AP": adder_32bit verify, T=4, sums
              == a+b, the AP rotation through its kernel only.
-  8. std-kernel  the standard-form GINX rotation (csrc/std_step.cu: the
-             diagonal build of Pallas kernel #1, the digits, the matmul and
-             limb combine of #4, the CMUX epilogue) against its plain torch
-             version on the card, bit-exact: STD128_OPT (n=8) at B = 1, 37,
-             256, and one STD128_OPT step at B=2048; STD128 (exact gadget,
-             R=8) n=2 and MICRO / TOY with n cut at B=37; random int8
-             ginx_ext bytes, a=0 lanes.  Times the B=2048 step (CUDA
-             events) and each of its kernels (device time per launch in
-             that step, torch.profiler) beside their plain versions, their
-             bounds, and for #1 its library form (one torch.take).
+  8. std-kernel  the standard-form GINX rotation on ginx_ext (fhe/std.py
+             -> csrc/rev_step.cu: rev's step loop with a ring of two
+             K-major blocks as its key source; per step the build of
+             Pallas kernel #1 into slot i & 1, the digits kernel with the
+             previous step's CMUX, and the split or tiled wgmma GEMM of #4)
+             against its plain torch version on the card, bit-exact:
+             STD128_OPT (n=8) at B = 1, 4, 8, 13, 16, 17, 37, 64, 256,
+             2048 (B = 4 and 2048 three times: a build that overwrote a
+             slot too early would show only some of the time), STD128
+             (exact gadget, R=8) n=2, MICRO and TOY with n cut at B = 4,
+             13, 37; random int8 ginx_ext bytes, a=0 lanes.  The K-major
+             build alone against its twin (R = 4 and 8, N = 128 ...
+             1024).  The rotation at B = 4 and 2048 launches only
+             std_build_kernel, rev_digits_kernel and rev_gemm* (profiler
+             names).  Times a B=2048 rotation over 8 distinct step keys
+             (CUDA events) and each kernel per step (the profiler's
+             timeline) beside their plain versions, their bounds, and for
+             #1 its library form (one torch.take).
   9. context BinFHEContext(device="cuda") at STD128_OPT GINX, seed 0:
              KeyGen and BTKeyGen (golden's host keys, ginx_ext), then 24
              single EvalBinGate calls (6 gates x 4 input pairs) and EvalNOT,
@@ -100,6 +108,12 @@ before the result lines):
              B = 4 and 2048 its digits kernel, GEMM and gaps per step.
              Both rev phases also run on a package whose rev kernels read
              the row-major key, to compare trees in one call.
+     std-sweep  the same for the standard-form step on ginx_ext: 16
+             distinct random step keys, B = 1 ... 2048, against the
+             function's bound (and the bound with the block written and
+             read once); at B = 4 and 2048 its build, digits kernel, GEMM
+             and gaps per step.  It also runs on a package whose std step
+             loop is the mma.sync one (build, digits, matmul, CMUX).
  12. rot-step    #11 (fhe/rot.py rot_step_true -> csrc/rot_step.cu
              oece_rot_step: the same two kernels) against its plain
              version for any amount pairs (STD128_OPT, MICRO_A and TOY at
@@ -333,7 +347,8 @@ def kernel_registers(build_log: str) -> dict:
                                       "rot_gemm_split_kernel", "transpose_kernel",
                                       "phase_expand_kernel", "rev_build_kernel", "ap_split_kernel",
                                       "ap_gemm_kernel", "ap_digits_kernel", "ap_live_kernel",
-                                      "rev_gemm_kernel", "rev_gemm_split_kernel", "rev_digits_kernel")
+                                      "rev_gemm_kernel", "rev_gemm_split_kernel", "rev_digits_kernel",
+                                      "std_build_kernel", "std_cmux_kernel")
                           if k in name), "")
             key = f"{short}{name[name.index(short) + len(short):][:32]}" if short else name[:60]
             regs[key] = int(ln.split("Used")[1].split("registers")[0])
@@ -790,74 +805,149 @@ def take_index(N: int, R: int, device):
     return flat.reshape(idx.shape[0] * R * 128, 16 * 128)
 
 
+STD_NAMES = ("std_build_kernel", "rev_digits_kernel", "rev_gemm")  # the std step loop's kernels
+OLD_STD_NAMES = ("rev_build_kernel", "decompose_kernel", "int8_mm_kernel", "std_cmux_kernel")
+
+
+def kmajor_take_index(N: int, R: int, device):
+    """take_index for the K-major block [16, T, (2nt-1)*RT]: #1 on the
+    card as one torch.take."""
+    flat = take_index(N, R, device)
+    return flat.t().contiguous().view(16, 128, flat.shape[0])
+
+
+def _std_step_bound(p, B):
+    """One standard-form step's bound as a function of its inputs: 67.1 M
+    MACs per gate at STD128_OPT; the step's 131 KB ginx_ext, the
+    accumulator in and out and one amount per gate (the 15.7 MB block is
+    the design's own intermediate: written and read once more, it is
+    rev's bound, _rev_step_bound)."""
+    nt, R = p.N // 128, 2 * p.d_g_used
+    K = nt * R * 128
+    return bound(2.0 * B * nt * K * 16 * 128, R * 16 * 2 * p.N + 2 * B * 2 * p.N * 4 + B * 4)
+
+
 def phase_std_kernel():
-    """The standard-form rotation kernel against its plain version, then
-    one STD128_OPT step at B=2048: checked, timed whole and kernel by
-    kernel (device time inside the rotation call), with bounds."""
+    """The standard-form rotation on ginx_ext (rev_step.cu's step loop with
+    a ring of two K-major blocks built per step) against its plain
+    version, bit-exact, at every batch size and gadget, the n=8 rotations
+    at B = 4 and 2048 three times each (a build that overwrote a slot too
+    early would show as wrong bits only some of the time); the K-major
+    build alone against its twin; no kernel of csrc/std_step.cu or the
+    old step in the rotation.  Then a STD128_OPT rotation at B=2048 over 8
+    distinct step keys, timed whole (CUDA events) and per kernel (the
+    profiler's timeline), with bounds and #1's library form (one
+    torch.take)."""
     import torch
     from oece_tpu_torch.fhe import keys, rot, std
     from oece_tpu_torch.fhe.params import MICRO, STD128, STD128_OPT, TOY
 
     t0 = time.time()
     std8 = dataclasses.replace(STD128_OPT, n=8)
-    std1 = dataclasses.replace(STD128_OPT, n=1)
-    cases = [
-        (std8, 1), (std8, 37), (std8, 256),
-        (dataclasses.replace(STD128, n=2), 37),
-        (dataclasses.replace(MICRO, n=4), 37),
-        (dataclasses.replace(TOY, n=3), 37),
-        (std1, 2048),
-    ]
+    cases = [(std8, B) for B in REV_BATCHES]
+    cases += [(dataclasses.replace(q, n=n), B) for q, n in ((STD128, 2), (MICRO, 4), (TOY, 3))
+              for B in (4, 13, 37)]
+    err = 0
     for i, (p, B) in enumerate(cases):
         acc, ext, a2N = rotation_inputs(p, B, p.n, "ginx_ext", seed=300 + i)
-        got = std.blind_rotate_std(acc, ext, a2N, p)
         want = std.blind_rotate_std_plain(acc, ext, a2N, p)
-        torch.cuda.synchronize()
-        bad, err = _max_err(got, want)
-        log("std-kernel", t0, f"{p.name} N={p.N} R={2 * p.d_g_used} n={p.n} B={B}: "
-            f"mismatches {bad}, max |err| {err}")
-        if bad:
-            fail(f"std kernel != plain at {p.name} B={B}: {bad} mismatches")
+        for rep in range(3 if p is std8 and B in (4, 2048) else 1):
+            got = std.blind_rotate_std(acc, ext, a2N, p)
+            err = max(err, _check_same("std-kernel", f"rotation {p.name} N={p.N} R={2 * p.d_g_used} n={p.n} "
+                                       f"B={B} (run {rep + 1})", got, want, t0))
         if not torch.equal(got[0], acc[0]):
             fail(f"std kernel changed the a=0 lane at {p.name} B={B}")
 
-    # the B=2048 step of the last case, whole and kernel by kernel
-    p = std1
+    # #1 alone: the K-major build against its twin
+    g = torch.Generator(device="cuda")
+    g.manual_seed(10)
+    for N, R in ((1024, 4), (1024, 8), (512, 8), (128, 8)):
+        ext1 = torch.randint(-128, 128, (R, 16, 2 * N), generator=g, device="cuda", dtype=torch.int8)
+        err = max(err, _check_same("std-kernel", f"#1 K-major build alone N={N} R={R}", std.build_diagonals_kmajor(ext1),
+                                   std.build_diagonals_kmajor_plain(ext1, keys.rev_index(N, "cuda")), t0))
+
+    # the B=2048 rotation: 8 steps, each on its own step key
+    p, B, n = std8, 2048, 8
     nt, R = p.N // 128, 2 * p.d_g_used
+    acc, ext, a2N = rotation_inputs(p, B, n, "ginx_ext", seed=300 + len(cases))
+    rotate = lambda: std.blind_rotate_std(acc, ext, a2N, p)  # noqa: E731
+    for Bn in (4, B):
+        acc_n, a_n = acc[:Bn].contiguous(), a2N[:Bn].contiguous()
+        names = kernel_names(lambda: std.blind_rotate_std(acc_n, ext, a_n, p))
+        old = [k for k in names if any(o in k for o in OLD_STD_NAMES)]
+        if old or not all(any(s in k for k in names) for s in STD_NAMES):
+            fail(f"std-kernel: the rotation at B={Bn} launched {sorted(names)}: want {STD_NAMES} only")
+        log("std-kernel", t0, f"kernels of the B={Bn} rotation: {sorted(k[:48] for k in names)}")
+    res = {"step": {"max_abs_err": err, "ms": cuda_time_ms(rotate, reps=5) / n,
+                    "plain_ms": cuda_time_ms(lambda: std.blind_rotate_std_plain(acc, ext, a2N, p), reps=1) / n}}
+    # per step from the profiler's timeline: under programmatic dependent
+    # launch a kernel's own duration includes its wait for its predecessor
+    per, _, gap = kernel_timeline(rotate, STD_NAMES, n, want=3 * n + 1)
+    log("std-kernel", t0, f"B={B} per step (profiler timeline): "
+        + ", ".join(f"{k} {1e3 * v:.2f} us" for k, v in per.items()) + f"; no kernel running {1e3 * gap:.2f} us")
     idx = keys.rev_index(p.N, "cuda")
     block = std.build_diagonals_plain(ext[0], idx)
-    flat = take_index(p.N, R, "cuda")
-    if not torch.equal(torch.take(ext[0], flat), block):
-        fail("torch.take through take_index != the plain std build")
+    flat = kmajor_take_index(p.N, R, "cuda")
+    blockT = std.build_diagonals_kmajor_plain(ext[0], idx)
+    if not torch.equal(torch.take(ext[0], flat), blockT):
+        fail("torch.take through kmajor_take_index != the plain K-major build")
     dig = rot.tile_digits(acc, p)
     P4 = std.diag_matmul_combine_plain(dig, block, p.Q)
-    a_col = a2N[:, 0].contiguous()
-    step = lambda: std.blind_rotate_std(acc, ext, a2N, p)
-    res = {"step": {"max_abs_err": err, "ms": cuda_time_ms(step, reps=20),
-                    "plain_ms": cuda_time_ms(lambda: std.blind_rotate_std_plain(acc, ext, a2N, p), reps=3)}}
-    names = {"build": "rev_build_kernel", "matmul": "int8_mm_kernel", "cmux": "std_cmux_kernel"}
-    dev = dict(zip(names, device_ms(step, 20, *names.values())))
-    plain = {
-        "build": lambda: std.build_diagonals_plain(ext[0], idx),
-        "matmul": lambda: std.diag_matmul_combine_plain(dig, block, p.Q),
-        "cmux": lambda: std.cmux_epilogue_plain(acc, P4, a_col, p.Q),
-    }
-    for name in names:  # each kernel is held to its plain twin by the step's check
-        res[name] = {"max_abs_err": err, "ms": dev[name], "plain_ms": cuda_time_ms(plain[name], reps=3)}
-    res["build"]["library_ms"] = cuda_time_ms(lambda: torch.take(ext[0], flat), reps=20)
+    # #1's own time: 8 builds alone, back to back (in the loop the build of
+    # step i overlaps the GEMM of step i-1, and the timeline gives it only
+    # the time that no other kernel covers)
+    alone, _, _ = kernel_timeline(lambda: [std.build_diagonals_kmajor(ext[i]) for i in range(n)],
+                                  ("std_build_kernel",), n, want=n)
+    log("std-kernel", t0, f"#1 alone: {1e3 * alone['std_build_kernel']:.2f} us per build")
+    res["build"] = {"max_abs_err": err, "ms": alone["std_build_kernel"],
+                    "plain_ms": cuda_time_ms(lambda: std.build_diagonals_kmajor_plain(ext[0], idx), reps=3),
+                    "library_ms": cuda_time_ms(lambda: torch.take(ext[0], flat), reps=20)}
+    res["matmul"] = {"max_abs_err": err, "ms": per["rev_gemm"],
+                     "plain_ms": cuda_time_ms(lambda: std.diag_matmul_combine_plain(dig, block, p.Q), reps=3)}
     ops_mm = 2.0 * B * nt * (nt * R * 128) * 16 * 128
     bounds = {  # (int8 operations, bytes) the function needs
         "build": (0.0, ext[0].numel() + block.numel()),
         "matmul": (ops_mm, dig.numel() + block.numel() + P4.numel() * 4),
-        "cmux": (0.0, 2 * acc.numel() * 4 + P4.numel() * 4 + a_col.numel() * 4),
-        "step": (ops_mm, ext[0].numel() + 2 * acc.numel() * 4 + a2N.numel() * 4),
     }
     for name, r in res.items():
-        r["bound_ms"], r["bound_by"] = bound(*bounds[name])
+        r["bound_ms"], r["bound_by"] = bound(*bounds[name]) if name in bounds else _std_step_bound(p, B)
         lib = f", torch.take {r['library_ms']:.4f} ms" if "library_ms" in r else ""
         log("std-kernel", t0, f"STD128_OPT B={B} {name}: kernel {r['ms']:.4f} ms"
-            f"{' on the device' if name in names else ''}, plain {r['plain_ms']:.4f} ms{lib}, "
+            f"{' on the device' if name in bounds else ''}, plain {r['plain_ms']:.4f} ms{lib}, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return res
+
+
+def phase_std_sweep():
+    """The standard-form step on ginx_ext by batch size (a rotation over 16
+    distinct random step keys; CUDA events) against its bound, and at B =
+    4 and 2048 the step split into its kernels and the launch gaps
+    (torch.profiler's kernel timeline).  On a package whose std step loop
+    is the old one (build, digits, mma.sync matmul, CMUX) it times that
+    route, to compare trees in one call."""
+    from oece_tpu_torch.fhe import std
+    from oece_tpu_torch.fhe.params import STD128_OPT
+
+    t0 = time.time()
+    p = dataclasses.replace(STD128_OPT, n=16)
+    new = hasattr(std, "build_diagonals_kmajor")
+    names = STD_NAMES if new else OLD_STD_NAMES
+    res = {}
+    for B in (1, 4, 8, 16, 64, 256, 1024, 2048):
+        acc, ext, a2N = rotation_inputs(p, B, p.n, "ginx_ext", seed=850 + B)
+        rotate = lambda: std.blind_rotate_std(acc, ext, a2N, p)  # noqa: E731
+        ms = cuda_time_ms(rotate, reps=10 if B < 1024 else 3) / p.n
+        bnd, blk = _std_step_bound(p, B), _rev_step_bound(p, B)
+        res[B] = {"ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1], "block_bound_ms": blk[0]}
+        log("std-sweep", t0, f"STD128_OPT step B={B}: {1e3 * ms:.1f} us, bound {1e3 * bnd[0]:.2f} us "
+            f"({bnd[1]}), {bnd[0] / ms:.1%} of the bound; with the block written and read once "
+            f"{1e3 * blk[0]:.1f} us ({blk[1]})")
+        if B in (4, 2048):
+            per, counts, idle = kernel_timeline(rotate, names, p.n, want=(3 * p.n + 1) if new else 4 * p.n)
+            res[B].update(kernels_ms=per, launches=counts, gap_ms=idle)
+            log("std-sweep", t0, f"B={B} per step (profiler timeline): "
+                + ", ".join(f"{k} {1e3 * v:.2f} us ({counts[k]} launches)" for k, v in per.items())
+                + f"; no kernel running {1e3 * idle:.2f} us; events {1e3 * ms:.2f} us")
     return res
 
 
@@ -1333,7 +1423,8 @@ def phase_context(B=2048, K=3):
     ms = 1e3 * float(np.mean(times[1:]))
     log("context", t0, f"{K} chained EvalBinGateBatch of {B}, all decrypt correctly; first "
         f"{1e3 * times[0]:.1f} ms, then {ms:.1f} ms/batch = {B / ms * 1e3:.1f} bootstraps/s; "
-        f"{launches} launches of each std kernel")
+        f"{launches} launches of each std kernel; peak device memory over keygen and batches "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     return launches
 
 
@@ -1361,6 +1452,7 @@ PHASES = {
     "ap-sweep": phase_ap_sweep,
     "rot-sweep": phase_rot_sweep,
     "rev-sweep": phase_rev_sweep,
+    "std-sweep": phase_std_sweep,
     "rot-step": phase_rot_step,
     "rev-gates": lambda: phase_gates("rev-gates", B=1024, K=3, layout="rev"),
     "rev-circuit": lambda: phase_circuit("rev-circuit", layout="rev"),
@@ -1400,7 +1492,7 @@ def main() -> None:
         entry("ap_step", "oece_tpu_torch/csrc/ap_step.cu", 1457, res["ap-circuit"], *res["ap-kernel"]),
         # #1 is one torch.take; no one PyTorch call computes #4, #8-#13 (each
         # fuses the limb combine or the rotations, #11-#13 their epilogues)
-        *[entry(f"std_{k}", "oece_tpu_torch/csrc/std_step.cu", line, std_launches,
+        *[entry(f"std_{k}", "oece_tpu_torch/csrc/rev_step.cu", line, std_launches,
                 *fields(std_res[k]), std_res[k].get("library_ms"))
           for k, line in (("build", 71), ("matmul", 147))],
         # #8 is rev_step.cu's GEMM, #9 its digits kernel and the GEMM; the rev

@@ -32,9 +32,13 @@ point:
                      OECE_ROT_MEGA=0, one rot_step_true call per step
                      (replaces _rot_step_true_kernel)
   fhe/std.py         the GINX rotation, standard form on ginx_ext (host
-                     keys): plain twins and the wrapper of csrc/std_step.cu
-                     (replaces the Pallas _build_diag_kernel and
-                     _diag_matmul_combine_kernel, with the CMUX epilogue)
+                     keys): plain twins and the wrappers of rev's step
+                     loop in csrc/rev_step.cu with a ring of two blocks
+                     as its key source (replaces the Pallas
+                     _build_diag_kernel with std_build_kernel, which
+                     writes each step's block K-major, and
+                     _diag_matmul_combine_kernel, with the CMUX
+                     epilogue, with rev's digits kernel and GEMMs)
   fhe/rev.py         the GINX rotation, standard form on prebuilt rev
                      blocks (device keys, OECE_LAYOUT=rev, K-major on the
                      card): plain twins and the wrappers of

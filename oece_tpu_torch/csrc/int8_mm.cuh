@@ -1,18 +1,14 @@
-// Shared pieces of the port's blind-rotation kernels (std_step.cu for the
-// standard GINX form; rot_step.cu, rev_step.cu and ap_step.cu, the rotated
-// GINX form, the standard form on rev keys and the binary-base AP method,
-// take the modular helpers only), for Hopper
-// (sm_90a):
+// Shared pieces of the port's kernels, for Hopper (sm_90a):
 //
 //   * the modular helpers of oece_tpu/fhe/modmath.py (red31, mod_q,
-//     mul_pow8_mod) and the gadget decomposition of one coefficient
-//     (pallas_kernels.py::_decompose_lanes, exact or approximate);
-//   * decompose_kernel, the gadget digits of an accumulator in the row
-//     order of the reversed diagonals (std);
+//     mul_pow8_mod), which every step kernel takes (rot_step.cu,
+//     rev_step.cu, ap_step.cu, std_step.cu);
 //   * rev_build_kernel<M>, which expands one step's compact key [R, M, 2N]
-//     into its reversed-diagonal block (std, negacyclic.cu), or with kConj
-//     into that block in the TPU's conjugated basis (negacyclic.cu, #7);
-//   * int8_mm_kernel, the int8 contraction of one step:
+//     into its row-major reversed-diagonal block (negacyclic.cu, #1
+//     alone), or with kConj into that block in the TPU's conjugated basis
+//     (negacyclic.cu, #7);
+//   * int8_mm_kernel (std_step.cu, #2), the int8 contraction of one step
+//     on a row-major block:
 //       res[b, col] = sum_x dig[b, x] * key[(nt-1-k)*(K/nt) + x, col]
 //     for each output tile k, followed by the Horner combine of the 4 key
 //     limbs mod Q, written as P polynomials per gate.  The key block is
@@ -24,10 +20,10 @@
 // single-buffered shared memory, a byte transpose of each key tile in
 // registers (the key is row-major in the contraction index, mma wants it
 // packed along it).  The raw negacyclic products (#3, #5) run on
-// wgmma_mm.cuh instead, the rotated form's step (#11, #12) and the rev
-// step (#8, #9) on step_gemm.cuh's wgmma GEMMs over a K-major key, and the
-// AP step (#13) on ap_step.cu's, which make their key tiles from the
-// compact key.
+// wgmma_mm.cuh instead, the rotated form's step (#11, #12) and the
+// standard form's steps (#8, #9 on rev keys; #1, #4 on ginx_ext) on
+// step_gemm.cuh's wgmma GEMMs over K-major blocks, and the AP step (#13)
+// on ap_step.cu's, which make their key tiles from the compact key.
 
 #pragma once
 
@@ -58,33 +54,6 @@ __device__ __forceinline__ int mod_q(int x, int Q) { return red31(x + 8 * Q, Q);
 __device__ __forceinline__ int mul_pow8_mod(int x, int Q) {
   int y = (x >> 19) * 2047 + ((x & ((1 << 19) - 1)) << 8);
   return y >= Q ? y - Q : y;
-}
-
-// Gadget digits of d in [0, Q): digit g goes to out[g * T].  shift > 0 is
-// the approximate gadget (centre, round away `shift` bits, d_used signed
-// digits); shift == 0 the exact one (signed digits, unsigned top digit).
-__device__ __forceinline__ void gadget_digits(int d, int8_t* out, int d_used,
-                                              int log_bg, int shift, int Q) {
-  const int bg = 1 << log_bg, half = bg >> 1;
-  int cur;
-  if (shift > 0) {
-    const int cen = d >= (Q + 1) / 2 ? d - Q : d;
-    cur = (cen + (1 << (shift - 1))) >> shift;
-    for (int g = 0; g < d_used - 1; ++g) {
-      const int r = ((cur + half) & (bg - 1)) - half;
-      out[g * T] = (int8_t)r;
-      cur = (cur - r) >> log_bg;
-    }
-  } else {
-    cur = d;
-    for (int g = 0; g < d_used - 1; ++g) {
-      int r = cur & (bg - 1);
-      if (r >= half) r -= bg;
-      out[g * T] = (int8_t)r;
-      cur = (cur - r) >> log_bg;
-    }
-  }
-  out[(d_used - 1) * T] = (int8_t)cur;
 }
 
 // XOR swizzle of the k-word index of a transposed key tile row n, so that
@@ -240,23 +209,6 @@ __global__ void __launch_bounds__(THREADS) int8_mm_kernel(
     }
     out[((long long)b * P + o) * N + k * T + t0 + tt] = comb;
   }
-}
-
-// One thread per (gate b, accumulator poly pp, coefficient m): the gadget
-// digits of acc, int8 dig[b, j'*RT + (pp*d_used + g)*T + u] for coefficient
-// m = j'*T + u (RT = 2*d_used*T).
-__global__ void decompose_kernel(const int* __restrict__ acc,
-                                 int8_t* __restrict__ dig, int B, int N,
-                                 int d_used, int log_bg, int shift, int Q) {
-  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= (long long)B * 2 * N) return;
-  const int m = (int)(gid % N);
-  const int pp = (int)((gid / N) & 1);
-  const long long b = gid / (2 * N);
-  const int RT = 2 * d_used * T;
-  const long long K = (long long)(N / T) * RT;
-  int8_t* out = dig + b * K + (m / T) * RT + pp * d_used * T + (m % T);
-  gadget_digits(acc[gid], out, d_used, log_bg, shift, Q);
 }
 
 // One step's compact key ext [R, M, 2N] -> reversed diagonals, int8

@@ -1,5 +1,6 @@
-// GINX blind rotation, standard form, on blocks prebuilt at keygen (the
-// "rev" key layout), for Hopper (sm_90a).
+// GINX blind rotation, standard form, for Hopper (sm_90a): on blocks
+// prebuilt at keygen (the "rev" key layout), or on keys expanded per step
+// (ginx_ext, host keys) with each step's block built into a ring of two.
 //
 // Replaces, on the device-key path of OECE_LAYOUT=rev (the step loop of
 // oece_tpu/fhe/boot.py::_external_cmux_prebuilt, boot.py:401-422), the TPU
@@ -11,8 +12,16 @@
 //      of the accumulator, then #8;
 // and, inside the step loop, the function of #10 _cmux_epilogue_true_kernel
 // (the rotations and the CMUX add; #10 alone stays std_step.cu's
-// std_cmux_kernel).  For each step i and gate b, with a = a2N[b, i]
-// (T = 128, nt = N/T, R = 2*d_used, RT = R*T, K = nt*RT):
+// std_cmux_kernel).  On the host-key path (_external_cmux_pallas, one
+// lax.scan step per key step) it replaces
+//   #1 _build_diag_kernel (build_diagonals_pallas): byte-phase key windows
+//      -> the step's 2nt-1 negacyclic diagonal blocks;
+//   #4 _diag_matmul_combine_kernel (diag_matmul_combine_pallas): digits x
+//      those blocks with the limb combine fused (#8's function);
+// and the jnp epilogue around them (boot.py:358-363): once #1 has built a
+// step's block, a standard-form step is a rev step.  For each step i and
+// gate b, with a = a2N[b, i] (T = 128, nt = N/T, R = 2*d_used, RT = R*T,
+// K = nt*RT):
 //
 //   P[b, poly, k*T + t] = combine_limbs(sum_x dig[b, x] * rev_i[(nt-1-k)*RT + x, (poly*4 + l)*T + t])
 //   acc <- red31(acc + X^c0 P0 + X^c1 P1 + 2Q - P0 - P1),  (c0, c1) = (2N - a, a)
@@ -20,21 +29,40 @@
 // with P_part = P[b, part*2 + out] and dig the gadget digits of acc at
 // dig[b, j*RT + (poly*d_used + g)*T + u] for coefficient j*T + u.
 //
-// The key is rev stored K-major (keys.py): keyT int8 [n, 16, T,
+// The GEMMs read a step's block K-major: keyT int8 [steps, 16, T,
 // (2nt-1)*RT], entry [i, m, t, x] = the row-major block's [x, m*T + t],
-// which is how wgmma reads an 8-bit operand from shared memory.  One 4D
-// TMA map over the whole key (the step is its outer coordinate) serves
-// every step; a box of 4 planes x 16 coefficients x 128 bytes lands the 4
-// limbs of 16 coefficients of one output poly at rows 16l of a 64-row A
-// tile.  The GEMMs are rot_step.cu's, from step_gemm.cuh (gemm_tiled,
-// gemm_split): these 64 key columns on wgmma's M and the gates on its N,
-// so a narrow batch pays for no padded rows.  Against the rotated form's
-// step they differ in the geometry only: 16 planes (4 output polys, 32
-// column chunks), a diagonal of RT contraction bytes (not 2RT), K = nt*RT
-// = 4,096 per output tile at STD128_OPT, and the output is the
-// limb-combined product P mod Q, not an accumulator update.  Per step two
-// kernels, launched with programmatic dependent launch:
+// which is how wgmma reads an 8-bit operand from shared memory.  The key
+// source is the rev key (keys.py; step coordinate i), or a ring of two
+// blocks that std_build_kernel fills from ginx_ext (step coordinate i & 1).
+// One 4D TMA map over the key or the ring serves every step; a box of 4
+// planes x 16 coefficients x 128 bytes lands the 4 limbs of 16
+// coefficients of one output poly at rows 16l of a 64-row A tile.  The
+// GEMMs are rot_step.cu's, from step_gemm.cuh (gemm_tiled, gemm_split):
+// these 64 key columns on wgmma's M and the gates on its N, so a narrow
+// batch pays for no padded rows.  Against the rotated form's step they
+// differ in the geometry only: 16 planes (4 output polys, 32 column
+// chunks), a diagonal of RT contraction bytes (not 2RT), K = nt*RT = 4,096
+// per output tile at STD128_OPT, and the output is the limb-combined
+// product P mod Q, not an accumulator update.  Per step two kernels (three
+// on ginx_ext), launched with programmatic dependent launch:
 //
+//   std_build_kernel  (ginx_ext only) step i's block into slot i & 1:
+//       ring[i & 1, m, t, d'*RT + r*T + u] = ginx_ext[i, r, m, ((nt-1-d')*T + t - u) mod 2N].
+//       For fixed (m, t, d', r) the 128 bytes along u are one window of
+//       the key row ginx_ext[i, r, m, :] read backwards with wrap mod 2N,
+//       and the 128 t of one (m, r, d') share 255 bytes of that row: a
+//       block stages them reversed in shared memory (16-byte loads, bytes
+//       reversed by __byte_perm) and writes whole 16-byte vectors, each
+//       cut from 5 staged words by funnel shifts; coalesced on both sides.
+//       The slot it overwrites was read by the GEMM of step i-2.  Each
+//       kernel of the loop waits for its predecessor (griddepcontrol.wait)
+//       before it lets its successor launch, so once the GEMM of step i-1
+//       has let the build launch, the GEMM of step i-2 has finished: the
+//       build writes at once, while the GEMM of step i-1 reads the other
+//       slot, and waits for that GEMM only before it exits, so that the
+//       digits kernel after it finds the products of step i-1 (measured:
+//       1-4% off the step at B = 16 ... 2048 against a build that waits
+//       first, PERF.md).
 //   rev_digits_kernel  for each gate b, accumulator poly and 4
 //       coefficients: the previous step's CMUX (from its P, or its split
 //       sums reduced mod Q on read), written to acc in place, then the
@@ -61,22 +89,25 @@
 // #8 alone runs the GEMM on the given digits, #9 alone the digits kernel
 // (without a CMUX) and the GEMM; with the split GEMM the sums land in the
 // output, zeroed first, and rev_reduce_kernel takes them mod Q in place.
-// A gate with a = 0 gets its accumulator back unchanged: both rotations
-// are the identity, so the CMUX adds 2Q - 2Q.
+// #1 alone (oece_std_build) builds one step's K-major block.  A gate with
+// a = 0 gets its accumulator back unchanged: both rotations are the
+// identity, so the CMUX adds 2Q - 2Q.
 //
 // Bounds on the H100.  A step contracts nt * K * 16T = 67.1 M int8 MACs
 // per gate at STD128_OPT, as a rotated-form step, and streams a 15.7 MB
 // block that every gate shares: at 4-8 lanes 4.7 us of HBM (bytes bound);
 // at B = 2048, 275 G ops, 0.139 ms at the 1,979 TOPS int8 peak
-// (operations bound).  The contraction is exact in int32: |sum| <= K *
-// 128 * 128 = 2**26.  The digits kernel moves the accumulator twice, P
-// once and the digits once (75 MB at B = 2048, 22 us of HBM; P and the
-// digits are mostly L2-resident).
+// (operations bound).  On ginx_ext the build reads a 131 KB step key and
+// writes the 15.7 MB block (4.7 us of HBM); the ring's two slots (31.4 MB)
+// fit the 50 MB L2, where the GEMM then finds the block.  The contraction
+// is exact in int32: |sum| <= K * 128 * 128 = 2**26.  The digits kernel
+// moves the accumulator twice, P once and the digits once (75 MB at B =
+// 2048, 22 us of HBM; P and the digits are mostly L2-resident).
 //
 // Left undone: the digits fused into the GEMM (one launch per step), a
 // CUDA graph of the step loop, and the key tiles made on chip from the
-// 131 KB compact key (ap_step.cu's way) instead of the 7.9 GB prebuilt
-// one.
+// 131 KB compact key (ap_step.cu's way) instead of a built or prebuilt
+// block.
 
 #include <algorithm>
 
@@ -153,6 +184,48 @@ __global__ void rev_digits_kernel(int* __restrict__ acc, const int* __restrict__
   }
 }
 
+// #1: one step's compact key ext [R, 16, 2N] -> its block K-major, out
+// [16, T, (2nt-1)*RT], out[m, t, d'*RT + r*T + u] = ext[r, m, ((nt-1-d')*T
+// + t - u) mod 2N].  Block (m, r, d') of 256 threads: the 128 t share the
+// row bytes from (nt-1-d')*T - 127 to (nt-1-d')*T + 127 (mod 2N), staged
+// reversed as span[j] = ext[r, m, (2N-1 - S0 - j) mod 2N] with S0 = (2N -
+// (nt-d')*T) mod 2N, a multiple of 128, so the 16 groups of 16 bytes are
+// whole groups of the row; then out[m, t, d'*RT + r*T + u] = span[127 - t
+// + u], 16 bytes per store from 5 staged words.  `early`: write first,
+// wait for the predecessor last (the ring's overlap of a build with the
+// GEMM before it, which reads the other slot).
+__global__ void __launch_bounds__(256) std_build_kernel(const int8_t* __restrict__ ext,
+                                                        int8_t* __restrict__ out, int N, int R,
+                                                        int early) {
+  __shared__ uint32_t span[64];
+  if (early)
+    asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  else
+    pdl_wait_and_release();
+  const int nt = N / T, ndiag = 2 * nt - 1, RT = R * T, tid = threadIdx.x;
+  const int dp = blockIdx.x % ndiag, r = (blockIdx.x / ndiag) % R, m = blockIdx.x / (ndiag * R);
+  if (tid < 16) {
+    const int groups = 2 * N / 16;  // of 16 bytes in a row
+    const int h = ((2 * N - (nt - dp) * T) / 16 + tid) & (groups - 1);
+    const uint4 v = *(const uint4*)(ext + ((long long)r * 16 + m) * 2 * N + 16 * (groups - 1 - h));
+    ((uint4*)span)[tid] = make_uint4(__byte_perm(v.w, 0, 0x0123), __byte_perm(v.z, 0, 0x0123),
+                                     __byte_perm(v.y, 0, 0x0123), __byte_perm(v.x, 0, 0x0123));
+  }
+  __syncthreads();
+  const long long rows = (long long)ndiag * RT;
+  const int v = tid & 7;  // 16-byte vector of the row: u = 16v .. 16v+15
+  int8_t* dst = out + (long long)m * T * rows + dp * RT + r * T + 16 * v;
+#pragma unroll
+  for (int it = 0; it < T / 32; ++it) {
+    const int t = (tid >> 3) + 32 * it, a = T - 1 - t + 16 * v, w0 = a >> 2, sh = 8 * (a & 3);
+    uint32_t w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) w[k] = __funnelshift_r(span[w0 + k], span[w0 + k + 1], sh);
+    *(uint4*)(dst + t * rows) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  if (early) asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
 // x <- x mod Q for the split GEMM's sums (< 8Q) of #8 and #9 alone.
 __global__ void rev_reduce_kernel(int* __restrict__ x, long long total, int Q) {
   pdl_wait_and_release();
@@ -193,7 +266,9 @@ enum Mode { ROTATE, MATMUL_DEC, MATMUL };
 // (2nt-1)*RT] with its digits dig int8 [B, K]:
 //   ROTATE      the whole rotation on acc [B, 2, N] in place, n steps,
 //               amounts a2N [B, n]; prod: P [B, 4, N] (tiled) or two sums
-//               [2, B, 4, N] (split);
+//               [2, B, 4, N] (split); with ext (ginx_ext [n, R, 16, 2N])
+//               keyT is a ring [2, 16, T, (2nt-1)*RT] that step i's build
+//               fills at slot i & 1;
 //   MATMUL_DEC  #9: the digits of acc into dig, then the GEMM into prod =
 //               the output [B, polys, N];
 //   MATMUL      #8: the GEMM on the given digits into prod.
@@ -207,6 +282,7 @@ struct Run {
   const int* a2N;
   int B, n, N, d_used, log_bg, shift, Q;
   cudaStream_t st;
+  const int8_t* ext;
 };
 
 // (diagonals per group) of the split GEMM: the 2nt-1 diagonals in at most
@@ -222,11 +298,25 @@ cudaError_t digits(const Run& A, const int* P, int summed, int* sum_zero, int ps
                       A.d_used, A.log_bg, A.shift, A.Q);
 }
 
+// Step i's block from ext into slot i & 1 of the ring keyT.  From step 1
+// on the build writes while the GEMM of step i-1 runs (it reads the other
+// slot) and waits for it last: the GEMM of step i-2, which read this slot,
+// finished before the GEMM of step i-1 let the build launch.
+cudaError_t build(const Run& A, int i) {
+  const int nt = A.N / T, R = 2 * A.d_used;
+  const long long slot = 16LL * T * (2 * nt - 1) * R * T;
+  return rotg::launch(std_build_kernel, 16 * R * (2 * nt - 1), 256, 0, A.st,
+                      A.ext + (long long)i * R * 16 * 2 * A.N,
+                      (int8_t*)const_cast<void*>(A.keyT) + (i & 1) * slot, A.N, R, (int)(i > 0));
+}
+
 template <int NB, int MW, bool kSplit>
 int run(const Run& A, int dpg) {
   const Shape g = rotg::step_shape(A.B, A.N, A.Q, 2 * A.d_used * T, A.polys, NB, MW);
   CUtensorMap dig_map, key_map;
-  if (!rotg::make_maps(A.keyT, A.n, 4 * A.polys, A.dig, g, NB, kSplit ? dpg : 0, &dig_map, &key_map))
+  const bool ring = A.ext != nullptr;
+  if (!rotg::make_maps(A.keyT, ring ? 2 : A.n, 4 * A.polys, A.dig, g, NB, kSplit ? dpg : 0, &dig_map,
+                       &key_map))
     return (int)cudaErrorInvalidValue;
   static bool smem_set = false;
   cudaError_t e;
@@ -252,8 +342,9 @@ int run(const Run& A, int dpg) {
     for (int i = 0; i < A.n && e == cudaSuccess; ++i) {
       int* out = kSplit ? A.prod + (i & 1) * plane : A.prod;
       const int* prev = i == 0 ? nullptr : kSplit ? A.prod + ((i - 1) & 1) * plane : A.prod;
-      e = digits(A, prev, kSplit, kSplit ? out : nullptr, i - 1, A.dig);
-      if (e == cudaSuccess) e = gemm(out, i);
+      if (ring) e = build(A, i);
+      if (e == cudaSuccess) e = digits(A, prev, kSplit, kSplit ? out : nullptr, i - 1, A.dig);
+      if (e == cudaSuccess) e = gemm(out, ring ? i & 1 : i);
     }
     if (e == cudaSuccess)
       e = digits(A, kSplit ? A.prod + ((A.n - 1) & 1) * plane : A.prod, kSplit, nullptr, A.n - 1,
@@ -301,8 +392,30 @@ extern "C" int oece_blind_rotate_rev(void* acc, void* prod, void* dig, const voi
                                      const void* a2N, int B, int n, int N, int d_used, int log_bg,
                                      int shift, int Q, void* stream) {
   const revg::Run A{revg::ROTATE, (int*)acc, (int*)prod, (int8_t*)dig, keyT, 4, (const int*)a2N,
-                    B, n, N, d_used, log_bg, shift, Q, (cudaStream_t)stream};
+                    B, n, N, d_used, log_bg, shift, Q, (cudaStream_t)stream, nullptr};
   return revg::dispatch(A);
+}
+
+// The whole rotation on ginx_ext int8 [n, R, 16, 2N]: n steps of (build
+// into ring slot i & 1, digits with the previous CMUX, GEMM), then the
+// last CMUX, on acc in place; ring int8 scratch [2, 16, T, (2nt-1)*RT],
+// the rest as oece_blind_rotate_rev's.
+extern "C" int oece_blind_rotate_std(void* acc, void* prod, void* dig, void* ring,
+                                     const void* ginx_ext, const void* a2N, int B, int n, int N,
+                                     int d_used, int log_bg, int shift, int Q, void* stream) {
+  const revg::Run A{revg::ROTATE, (int*)acc, (int*)prod, (int8_t*)dig, ring, 4, (const int*)a2N,
+                    B, n, N, d_used, log_bg, shift, Q, (cudaStream_t)stream,
+                    (const int8_t*)ginx_ext};
+  return revg::dispatch(A);
+}
+
+// #1 alone: one step's ginx_ext int8 [R, 16, 2N] -> its K-major block
+// [16, T, (2nt-1)*R*T].
+extern "C" int oece_std_build(const void* ext, void* out, int N, int R, void* stream) {
+  if (N % T || N < T) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = rotg::launch(std_build_kernel, 16 * R * (2 * (N / T) - 1), 256, 0,
+                                     (cudaStream_t)stream, (const int8_t*)ext, (int8_t*)out, N, R, 0);
+  return (int)(e == cudaSuccess ? cudaGetLastError() : e);
 }
 
 // #8 alone: dig int8 [B, nt*R*T] x the K-major block blockT int8
@@ -312,7 +425,7 @@ extern "C" int oece_rev_window_matmul(const void* dig, const void* blockT, void*
                                       int R, int polys, int Q, void* stream) {
   if (R % 2) return (int)cudaErrorInvalidValue;
   const revg::Run A{revg::MATMUL, nullptr, (int*)out, (int8_t*)dig, blockT, polys, nullptr,
-                    B, 1, N, R / 2, 0, 0, Q, (cudaStream_t)stream};
+                    B, 1, N, R / 2, 0, 0, Q, (cudaStream_t)stream, nullptr};
   return revg::dispatch(A);
 }
 
@@ -322,6 +435,6 @@ extern "C" int oece_rev_matmul_dec(const void* acc, void* dig, const void* block
                                    int B, int N, int d_used, int log_bg, int shift, int polys,
                                    int Q, void* stream) {
   const revg::Run A{revg::MATMUL_DEC, (int*)acc, (int*)out, (int8_t*)dig, blockT, polys, nullptr,
-                    B, 1, N, d_used, log_bg, shift, Q, (cudaStream_t)stream};
+                    B, 1, N, d_used, log_bg, shift, Q, (cudaStream_t)stream, nullptr};
   return revg::dispatch(A);
 }

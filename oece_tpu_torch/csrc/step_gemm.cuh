@@ -31,8 +31,10 @@ __device__ __forceinline__ void pdl_wait_and_release() {
 
 constexpr int MAX_DIGITS = 4;  // d_used <= 4: ceil(27 / 7) digits of base 2**7
 
-// The gadget digits of d (gadget_digits of int8_mm.cuh), digit g into
-// byte j of w[g].
+// The gadget digits of d in [0, Q) (pallas_kernels.py::_decompose_lanes),
+// digit g into byte j of w[g]: shift > 0 is the approximate gadget
+// (centre, round away `shift` bits, d_used signed digits), shift == 0 the
+// exact one (signed digits, unsigned top digit).
 __device__ __forceinline__ void pack_digits(int d, uint32_t (&w)[MAX_DIGITS], int j, int d_used,
                                             int log_bg, int shift, int Q) {
   const int bg = 1 << log_bg, half = bg >> 1;

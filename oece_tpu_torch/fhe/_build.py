@@ -111,6 +111,8 @@ def load() -> ctypes.CDLL:
     lib.oece_ap_live_table.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
     lib.oece_blind_rotate_std.restype = i32
     lib.oece_blind_rotate_std.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
+    lib.oece_std_build.restype = i32
+    lib.oece_std_build.argtypes = [ptr] * 2 + [i32] * 2 + [ptr]
     lib.oece_blind_rotate_rev.restype = i32
     lib.oece_blind_rotate_rev.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
     lib.oece_rev_window_matmul.restype = i32

@@ -148,6 +148,15 @@ def rev_block(ext_s: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return g.permute(2, 0, 3, 1, 4).reshape(ndiag * R * TILE, M * TILE)
 
 
+def rev_block_kmajor(ext_s: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``rev_block`` K-major: int8 [M, T, (2nt-1)*R*T], entry [m, t,
+    d'*RT + r*T + u] = ext_s[r, m, ((nt-1-d')*T + t - u) mod 2N], the
+    row-major block transposed."""
+    R, M = ext_s.shape[:2]
+    g = ext_s[:, :, idx]  # [R, M, ndiag, u, t]
+    return g.permute(1, 4, 2, 0, 3).reshape(M, TILE, idx.shape[0] * R * TILE)
+
+
 def rev2_step(brk_i: torch.Tensor, Q: int, idx: torch.Tensor, kmajor: bool = False) -> torch.Tensor:
     """One step's RGSW pair int32 [part=2, R, out=2, N] mod Q -> its rev2
     block int8 [(2nt-1)*2*R*T, 8*T], or K-major [8, T, (2nt-1)*2*R*T]."""
@@ -228,11 +237,7 @@ def rev_step(brk_i: torch.Tensor, Q: int, idx: torch.Tensor, kmajor: bool = Fals
     block int8 [(2nt-1)*R*T, 16*T] (``rev_block`` of its ginx_ext planes),
     or K-major [16, T, (2nt-1)*R*T]."""
     ext_s = ginx_ext_planes(brk_i[None], Q)[0]  # [R, 16, 2N]
-    if not kmajor:
-        return rev_block(ext_s, idx)
-    R, ndiag = ext_s.shape[0], idx.shape[0]
-    g = ext_s[:, :, idx]  # [R, M, ndiag, u, t]
-    return g.permute(1, 4, 2, 0, 3).reshape(16, TILE, ndiag * R * TILE)
+    return rev_block_kmajor(ext_s, idx) if kmajor else rev_block(ext_s, idx)
 
 
 def build_rev(brk: torch.Tensor, Q: int, kmajor: Optional[bool] = None) -> torch.Tensor:

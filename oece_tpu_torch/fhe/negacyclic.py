@@ -215,7 +215,8 @@ def _build_rev(name: str, ext: torch.Tensor, conj: int, plain) -> torch.Tensor:
 def build_diagonals(ext: torch.Tensor) -> torch.Tensor:
     """#1: one step's compact key ext int8 [R, M, 2N], M = 16 or 8 -> its
     reversed-diagonal block int8 [(2nt-1)*R*T, M*T], true columns:
-    rev_build_kernel<M> (the kernel of fhe/std.py's step loop) alone."""
+    rev_build_kernel<M>, the row-major build (fhe/std.py's step loop builds
+    its blocks K-major with csrc/rev_step.cu's std_build_kernel)."""
     return _build_rev("build_diagonals", ext, 0, build_diagonals_plain)
 
 

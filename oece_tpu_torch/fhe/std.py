@@ -15,15 +15,25 @@ blocks, one 128-coefficient output tile at a time, followed by the Horner
 combine of the 4 key limbs mod Q.  golden.blind_rotate_ginx is the same
 function (it skips a = 0 steps; the step is an identity there).
 
-The plain twins, one per kernel of ``csrc/std_step.cu``:
-``build_diagonals_plain`` (#1), ``diag_matmul_combine_plain`` (#4) and
-``cmux_epilogue_plain`` (the jnp epilogue), composed by
-``blind_rotate_std_plain``.  After the build, a step is the step of
-fhe/rev.py on a block prebuilt at keygen (``rev.rev_step_plain``).  The dispatcher ``blind_rotate_std`` runs the
-plain version for CPU tensors and launches the CUDA step loop for CUDA
-tensors, or raises.  ``LAUNCHES`` / ``PLAIN_LAUNCHES`` count the rotation
-calls that reached each version; ``STEP_LAUNCHES`` counts the launches of
-each kernel of the loop (one build, digits, matmul and epilogue per step).
+The plain twins: ``build_diagonals_plain`` (#1, row-major, the CPU's
+block), ``build_diagonals_kmajor_plain`` (#1 K-major, the card's block),
+``diag_matmul_combine_plain`` (#4) and ``cmux_epilogue_plain`` (the jnp
+epilogue), composed by ``blind_rotate_std_plain``.  After the build, a
+step is the step of fhe/rev.py on a block prebuilt at keygen
+(``rev.rev_step_plain``), so on the card the rotation is rev's step loop
+(csrc/rev_step.cu) with a ring of two blocks as its key source: per step
+``std_build_kernel`` writes step i's block K-major into slot i & 1, then
+rev's digits kernel (with the previous step's CMUX) and its GEMM read it
+(``rev.gemm_config``).  ``build_span`` repeats the build kernel's staging
+for the CPU layout tests.  The ginx_ext key stays compact (131 KB per
+step); a prebuilt block per step is ``OECE_LAYOUT=rev``.
+
+``blind_rotate_std`` and ``build_diagonals_kmajor`` run the plain version
+for CPU tensors and launch their kernels for CUDA tensors, or raise.
+``LAUNCHES`` / ``PLAIN_LAUNCHES`` count the wrapper calls that reached
+each version; ``STEP_LAUNCHES`` the steps of the CUDA step loop (per step
+one build, one digits kernel and one GEMM; per rotation one more digits
+launch for the last CMUX).
 """
 
 from __future__ import annotations
@@ -32,21 +42,41 @@ import math
 
 import torch
 
-from . import _build
-from .keys import TILE, rev_block, rev_index
+from . import _build, rev
+from .keys import TILE, rev_block, rev_block_kmajor, rev_index
 from .params import BinFHEParams
 from .rev import cmux_epilogue_true_plain, rev_step_plain
 from .rot import amount_pairs, check_operands, tile_products
 
-LAUNCHES = 0  # blind_rotate_std calls that launched the CUDA step loop
-PLAIN_LAUNCHES = 0  # blind_rotate_std calls that ran the plain version
-STEP_LAUNCHES = 0  # launches of each kernel of the CUDA step loop
+LAUNCHES = 0  # wrapper calls that launched CUDA kernels
+PLAIN_LAUNCHES = 0  # wrapper calls that ran the plain version
+STEP_LAUNCHES = 0  # steps of the CUDA step loop: one launch of each of its kernels
 
 
 def build_diagonals_plain(ext_i: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """#1: one step's ginx_ext int8 [R, 16, 2N] -> reversed diagonal blocks
     int8 [(2nt-1)*R*T, 16T] in true column order (idx = keys.rev_index)."""
     return rev_block(ext_i, idx)
+
+
+def build_diagonals_kmajor_plain(ext_i: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """#1 K-major: one step's ginx_ext int8 [R, 16, 2N] -> int8 [16, T,
+    (2nt-1)*R*T], entry [m, t, d'*RT + r*T + u] = ext_i[r, m, ((nt-1-d')*T
+    + t - u) mod 2N]: ``build_diagonals_plain`` transposed, the layout of
+    ``keys.rev_step(..., kmajor=True)``."""
+    return rev_block_kmajor(ext_i, idx)
+
+
+def build_span(ext_i: torch.Tensor, m: int, r: int, dp: int) -> torch.Tensor:
+    """The 256 bytes that ``std_build_kernel``'s block (m, r, d') stages, as
+    it stages them: group g of 16 is row group 2N/16 - 1 - h of ext_i[r, m]
+    with its bytes reversed, h = ((2N - (nt-d')*T) / 16 + g) mod 2N/16.
+    The block writes entry [m, t, d'*RT + r*T + u] = span[127 - t + u]."""
+    N = ext_i.shape[-1] // 2
+    nt, groups = N // TILE, 2 * N // 16
+    row = ext_i[r, m].view(groups, 16)
+    h = ((2 * N - (nt - dp) * TILE) // 16 + torch.arange(16)) % groups
+    return row[groups - 1 - h].flip(-1).reshape(256)
 
 
 def diag_matmul_combine_plain(dig: torch.Tensor, block: torch.Tensor, Q: int) -> torch.Tensor:
@@ -96,28 +126,56 @@ def _check(acc, ginx_ext, a2N, p: BinFHEParams) -> None:
 
 
 def _blind_rotate_std_cuda(acc, ginx_ext, a2N, p: BinFHEParams) -> torch.Tensor:
+    """rev's step loop (csrc/rev_step.cu) on a ring of two K-major blocks
+    [2, 16, T, (2nt-1)*RT] that the build fills from ginx_ext per step; the
+    digits and the products (P, or the split GEMM's two sums) as rev's."""
     global LAUNCHES, STEP_LAUNCHES
     B, _, N = acc.shape
     n = ginx_ext.shape[0]
     out = acc.clone()
     if B == 0 or n == 0:
         return out
+    rev._aligned("blind_rotate_std", ginx_ext)
     lib = _build.load()
-    nt = N // TILE
-    RT = 2 * p.d_g_used * TILE
+    nt, RT = N // TILE, 2 * p.d_g_used * TILE
+    split = rev.gemm_config(B, N, p.d_g_used)[2]
     dig = torch.empty((B, nt * RT), dtype=torch.int8, device=acc.device)
-    block = torch.empty(((2 * nt - 1) * RT, 16 * TILE), dtype=torch.int8, device=acc.device)
-    P4 = torch.empty((B, 4, N), dtype=torch.int32, device=acc.device)
+    prod = torch.empty((2, B, 4, N) if split else (B, 4, N), dtype=torch.int32, device=acc.device)
+    ring = torch.empty((2, 16, TILE, (2 * nt - 1) * RT), dtype=torch.int8, device=acc.device)
     rc = lib.oece_blind_rotate_std(
-        out.data_ptr(), dig.data_ptr(), block.data_ptr(), P4.data_ptr(),
-        ginx_ext.data_ptr(), a2N.data_ptr(), B, n, N, p.d_g_used,
-        int(math.log2(p.B_g)), p.g_shift, p.Q,
-        torch.cuda.current_stream(out.device).cuda_stream,
+        out.data_ptr(), prod.data_ptr(), dig.data_ptr(), ring.data_ptr(), ginx_ext.data_ptr(),
+        a2N.data_ptr(), B, n, N, p.d_g_used, int(math.log2(p.B_g)), p.g_shift, p.Q, rev._stream(out),
     )
     if rc != 0:
-        raise RuntimeError(f"std_step.cu launch failed: {lib.oece_error_string(rc).decode()}")
+        raise RuntimeError(f"rev_step.cu launch failed: {lib.oece_error_string(rc).decode()}")
     LAUNCHES += 1
     STEP_LAUNCHES += n
+    return out
+
+
+def build_diagonals_kmajor(ext_i: torch.Tensor) -> torch.Tensor:
+    """#1 K-major alone: one step's ginx_ext int8 [R, 16, 2N] -> int8 [16,
+    T, (2nt-1)*R*T].  CPU tensors run the plain twin; CUDA tensors launch
+    the step loop's build kernel (csrc/rev_step.cu: std_build_kernel), or
+    raise."""
+    global LAUNCHES, PLAIN_LAUNCHES
+    name = "build_diagonals_kmajor"
+    if ext_i.dtype != torch.int8 or ext_i.ndim != 3 or ext_i.shape[1] != 16:
+        raise ValueError(f"{name}: want int8 ginx_ext [R, 16, 2N], got {ext_i.dtype} {tuple(ext_i.shape)}")
+    R, _, two_n = ext_i.shape
+    N = two_n // 2
+    if N % TILE or N & (N - 1) or R == 0:
+        raise ValueError(f"{name}: needs N a power of two and a multiple of {TILE}, R > 0")
+    if not rev._on_card(name, ext_i):
+        PLAIN_LAUNCHES += 1
+        return build_diagonals_kmajor_plain(ext_i, rev_index(N, ext_i.device))
+    rev._aligned(name, ext_i)
+    out = torch.empty((16, TILE, (2 * N // TILE - 1) * R * TILE), dtype=torch.int8, device=ext_i.device)
+    lib = _build.load()
+    rc = lib.oece_std_build(ext_i.data_ptr(), out.data_ptr(), N, R, rev._stream(out))
+    if rc != 0:
+        raise RuntimeError(f"{name}: rev_step.cu launch failed: {lib.oece_error_string(rc).decode()}")
+    LAUNCHES += 1
     return out
 
 

@@ -18,7 +18,6 @@ route of ``Circuit``.
 import dataclasses
 import inspect
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -33,6 +32,7 @@ from oece_tpu_torch.fhe import params as pparams
 from oece_tpu_torch.fhe.context import BinFHEContext
 from oece_tpu_torch.runtime.evaluator import Circuit
 from test_torch_copies import port_bootstrap_key
+from test_torch_std import jax_fast
 
 TRUTH = {
     "AND": lambda a, b: a & b, "OR": lambda a, b: a | b, "NAND": lambda a, b: 1 - (a & b),
@@ -68,7 +68,7 @@ def test_context_sequence_matches_jax(name, monkeypatch):
 def check_sequence(name, monkeypatch):
     monkeypatch.setattr(jboot, "PALLAS_INTERPRET", True)
     # the JAX context's gate batch, compiled once per batch shape
-    monkeypatch.setattr(jcontext.boot, "eval_bin_gate_batch", jax.jit(jboot.eval_bin_gate_batch))
+    monkeypatch.setattr(jcontext.boot, "eval_bin_gate_batch", jax_fast(jboot.eval_bin_gate_batch, level=1))
     jp, pp, method = _both(name)
     jc = JaxContext().GenerateBinFHEContext(jp, method, seed=41)
     tc = BinFHEContext(device="cpu").GenerateBinFHEContext(pp, method, seed=41)

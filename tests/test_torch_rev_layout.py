@@ -243,15 +243,17 @@ def _cmux(acc, prod, split, a, p):
     return rev.cmux_epilogue_true_plain(P.reshape(B, 2, 2, N), acc, rot.amount_pairs(a, N), p.Q)
 
 
-def _rotation_by_tiles(acc, keyT, a2N, p):
-    """rev_step.cu's step loop: step i's digits kernel applies step i-1's
-    CMUX and takes the digits of the result, step i's GEMM makes its
+def _rotation_by_tiles(acc, block_of, a2N, p):
+    """rev_step.cu's step loop over a2N.shape[1] steps: block_of(i) gives
+    step i's K-major block (a step of the rev key, or on ginx_ext the ring
+    slot that step i's build filled); step i's digits kernel applies step
+    i-1's CMUX and takes the digits of the result, step i's GEMM makes its
     products; one more digits launch applies the last CMUX."""
     prev = None
-    for i in range(keyT.shape[0]):
+    for i in range(a2N.shape[1]):
         if prev is not None:
             acc = _cmux(acc, *prev, a2N[:, i - 1], p)
-        prev = _gemm_by_tiles(rot.tile_digits(acc, p), keyT[i], 2 * p.d_g_used, p.Q)
+        prev = _gemm_by_tiles(rot.tile_digits(acc, p), block_of(i), 2 * p.d_g_used, p.Q)
     return _cmux(acc, *prev, a2N[:, -1], p)
 
 
@@ -297,7 +299,7 @@ def test_gemm_by_tiles_equals_plain_step(p, B):
     a2N[0] = 0
     rm = keys.build_rev(_brk(p, 1, seed=B), p.Q)
     km = keys.rev_to(rm, "cpu", kmajor=True)
-    got = _rotation_by_tiles(acc, km, a2N, p)
+    got = _rotation_by_tiles(acc, km.__getitem__, a2N, p)
     assert torch.equal(got, rev.rev_step_plain(acc, a2N[:, 0], rm[0], p))
     assert torch.equal(got[0], acc[0])
 
@@ -310,6 +312,6 @@ def test_gemm_by_tiles_equals_plain_rotation(p, B):
     acc, a2N = _inputs(p, B, p.n, seed=7 * B)
     rm = keys.build_rev(_brk(p, p.n, seed=B), p.Q)
     km = keys.rev_to(rm, "cpu", kmajor=True)
-    got = _rotation_by_tiles(acc, km, a2N, p)
+    got = _rotation_by_tiles(acc, km.__getitem__, a2N, p)
     assert torch.equal(got, rev.blind_rotate_rev_plain(acc, rm, a2N, p))
     assert torch.equal(got[0], acc[0])

@@ -23,6 +23,7 @@ import dataclasses
 import importlib.util
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -57,6 +58,15 @@ def _t(x):
     return torch.from_numpy(np.ascontiguousarray(x))
 
 
+def jax_fast(fn, level=0):
+    """fn under jax.jit, compiled by XLA's CPU backend at optimization
+    ``level``: the same integer program in less compile time.  The
+    interpret-mode Pallas kernels lower to large programs and each test
+    case compiles its own shapes: level 0 where a program runs once or
+    twice, level 1 where it runs many gate batches (the context sequence)."""
+    return jax.jit(fn, compiler_options={"xla_backend_optimization_level": level})
+
+
 def _fake_bk(jp, rng, n):
     """A golden-shaped JAX BootstrapKey with random refresh keys mod Q (the
     rotation must agree on any key values) and a zero key-switch key."""
@@ -83,7 +93,7 @@ def test_build_diagonals_matches_pallas(N, R):
     rng = np.random.default_rng(N + R)
     ext = rng.integers(-128, 128, (R, 16, 2 * N)).astype(np.int8)
     wins = pk.pack_keys_for_pallas(ext.reshape(R * 16, 2 * N))
-    dense = np.asarray(pk.build_diagonals_pallas(jnp.asarray(wins), R, interpret=True))
+    dense = np.asarray(jax_fast(lambda w: pk.build_diagonals_pallas(w, R, interpret=True))(jnp.asarray(wins)))
     ndiag = 2 * N // T - 1
     got = std.build_diagonals_plain(_t(ext), keys.rev_index(N, "cpu")).numpy()
     want = _undo_planes(dense)[::-1].reshape(ndiag * R * T, 16 * T)
@@ -118,9 +128,9 @@ def test_diag_matmul_combine_matches_pallas(N, R, B, max_b):
     ext = rng.integers(-128, 128, (R, 16, 2 * N)).astype(np.int8)
     digs = rng.integers(-128, 128, (nt, B, R * T)).astype(np.int8)
     wins = pk.pack_keys_for_pallas(ext.reshape(R * 16, 2 * N))
-    want = np.asarray(pk.negacyclic_matmul_combine(
-        jnp.asarray(digs), jnp.asarray(wins), R, Q, max_b=max_b, interpret=True
-    ))
+    want = np.asarray(jax_fast(lambda d, w: pk.negacyclic_matmul_combine(
+        d, w, R, Q, max_b=max_b, interpret=True
+    ))(jnp.asarray(digs), jnp.asarray(wins)))
     block = std.build_diagonals_plain(_t(ext), keys.rev_index(N, "cpu"))
     dig = _t(digs.transpose(1, 0, 2).reshape(B, nt * R * T))
     got = std.diag_matmul_combine_plain(dig, block, Q).numpy()

@@ -13,7 +13,7 @@ from oece_tpu.fhe import golden as jgolden
 from oece_tpu.fhe import lwe as jlwe
 from oece_tpu.fhe import params as jparams
 from oece_tpu_torch.fhe import boot, keys, std
-from test_torch_std import _t, both
+from test_torch_std import _t, both, jax_fast
 from test_torch_copies import port_bootstrap_key
 from test_torch_std_rotation import _a2N
 
@@ -56,7 +56,7 @@ def test_gate_bootstrap_matches_jax_and_golden(golden_keys, monkeypatch):
     c2 = jlwe.encrypt_bits(sk, rng.integers(0, 2, B), rng)
     dk = jboot.pack_bootstrap_key(bk, use_pallas=True)
     assert dk.ginx_pallas is not None
-    want = np.asarray(jboot.eval_bin_gate_batch(dk, jnp.asarray(gids), jnp.asarray(c1), jnp.asarray(c2)))
+    want = np.asarray(jax_fast(jboot.eval_bin_gate_batch)(dk, jnp.asarray(gids), jnp.asarray(c1), jnp.asarray(c2)))
     kt = keys.pack_bootstrap_key(port_bootstrap_key(bk), "cpu")
     plain0 = std.PLAIN_LAUNCHES
     got = boot.eval_bin_gate_batch(kt, _t(gids), _t(c1), _t(c2)).numpy()

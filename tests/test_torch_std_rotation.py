@@ -12,7 +12,7 @@ import pytest
 from oece_tpu.fhe import boot as jboot
 from oece_tpu.fhe import golden as jgolden
 from oece_tpu_torch.fhe import keys, std
-from test_torch_std import _fake_bk, _t, both
+from test_torch_std import _fake_bk, _t, both, jax_fast
 from test_torch_copies import port_bootstrap_key
 
 
@@ -69,11 +69,13 @@ def check_rotation(name, kw, steps, B):
     dk_jnp = jboot.pack_bootstrap_key(bk, use_pallas=False)
     i_ = jnp.arange(jp.N, dtype=jnp.int32)
     idx2n = (i_[None, :] - i_[:, None]) & (2 * jp.N - 1)
+    step_p = jax_fast(lambda acc, a, k: jboot._external_cmux_pallas(acc, a, k, jp))
+    step_j = jax_fast(lambda acc, a, k: jboot._external_cmux_ginx(acc, a, k, idx2n, jp))
     acc_p = acc_j = jnp.asarray(acc0)
     for i in range(steps):
         a_col = jnp.asarray(a2N[:, i])
-        acc_p = jboot._external_cmux_pallas(acc_p, a_col, dk_pallas.ginx_pallas[i], jp)
-        acc_j = jboot._external_cmux_ginx(acc_j, a_col, dk_jnp.ginx_kext[i], idx2n, jp)
+        acc_p = step_p(acc_p, a_col, dk_pallas.ginx_pallas[i])
+        acc_j = step_j(acc_j, a_col, dk_jnp.ginx_kext[i])
         if i == 0:  # one step alone
             one = std.std_step_plain(
                 _t(acc0), _t(a2N[:, 0]), kt.ginx_ext[0], keys.rev_index(pp.N, "cpu"), pp
