@@ -7,8 +7,9 @@ Phases (each prints one line with its time; any failure exits non-zero
 before the result lines):
   1. build   nvcc builds oece_tpu_torch/csrc into build/oece_tpu_torch/;
              prints each kernel's registers (ptxas), failing if an
-             int8_mm_kernel instance takes more than 80, and the card's
-             name and power limit (nvidia-smi).
+             instance of #2's or #7's kernels (transpose_kernel,
+             rev_gemm*, rev_build_kernel) spills or an int8_mm_kernel is
+             built, and the card's name and power limit (nvidia-smi).
   2. kernel  the rotated-form rotation #12 (csrc/rot_step.cu: the digits,
              then a TMA + wgmma step GEMM on the K-major rev2 key, the
              split one up to 16 gates, the tiled one above)
@@ -129,19 +130,27 @@ before the result lines):
              (OECE_ROT_MEGA=0): one rot_step_true launch per step only.
  16. neg-kernel  the kernel-level API of fhe/negacyclic.py at STD128_OPT
              widths (N=1024, R=4, M=16; M=8 too at B=13), B = 4, 13, 2048,
-             random int8 digits and keys: #1 alone, #2 (#8's kernel), #3,
-             #5, #6 (#10's kernel), #7 and the split and window pipelines
-             against their plain twins, bit-exact, through the CUDA route
-             only; #5 == #3 on #1's block; #3 and #5 (the wgmma GEMM of
-             csrc/wgmma_mm.cuh) also at B = 1, 4, 13, 63, 64, 65, 127,
-             129, 2048 for M = 16 and 8, and at N=512 B=129.  Device time
-             per call of each kernel, all its launches summed (#3: the
-             transpose and the GEMM; #5: the phase copies and the GEMM),
-             at B = 4 and 2048 (#3 at B = 4 also over 8 blocks from HBM),
-             TOPS and share of the bound, plain times, bounds, and the
-             library calls: torch._int_mm against the materialized
-             negacyclic matrix for #3/#5 (at B=2048: it needs more than 16
-             rows), one torch.take for #7.
+             random int8 digits and keys: #1 alone, #2 (#3's transpose,
+             then #8's GEMMs), #3, #5, #6 (#10's kernel), #7 and the split
+             and window pipelines against their plain twins, bit-exact,
+             through the CUDA route only; #5 == #3 on #1's block; #3 and
+             #5 (the wgmma GEMM of csrc/wgmma_mm.cuh) also at B = 1, 4,
+             13, 63, 64, 65, 127, 129, 2048 for M = 16 and 8, and at N=512
+             B=129; #2 at B = 1, 4, 13, 16, 17, 63, 64, 65, 127, 129, 2048
+             (the edges of its split and tiled GEMMs' gate tiles) for M =
+             16 and 8, and at N=512; #1 and #7 (the staged-span build) at
+             M = 16 and 8, N = 1024 and 512; #2 launches transpose_kernel
+             and rev_gemm* and no int8_mm_kernel.  Device time per call of
+             each kernel, all its launches summed (#2: the transpose, the
+             GEMM and at B=4 its mod-Q pass, attributed on the profiler's
+             timeline, as the GEMM starts early under programmatic
+             dependent launch; #3: the transpose and the GEMM; #5: the
+             phase copies and the GEMM), at B = 4 and 2048 (#3 at B = 4
+             also over 8 blocks from HBM), TOPS and share of the bound,
+             plain times, bounds, and the library calls: torch._int_mm
+             against the materialized negacyclic matrix for #3/#5 (at
+             B=2048: it needs more than 16 rows), one torch.take for #7
+             and for #1 alone.
  17. profile-boot  the step profiler oece_tpu_torch/tools/profile_boot.py
              at full width (golden host keys, seed 0; B=1024, all 502
              steps), scans A-I through its own entry points; scan A ==
@@ -196,6 +205,14 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
     operations at the tensor-core peak or bytes at the HBM rate."""
     t_ops, t_bytes = ops / INT8_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def new_window() -> bool:
+    """Whether #2 runs as #3's transpose and #8's wgmma GEMMs (a parent's
+    package runs the mma.sync int8_mm_kernel)."""
+    from oece_tpu_torch.fhe import _build
+
+    return hasattr(_build.load(), "oece_window_matmul")
 
 
 def reset_counts() -> None:
@@ -297,6 +314,17 @@ def device_ms(fn, reps: int, *kernels: str, per_call: int = 1) -> list[float]:
     fail(f"the profiler missed launches of {kernels} in {WINDOWS} windows in a row")
 
 
+def timeline_ms(fn, reps: int, *kernels: str) -> list[float]:
+    """Device time per call of fn in each of ``kernels`` (one launch each
+    per call) by the profiler's timeline (kernel_timeline): each launch
+    counts from the end of the launches before it, so a kernel that starts
+    early under programmatic dependent launch and waits is not counted
+    twice, as device_ms would count it."""
+    per, _, _ = kernel_timeline(lambda: [fn() for _ in range(reps)], kernels, reps,
+                                want=reps * len(kernels))
+    return [per[k] for k in kernels]
+
+
 def cuda_time_ms(fn, reps: int) -> float:
     import torch
 
@@ -319,9 +347,11 @@ def phase_build():
     t0 = time.time()
     _build.load()
     regs = kernel_registers(_build.BUILD_LOG)
-    over = {k: r for k, r in regs.items() if "int8_mm_kernel" in k and r > 80}
-    if over:
-        fail(f"build: int8_mm_kernel instances above 80 registers: {over}")
+    if new_window():  # #2 and #7 on their Hopper kernels: the mma.sync route is gone
+        spills = {k: r for k, r in regs.items() if k.endswith("spill bytes")
+                  and any(n in k for n in ("transpose_kernel", "rev_gemm", "rev_build_kernel"))}
+        if spills or "int8_mm_kernel" in _build.BUILD_LOG:
+            fail(f"build: spills in #2's or #7's kernels {spills}, or an int8_mm_kernel was built")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -1220,8 +1250,10 @@ def conj_take_index(N: int, R: int, device):
 def phase_neg_kernel():
     """fhe/negacyclic.py's kernels against their plain twins at STD128_OPT
     widths, #3 and #5 also at the ragged edges of the GEMM's 128-gate tile
-    and at N=512; then their device times, plain times, bounds and library
-    calls."""
+    and at N=512, #2 at the edges of its GEMMs' gate tiles, #1 and #7 at
+    both plane counts and N=512; then their device times, plain times,
+    bounds and library calls.  On a parent's package #2 is its mma.sync
+    int8_mm_kernel."""
     import itertools
 
     import torch
@@ -1273,6 +1305,19 @@ def phase_neg_kernel():
                                    ng.diag_matmul_plain(dig, block), t0))
         err = max(err, _check_same("neg-kernel", f"#5 {what}", ng.negacyclic_matmul(dig, ext),
                                    ng.negacyclic_matmul_plain(dig, ext), t0))
+    # #2 at the edges of its split (<= 16) and tiled (32 .. 256, 2 x 256)
+    # GEMMs' gate tiles, both plane counts, and at N=512; #1 and #7 there
+    window_shapes = [(N, M, B) for B in (1, 4, 13, 16, 17, 63, 64, 65, 127, 129, 2048) for M in (16, 8)]
+    for n_, M, B in window_shapes + [(512, M, B) for B in (4, 17, 129) for M in (16, 8)]:
+        ext = ext16[:, :M].contiguous() if n_ == N else rand8(R, M, 2 * n_)
+        dig = inputs[B][0] if n_ == N and B in inputs else rand8(B, n_ * R)
+        block = ng.build_diagonals_plain(ext)
+        err = max(err, _check_same("neg-kernel", f"#2 N={n_} M={M} B={B}", ng.window_matmul(dig, block, R, Q),
+                                   ng.window_matmul_plain(dig, block, Q), t0))
+        if B == 4:
+            err = max(err, _check_same("neg-kernel", f"#1 N={n_} M={M}", ng.build_diagonals(ext), block, t0))
+            err = max(err, _check_same("neg-kernel", f"#7 N={n_} M={M}", ng.build_rev_conj(ext),
+                                       ng.build_rev_conj_plain(ext), t0))
     if ng.PLAIN_LAUNCHES != plain0 or any(ng.LAUNCHES[k] == launches0[k] for k in ng.KERNELS):
         fail(f"neg-kernel: launches {ng.LAUNCHES} (before {launches0}), plain "
              f"{ng.PLAIN_LAUNCHES} (before {plain0}): want every kernel on the card, no plain twin")
@@ -1281,15 +1326,26 @@ def phase_neg_kernel():
     ext, block = ext16, ng.build_diagonals(ext16)
     conj = ng.build_rev_conj(ext)
     blocks = [ng.build_diagonals(rand8(R, 16, 2 * N)) for _ in range(8)]  # 126 MB, > L2
+    new = new_window()
     res = {}
     for B in (4, 2048):
         dig, P, acc, amt = inputs[B]
         mm_ops = 2.0 * B * nt * K * 16 * 128
         raw, comb = B * 16 * N * 4, B * 4 * N * 4
         cyc = itertools.cycle(blocks)
+        # #2: the transpose, then #8's GEMM; the split GEMM (B <= 16) adds
+        # partial sums that rev_reduce_kernel takes mod Q (its zeroing
+        # memset, 64 KB at B=4, is not timed)
+        window_names = (("transpose_kernel", "rev_gemm") + (("rev_reduce_kernel",) if B <= 16 else ())) \
+            if new else ("int8_mm_kernel",)
+        if new:
+            names = kernel_names(lambda: ng.window_matmul(dig, block, R, Q))
+            if any("int8_mm_kernel" in k for k in names) or not all(any(n in k for k in names) for n in window_names):
+                fail(f"neg-kernel: #2 at B={B} launched {sorted(names)}: want {window_names}, no int8_mm_kernel")
+            log("neg-kernel", t0, f"kernels of #2 at B={B}: {sorted(k[:48] for k in names)}")
         kernels = {  # name: (call, its plain twin, its device kernels, (int8 ops, bytes))
             "window": (lambda: ng.window_matmul(dig, block, R, Q), lambda: ng.window_matmul_plain(dig, block, Q),
-                       ("int8_mm_kernel",), (mm_ops, dig.numel() + block.numel() + comb)),
+                       window_names, (mm_ops, dig.numel() + block.numel() + comb)),
             "diag": (lambda: ng.diag_matmul(dig, block, R), lambda: ng.diag_matmul_plain(dig, block),
                      ("transpose_kernel", "raw_gemm_kernel"), (mm_ops, dig.numel() + block.numel() + raw)),
             "onthefly": (lambda: ng.negacyclic_matmul(dig, ext), lambda: ng.negacyclic_matmul_plain(dig, ext),
@@ -1298,9 +1354,11 @@ def phase_neg_kernel():
                      ("std_cmux_kernel",), (0.0, P.numel() * 4 + 2 * acc.numel() * 4 + amt.numel() * 4)),
             "build_conj": (lambda: ng.build_rev_conj(ext), lambda: ng.build_rev_conj_plain(ext),
                            ("rev_build_kernel",), (0.0, ext.numel() + conj.numel())),
+            "build": (lambda: ng.build_diagonals(ext), lambda: ng.build_diagonals_plain(ext),
+                      ("rev_build_kernel",), (0.0, ext.numel() + block.numel())),
         }
         for name, (call, plain, knames, work) in kernels.items():
-            parts = device_ms(call, 20, *knames)
+            parts = (timeline_ms if name == "window" else device_ms)(call, 20, *knames)
             r = {"max_abs_err": err, "ms": sum(parts), "parts": parts,
                  "plain_ms": cuda_time_ms(plain, reps=3), "library_ms": None}
             r["bound_ms"], r["bound_by"] = bound(*work)
@@ -1311,7 +1369,7 @@ def phase_neg_kernel():
         parts = device_ms(hbm, 24, "transpose_kernel", "raw_gemm_kernel")
         res[("diag_hbm", B)] = {"ms": sum(parts), "parts": parts, "events_ms": cuda_time_ms(hbm, reps=24)}
 
-    # the library calls: one torch._int_mm for #3/#5 (B=2048), one torch.take for #7
+    # the library calls: one torch._int_mm for #3/#5 (B=2048), one torch.take for #7 and #1
     dig = inputs[2048][0]
     full = negacyclic_matrix(ext)
     err = max(err, _check_same("neg-kernel", "torch._int_mm(dig, negacyclic matrix) == #3, B=2048",
@@ -1323,6 +1381,10 @@ def phase_neg_kernel():
     for name in ("diag", "onthefly"):
         res[(name, 2048)]["library_ms"] = mm_ms
     res[("build_conj", 2048)]["library_ms"] = cuda_time_ms(lambda: torch.take(ext, flat), reps=20)
+    flat1 = take_index(N, R, "cuda")
+    err = max(err, _check_same("neg-kernel", "torch.take through the true index == #1", torch.take(ext, flat1),
+                               block, t0))
+    res[("build", 2048)]["library_ms"] = cuda_time_ms(lambda: torch.take(ext, flat1), reps=20)
     for (name, B), r in res.items():
         extra = "".join(f", {k} {r[k]:.4f} ms" for k in ("events_ms", "plain_ms", "bound_ms", "library_ms")
                         if r.get(k))
@@ -1501,16 +1563,18 @@ def main() -> None:
           for k, line in (("window_matmul", 757), ("matmul_dec", 816), ("cmux", 900))],
         entry("rot_step_true", "oece_tpu_torch/csrc/rot_step.cu", 1047, res["rot-steps-circuit"],
               *res["rot-step"]),
-        # #2 and #6 launch #8's and #10's kernels; #3 and #5 have torch._int_mm
-        # on the materialized negacyclic matrix, #7 one torch.take
+        # #2 is #3's transpose then #8's GEMMs (negacyclic.cu: oece_window_matmul), #6
+        # #10's kernel; #3 and #5 have torch._int_mm on the materialized
+        # negacyclic matrix, #7 and #1 alone (row-major) one torch.take
         *[entry(f"neg_{k}", f"oece_tpu_torch/csrc/{src}", line, neg_launches[fn],
                 *fields(neg_res[k]), neg_res[k]["library_ms"])
           for k, src, line, fn in (
-              ("window", "std_step.cu", 208, "window_matmul"),
+              ("window", "negacyclic.cu", 208, "window_matmul"),
               ("diag", "wgmma_mm.cuh", 106, "diag_matmul"),
               ("onthefly", "wgmma_mm.cuh", 427, "negacyclic_matmul"),
               ("cmux", "std_step.cu", 525, "cmux_epilogue"),
-              ("build_conj", "negacyclic.cu", 687, "build_rev_conj"))],
+              ("build_conj", "int8_mm.cuh", 687, "build_rev_conj"),
+              ("build", "int8_mm.cuh", 71, "build_diagonals"))],
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -23,19 +23,38 @@
 //   #7 _build_rev_kernel (build_rev_pallas): byte-phase windows -> the
 //      reversed diagonals in the conjugated basis (rows and columns of
 //      each 128 x 128 tile in the TPU's byte-plane order).  Here
-//      rev_build_kernel<M, true> from ext; rev_build_kernel<M> (the same
-//      entry, conj = 0) is #1 on its own.
-// #2 (_window_matmul_kernel) and #6 (_cmux_epilogue_kernel) are, in true
-// column order, the functions of #8 and #10: they launch
-// oece_window_matmul_true and oece_cmux_epilogue_true of std_step.cu.
+//      rev_build_kernel<M, true> from ext: one block per (plane m, digit
+//      row r, diagonal d') stages the 255 key-row bytes its 128 row
+//      segments share with 16-byte loads, cuts 64-byte windows from them by
+//      funnel shifts and writes each 16-byte store as byte j of 16 window
+//      words (4 x 4 byte transposes, int8_mm.cuh); rev_build_kernel<M>
+//      (the same entry, conj = 0) is #1 on its own, the windows stored as
+//      they are.
+//   #2 _window_matmul_kernel (window_matmul_pallas): #8's function (the
+//      limb combine mod Q fused) on a row-major block.  Here
+//      transpose_kernel writes the block K-major into the wrapper's
+//      scratch, as for #3, and rev_step.cu's #8 (oece_rev_window_matmul:
+//      its split wgmma GEMM up to 16 gates, the tiled one above) reads it
+//      by TMA.  Both launches are one #2 call.  Tried and left out: #8's
+//      GEMMs making their key tiles in shared memory from TMA boxes of the
+//      row-major block, in one launch.  They took 12.2-12.5 us against
+//      14.7-14.9 at B = 4, but 0.331-0.334 ms against 0.221-0.222 at
+//      B = 2048, where every 256-gate tile made the same key tiles again
+//      beside the MMAs' own shared-memory traffic (chip_smoke.py
+//      neg-kernel, NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+// #6 (_cmux_epilogue_kernel) is, in true column order, #10's function: it
+// launches oece_cmux_epilogue_true of std_step.cu.
 //
 // Bounds on the H100 at STD128_OPT (N = 1024, R = 4, M = 16): #3 and #5
 // contract 67.1 M int8 MACs per gate, 139 us at B = 2048 at the 1,979 TOPS
 // int8 peak; their int32 output is 64 KB per gate (4x the combined
 // output), 134 MB at B = 2048, 40 us of HBM: operations bound.  #3's
 // transpose moves 15.7 MB each way (9.4 us); at 4-8 gates both are bound
-// by the GEMM's latency (PERF.md).  #7 writes the 15.7 MB block: bytes
-// bound, as #1, with a byte gather.
+// by the GEMM's latency (PERF.md).  #2 contracts as many MACs and writes a
+// quarter of #3's output (0.139 ms at B = 2048); at B = 4 its bound is the
+// block's bytes, read once (4.7 us), which the transpose writes and the
+// GEMM reads again.  #7 reads 131 KB and writes the 15.7 MB block: bytes
+// bound (4.73 us), as #1.
 
 #include "int8_mm.cuh"
 #include "wgmma_mm.cuh"
@@ -43,15 +62,12 @@
 namespace {
 
 template <int M>
-void build(const void* ext, void* rev, int N, int R, int conj,
-           cudaStream_t st) {
-  const long long threads = (long long)(2 * (N / T) - 1) * R * T * (M * T / 16);
+void build(const void* ext, void* rev, int N, int R, int conj, cudaStream_t st) {
+  const int blocks = M * R * (2 * (N / T) - 1);
   if (conj) {
-    rev_build_kernel<M, true><<<blocks_for(threads), 256, 0, st>>>(
-        (const int8_t*)ext, (int8_t*)rev, N, R);
+    rev_build_kernel<M, true><<<blocks, 256, 0, st>>>((const int8_t*)ext, (int8_t*)rev, N, R);
   } else {
-    rev_build_kernel<M><<<blocks_for(threads), 256, 0, st>>>(
-        (const int8_t*)ext, (int8_t*)rev, N, R);
+    rev_build_kernel<M><<<blocks, 256, 0, st>>>((const int8_t*)ext, (int8_t*)rev, N, R);
   }
 }
 
@@ -69,6 +85,24 @@ extern "C" int oece_diag_matmul(const void* dig, const void* block, void* blockT
       (const int8_t*)block, (int8_t*)blockT, rows, cols);
   const int rc = check_launch();
   return rc ? rc : wgmm::raw_gemm<false>(dig, blockT, out, B, N, R, planes, st);
+}
+
+// #8 alone (rev_step.cu).
+extern "C" int oece_rev_window_matmul(const void* dig, const void* blockT, void* out, int B, int N,
+                                      int R, int polys, int Q, void* stream);
+
+// #2: dig int8 [B, nt*R*T] x one step's row-major block int8
+// [(2nt-1)*R*T, 4*polys*T] -> out int32 [B, polys, N] mod Q in two
+// launches: the block transposed into blockT (scratch of its size, K-major
+// [4*polys, T, rows]), then #8 on it.
+extern "C" int oece_window_matmul(const void* dig, const void* block, void* blockT, void* out, int B,
+                                  int N, int R, int polys, int Q, void* stream) {
+  if (polys != 4 && polys != 2) return (int)cudaErrorInvalidValue;
+  const int rows = (2 * (N / T) - 1) * R * T, cols = 4 * polys * T;
+  wgmm::transpose_kernel<<<dim3(cols / 128, rows / 128), 256, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)block, (int8_t*)blockT, rows, cols);
+  const int rc = check_launch();
+  return rc ? rc : oece_rev_window_matmul(dig, blockT, out, B, N, R, polys, Q, stream);
 }
 
 // #5: dig int8 [B, nt*R*T] x the negacyclic product of one step's compact

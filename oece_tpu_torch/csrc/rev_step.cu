@@ -89,6 +89,9 @@
 // #8 alone runs the GEMM on the given digits, #9 alone the digits kernel
 // (without a CMUX) and the GEMM; with the split GEMM the sums land in the
 // output, zeroed first, and rev_reduce_kernel takes them mod Q in place.
+// #8 alone also serves #2 of the kernel-level API (negacyclic.cu:
+// oece_window_matmul) on the block that #3's transpose_kernel writes
+// K-major from a row-major one, so #8 takes any R.
 // #1 alone (oece_std_build) builds one step's K-major block.  A gate with
 // a = 0 gets its accumulator back unchanged: both rotations are the
 // identity, so the CMUX adds 2Q - 2Q.
@@ -217,10 +220,9 @@ __global__ void __launch_bounds__(256) std_build_kernel(const int8_t* __restrict
   int8_t* dst = out + (long long)m * T * rows + dp * RT + r * T + 16 * v;
 #pragma unroll
   for (int it = 0; it < T / 32; ++it) {
-    const int t = (tid >> 3) + 32 * it, a = T - 1 - t + 16 * v, w0 = a >> 2, sh = 8 * (a & 3);
+    const int t = (tid >> 3) + 32 * it;
     uint32_t w[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) w[k] = __funnelshift_r(span[w0 + k], span[w0 + k + 1], sh);
+    span_words(span, T - 1 - t + 16 * v, w);
     *(uint4*)(dst + t * rows) = make_uint4(w[0], w[1], w[2], w[3]);
   }
   if (early) asm volatile("griddepcontrol.wait;" ::: "memory");
@@ -263,7 +265,7 @@ constexpr int SPLIT_BLOCKS = 128;  // the split GEMM's blocks, at most: one wave
 enum Mode { ROTATE, MATMUL_DEC, MATMUL };
 
 // A run of the GEMM against the K-major key keyT [n, 4*polys, T,
-// (2nt-1)*RT] with its digits dig int8 [B, K]:
+// (2nt-1)*RT] with its digits dig int8 [B, K], R digit rows:
 //   ROTATE      the whole rotation on acc [B, 2, N] in place, n steps,
 //               amounts a2N [B, n]; prod: P [B, 4, N] (tiled) or two sums
 //               [2, B, 4, N] (split); with ext (ginx_ext [n, R, 16, 2N])
@@ -280,7 +282,7 @@ struct Run {
   const void* keyT;
   int polys;
   const int* a2N;
-  int B, n, N, d_used, log_bg, shift, Q;
+  int B, n, N, R, log_bg, shift, Q;
   cudaStream_t st;
   const int8_t* ext;
 };
@@ -295,7 +297,7 @@ int split_dpg(int N, int polys) {
 cudaError_t digits(const Run& A, const int* P, int summed, int* sum_zero, int pstep, int8_t* dig) {
   return rotg::launch(rev_digits_kernel, blocks_for((long long)A.B * 2 * A.N / 4), 256, 0, A.st,
                       A.acc, P, summed, sum_zero, A.polys, A.a2N, A.n, pstep, dig, A.B, A.N,
-                      A.d_used, A.log_bg, A.shift, A.Q);
+                      A.R / 2, A.log_bg, A.shift, A.Q);
 }
 
 // Step i's block from ext into slot i & 1 of the ring keyT.  From step 1
@@ -303,16 +305,16 @@ cudaError_t digits(const Run& A, const int* P, int summed, int* sum_zero, int ps
 // slot) and waits for it last: the GEMM of step i-2, which read this slot,
 // finished before the GEMM of step i-1 let the build launch.
 cudaError_t build(const Run& A, int i) {
-  const int nt = A.N / T, R = 2 * A.d_used;
-  const long long slot = 16LL * T * (2 * nt - 1) * R * T;
-  return rotg::launch(std_build_kernel, 16 * R * (2 * nt - 1), 256, 0, A.st,
-                      A.ext + (long long)i * R * 16 * 2 * A.N,
-                      (int8_t*)const_cast<void*>(A.keyT) + (i & 1) * slot, A.N, R, (int)(i > 0));
+  const int nt = A.N / T;
+  const long long slot = 16LL * T * (2 * nt - 1) * A.R * T;
+  return rotg::launch(std_build_kernel, 16 * A.R * (2 * nt - 1), 256, 0, A.st,
+                      A.ext + (long long)i * A.R * 16 * 2 * A.N,
+                      (int8_t*)const_cast<void*>(A.keyT) + (i & 1) * slot, A.N, A.R, (int)(i > 0));
 }
 
 template <int NB, int MW, bool kSplit>
 int run(const Run& A, int dpg) {
-  const Shape g = rotg::step_shape(A.B, A.N, A.Q, 2 * A.d_used * T, A.polys, NB, MW);
+  const Shape g = rotg::step_shape(A.B, A.N, A.Q, A.R * T, A.polys, NB, MW);
   CUtensorMap dig_map, key_map;
   const bool ring = A.ext != nullptr;
   if (!rotg::make_maps(A.keyT, ring ? 2 : A.n, 4 * A.polys, A.dig, g, NB, kSplit ? dpg : 0, &dig_map,
@@ -328,8 +330,7 @@ int run(const Run& A, int dpg) {
   const auto gemm = [&](int* out, int step) {
     if constexpr (kSplit)
       return rotg::launch(rev_gemm_split_kernel<NB>, g.polys * (T / CHUNK) * groups, 256,
-                          rotg::split_smem(NB, 2 * A.d_used, dpg), A.st, dig_map, key_map, out, g,
-                          step, dpg);
+                          rotg::split_smem(NB, A.R, dpg), A.st, dig_map, key_map, out, g, step, dpg);
     else
       return rotg::launch(rev_gemm_kernel<NB, MW>, grid, Cfg<NB, MW>::THREADS, Cfg<NB, MW>::SMEM,
                           A.st, dig_map, key_map, out, g, step);
@@ -364,13 +365,15 @@ int run(const Run& A, int dpg) {
 // The GEMM for B gates (rev.py: gemm_config): up to 16 gates the split
 // GEMM where its shared memory holds the digits it needs (nt <= 8), else
 // the narrowest NB >= B, two math warpgroups on one 256-gate digit tile
-// above 256 gates.
+// above 256 gates.  The digits kernel of ROTATE and MATMUL_DEC needs R =
+// 2*d_used, d_used <= MAX_DIGITS.
 int dispatch(const Run& A) {
-  if (A.d_used > MAX_DIGITS || A.d_used < 1 || A.n < 1 || (A.polys != 4 && A.polys != 2) ||
-      A.N % T)
+  const bool digits = A.mode == ROTATE || A.mode == MATMUL_DEC;
+  if (A.R < 1 || (digits && (A.R % 2 || A.R / 2 > MAX_DIGITS)) || A.n < 1 ||
+      (A.polys != 4 && A.polys != 2) || A.N % T)
     return (int)cudaErrorInvalidValue;
   const int nt = A.N / T, NB = A.B <= 8 ? 8 : 16, dpg = split_dpg(A.N, A.polys);
-  if (A.B <= 16 && nt <= 8 && rotg::split_smem(NB, 2 * A.d_used, dpg) <= SMEM_MAX)
+  if (A.B <= 16 && nt <= 8 && rotg::split_smem(NB, A.R, dpg) <= SMEM_MAX)
     return NB == 8 ? run<8, 1, true>(A, dpg) : run<16, 1, true>(A, dpg);
   if (A.B <= 32) return run<32, 1, false>(A, 1);
   if (A.B <= 64) return run<64, 1, false>(A, 1);
@@ -392,7 +395,7 @@ extern "C" int oece_blind_rotate_rev(void* acc, void* prod, void* dig, const voi
                                      const void* a2N, int B, int n, int N, int d_used, int log_bg,
                                      int shift, int Q, void* stream) {
   const revg::Run A{revg::ROTATE, (int*)acc, (int*)prod, (int8_t*)dig, keyT, 4, (const int*)a2N,
-                    B, n, N, d_used, log_bg, shift, Q, (cudaStream_t)stream, nullptr};
+                    B, n, N, 2 * d_used, log_bg, shift, Q, (cudaStream_t)stream, nullptr};
   return revg::dispatch(A);
 }
 
@@ -404,7 +407,7 @@ extern "C" int oece_blind_rotate_std(void* acc, void* prod, void* dig, void* rin
                                      const void* ginx_ext, const void* a2N, int B, int n, int N,
                                      int d_used, int log_bg, int shift, int Q, void* stream) {
   const revg::Run A{revg::ROTATE, (int*)acc, (int*)prod, (int8_t*)dig, ring, 4, (const int*)a2N,
-                    B, n, N, d_used, log_bg, shift, Q, (cudaStream_t)stream,
+                    B, n, N, 2 * d_used, log_bg, shift, Q, (cudaStream_t)stream,
                     (const int8_t*)ginx_ext};
   return revg::dispatch(A);
 }
@@ -423,9 +426,8 @@ extern "C" int oece_std_build(const void* ext, void* out, int N, int R, void* st
 // (M = 16) or 2 (M = 8).
 extern "C" int oece_rev_window_matmul(const void* dig, const void* blockT, void* out, int B, int N,
                                       int R, int polys, int Q, void* stream) {
-  if (R % 2) return (int)cudaErrorInvalidValue;
   const revg::Run A{revg::MATMUL, nullptr, (int*)out, (int8_t*)dig, blockT, polys, nullptr,
-                    B, 1, N, R / 2, 0, 0, Q, (cudaStream_t)stream, nullptr};
+                    B, 1, N, R, 0, 0, Q, (cudaStream_t)stream, nullptr};
   return revg::dispatch(A);
 }
 
@@ -435,6 +437,6 @@ extern "C" int oece_rev_matmul_dec(const void* acc, void* dig, const void* block
                                    int B, int N, int d_used, int log_bg, int shift, int polys,
                                    int Q, void* stream) {
   const revg::Run A{revg::MATMUL_DEC, (int*)acc, (int*)out, (int8_t*)dig, blockT, polys, nullptr,
-                    B, 1, N, d_used, log_bg, shift, Q, (cudaStream_t)stream, nullptr};
+                    B, 1, N, 2 * d_used, log_bg, shift, Q, (cudaStream_t)stream, nullptr};
   return revg::dispatch(A);
 }

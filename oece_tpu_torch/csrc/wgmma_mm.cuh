@@ -56,6 +56,8 @@
 #include <dlfcn.h>
 #include <stdint.h>
 
+#include "int8_mm.cuh"
+
 namespace {
 namespace wgmm {
 
@@ -384,13 +386,11 @@ __global__ void __launch_bounds__(256) transpose_kernel(const int8_t* __restrict
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const uint32_t* src = tile + (16 * q + 4 * a) * 32 + (w ^ (4 * q));
-    const uint32_t x0 = src[0], x1 = src[32], x2 = src[64], x3 = src[96];
-    const uint32_t lo01 = __byte_perm(x0, x1, 0x5140), hi01 = __byte_perm(x0, x1, 0x7362);
-    const uint32_t lo23 = __byte_perm(x2, x3, 0x5140), hi23 = __byte_perm(x2, x3, 0x7362);
-    col[0][a] = __byte_perm(lo01, lo23, 0x5410);
-    col[1][a] = __byte_perm(lo01, lo23, 0x7632);
-    col[2][a] = __byte_perm(hi01, hi23, 0x5410);
-    col[3][a] = __byte_perm(hi01, hi23, 0x7632);
+    const uint32_t x[4] = {src[0], src[32], src[64], src[96]};
+    uint32_t c[4];
+    transpose4x4(x, c);
+#pragma unroll
+    for (int cb = 0; cb < 4; ++cb) col[cb][a] = c[cb];
   }
 #pragma unroll
   for (int cb = 0; cb < 4; ++cb)

@@ -119,14 +119,14 @@ def load() -> ctypes.CDLL:
     lib.oece_rev_window_matmul.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
     lib.oece_rev_matmul_dec.restype = i32
     lib.oece_rev_matmul_dec.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
-    lib.oece_window_matmul_true.restype = i32
-    lib.oece_window_matmul_true.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
     lib.oece_cmux_epilogue_true.restype = i32
     lib.oece_cmux_epilogue_true.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
     lib.oece_diag_matmul.restype = i32
     lib.oece_diag_matmul.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
     lib.oece_negacyclic_matmul.restype = i32
     lib.oece_negacyclic_matmul.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+    lib.oece_window_matmul.restype = i32
+    lib.oece_window_matmul.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
     lib.oece_build_rev.restype = i32
     lib.oece_build_rev.argtypes = [ptr] * 2 + [i32] * 4 + [ptr]
     lib.oece_rot_step.restype = i32

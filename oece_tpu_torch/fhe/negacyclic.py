@@ -39,13 +39,22 @@ scratch tensors, the key tile the GEMM's TMA boxes put into stage c of a
 tile, by the kernel's own box origins (``diag_box_origin``,
 ``phase_box_origin``), so that the CPU tests pin the tile layout.
 
+#2 and #6 are, in true column order, the functions of #8 and #10 (through
+``rev.window_matmul_counted`` / ``rev.cmux_epilogue_counted``).  #2 is
+#3's transpose of the block into K-major scratch, then #8's wgmma GEMMs of
+csrc/rev_step.cu on it, in one call; ``transpose_tile_plain`` models the
+transpose's tile in shared memory (its word swizzle and 4 x 4 byte
+transposes), and #8's TMA boxes of the result are rev.py's.  #1 alone and
+#7 are one build kernel of csrc/int8_mm.cuh: a block per (plane, digit
+row, diagonal) stages 256 key-row bytes (``build_span_index``) and cuts each
+thread's 16-byte stores from them (``build_window_start``), as they are
+(#1) or transposed 4 x 4 from 16 window words (#7).  ``byte_perm`` and ``transpose4x4``
+repeat the kernels' byte permutes.
+
 Each wrapper runs its plain twin (``*_plain``) for CPU tensors and, for
-CUDA tensors, launches its kernel of csrc/negacyclic.cu or raises; #2 and
-#6 are, in true column order, the functions of #8 and #10 and launch their
-kernels of csrc/std_step.cu through ``rev.window_matmul_counted`` /
-``rev.cmux_epilogue_counted``.  ``LAUNCHES[name]`` counts a wrapper's
-kernel launches, where each launch returns, ``PLAIN_LAUNCHES[name]`` its
-calls that ran the plain twin.
+CUDA tensors, launches its kernel or raises.  ``LAUNCHES[name]`` counts a
+wrapper's kernel launches, where each launch returns,
+``PLAIN_LAUNCHES[name]`` its calls that ran the plain twin.
 """
 
 from __future__ import annotations
@@ -119,8 +128,8 @@ PHASE_COPIES = 32
 
 
 def transpose_block_plain(block: torch.Tensor) -> torch.Tensor:
-    """#3's pre-pass: block int8 [(2nt-1)*R*T, M*T] -> blockT [M*T,
-    (2nt-1)*R*T], K-major for the GEMM."""
+    """#3's and #2's pre-pass: block int8 [(2nt-1)*R*T, M*T] -> blockT
+    [M*T, (2nt-1)*R*T], K-major for the GEMM."""
     return block.t().contiguous()
 
 
@@ -175,6 +184,71 @@ def phase_key_tile(F: torch.Tensor, k: int, c: int, ct: int) -> torch.Tensor:
     return torch.cat(boxes)
 
 
+# csrc/int8_mm.cuh's transpose4x4: the __byte_perm selectors of its two
+# rounds (bytes 0, 1 and 2, 3 of word pairs; then even and odd bytes).
+TRANSPOSE_SELECTORS = (0x5140, 0x7362, 0x5410, 0x7632)
+
+
+def byte_perm(x: torch.Tensor, y: torch.Tensor, sel: int) -> torch.Tensor:
+    """CUDA's __byte_perm on words given as their bytes [..., 4], byte 0
+    the lowest: byte n of the result is byte (sel >> 4n) & 7 of x's 4
+    bytes followed by y's."""
+    return torch.cat([x, y], dim=-1)[..., [(sel >> 4 * n) & 7 for n in range(4)]]
+
+
+def transpose4x4(x: torch.Tensor) -> torch.Tensor:
+    """transpose4x4 on words [..., 4 words, 4 bytes]: word b of the result
+    is byte b of the 4 words, by the kernel's six byte permutes."""
+    lo, hi, even, odd = TRANSPOSE_SELECTORS
+    lo01, hi01 = byte_perm(x[..., 0, :], x[..., 1, :], lo), byte_perm(x[..., 0, :], x[..., 1, :], hi)
+    lo23, hi23 = byte_perm(x[..., 2, :], x[..., 3, :], lo), byte_perm(x[..., 2, :], x[..., 3, :], hi)
+    return torch.stack([byte_perm(lo01, lo23, even), byte_perm(lo01, lo23, odd),
+                        byte_perm(hi01, hi23, even), byte_perm(hi01, hi23, odd)], dim=-2)
+
+
+def transpose_tile_plain(tiles: torch.Tensor) -> torch.Tensor:
+    """wgmma_mm.cuh's transpose_kernel on 128 x 128 tiles [..., T, T] of a
+    block, as the 256 threads of each of its blocks run it: 16-byte chunk
+    c of row r is staged at words 4*(c ^ (r/16 % 8)) of the row's 32 (so
+    that its column reads hit 32 banks); thread (row group q, word column
+    w) reads rows 16q + 4a .. +3 at word w ^ 4q, transposes each 4 x 4
+    byte block (``transpose4x4``) and writes bytes 16q .. 16q+15 of output
+    rows 4w .. 4w+3.  Returns the output tiles, each input tile
+    transposed."""
+    lead = tiles.shape[:-2]
+    rows, chunks = torch.arange(TILE)[:, None], torch.arange(TILE // 16)
+    staged = torch.empty((*lead, TILE, TILE // 16, 16), dtype=tiles.dtype)
+    staged[..., rows, chunks ^ (rows // 16 % 8), :] = tiles.reshape(*lead, TILE, TILE // 16, 16)
+    words = staged.view(*lead, TILE, TILE // 4, 4)  # [..., row, word, byte]
+    q, w = torch.arange(8)[:, None, None, None], torch.arange(TILE // 4)[None, :, None, None]
+    a, i = torch.arange(4)[None, None, :, None], torch.arange(4)[None, None, None, :]
+    x = words[..., 16 * q + 4 * a + i, w ^ (4 * q), :]  # [..., q, w, a, i, byte]
+    col = transpose4x4(x)  # [..., q, w, a, cb, i]: byte i is row 16q + 4a + i, column 4w + cb
+    n = len(lead)
+    return col.permute(*range(n), n + 1, n + 3, n, n + 2, n + 4).reshape(*lead, TILE, TILE)
+
+
+def build_span_index(N: int) -> torch.Tensor:
+    """#1 alone and #7: [2nt-1, 256], the key-row bytes that
+    rev_build_kernel's block (m, r, d') stages, span[j] = ext[r, m,
+    ((nt-2-d')*T + j) mod 2N], 16 loads of 16 bytes from a multiple of T,
+    none wrapping.  Entry (u, t) of the block's rows is span[T + t - u]."""
+    dp = torch.arange(2 * (N // TILE) - 1)[:, None]
+    return ((N // TILE - 2 - dp) * TILE + torch.arange(2 * TILE)) % (2 * N)
+
+
+def build_window_start(up, h, conj: bool):
+    """The first span byte a that thread (row u', h = 0 or 1) reads; its 4
+    stores of 16 bytes land at columns 32g + 16h of its row.  True order:
+    a = T - u' + 16h, store g is span bytes a + 32g .. a + 32g + 15.
+    Conjugated basis: row u = trueidx(u'), a = T - u + 64h, the words W_i =
+    span[a + 4i .. a + 4i + 3] hold t = 64h + 4i .. of row u, and store g
+    is byte g of W_0 .. W_15."""
+    if conj:
+        return TILE - (4 * (up % 32) + up // 32) + 64 * h
+    return TILE - up + 16 * h
+
+
 window_matmul_plain = rev.window_matmul_true_plain  # #2 (digs_rows, block, Q)
 cmux_epilogue_plain = rev.cmux_epilogue_true_plain  # #6 (P, acc, amt, Q)
 
@@ -215,15 +289,17 @@ def _build_rev(name: str, ext: torch.Tensor, conj: int, plain) -> torch.Tensor:
 def build_diagonals(ext: torch.Tensor) -> torch.Tensor:
     """#1: one step's compact key ext int8 [R, M, 2N], M = 16 or 8 -> its
     reversed-diagonal block int8 [(2nt-1)*R*T, M*T], true columns:
-    rev_build_kernel<M>, the row-major build (fhe/std.py's step loop builds
-    its blocks K-major with csrc/rev_step.cu's std_build_kernel)."""
+    rev_build_kernel<M>, the row-major build from staged spans (fhe/std.py's
+    step loop builds its blocks K-major with csrc/rev_step.cu's
+    std_build_kernel)."""
     return _build_rev("build_diagonals", ext, 0, build_diagonals_plain)
 
 
 def build_rev_conj(ext: torch.Tensor) -> torch.Tensor:
     """#7: ext int8 [R, M, 2N] -> the reversed-diagonal block in the
     conjugated basis, bit for bit the TPU's ``build_rev_pallas`` of ext's
-    windows: rev_build_kernel<M, true>."""
+    windows: rev_build_kernel<M, true>, #1's staged spans with each
+    16-byte store transposed from 16 window words."""
     return _build_rev("build_rev_conj", ext, 1, build_rev_conj_plain)
 
 
@@ -277,7 +353,8 @@ def negacyclic_matmul(dig: torch.Tensor, ext: torch.Tensor) -> torch.Tensor:
 def window_matmul(digs_rows: torch.Tensor, block: torch.Tensor, R: int, Q: int) -> torch.Tensor:
     """#2: digits int8 [B, nt*R*T] against one step's block int8
     [(2nt-1)*R*T, M*T] -> int32 [B, M/4, N] limb-combined mod Q, true
-    columns: #8's function and kernel."""
+    columns: the block transposed K-major (#3's pre-pass), then #8's
+    GEMMs, one call of both launches."""
     name = "window_matmul"
     return rev.window_matmul_counted(name, digs_rows, block, R, Q, partial(_plain, name), _launch)
 

@@ -33,10 +33,12 @@ tiled one that writes the products mod Q.  ``gemm_config``,
 ``split_groups`` and ``gemm_tiles`` repeat the kernels' tiling for the
 CPU layout tests; the TMA boxes start where rot.py's
 ``key_box_origin`` and ``split_digit_box`` say, with RT contraction
-bytes per diagonal instead of 2RT.  ``cmux_epilogue_true`` (#10 alone,
-any amount pairs) and ``window_matmul_counted`` (#2: #8's function on a
-row-major block, for fhe/negacyclic.py) launch csrc/std_step.cu's
-kernels.
+bytes per diagonal instead of 2RT.  ``window_matmul_counted`` (#2: #8's
+function on a row-major block, for fhe/negacyclic.py) runs the same
+GEMMs on the block transposed K-major into scratch by #3's
+transpose_kernel (csrc/negacyclic.cu, one call of both launches);
+``cmux_epilogue_true`` (#10 alone, any amount pairs) launches
+csrc/std_step.cu's kernel.
 
 ``LAUNCHES`` counts the wrapper calls that launched on the card,
 ``PLAIN_LAUNCHES`` those that ran a plain twin, ``STEP_LAUNCHES`` the
@@ -211,10 +213,12 @@ def window_matmul_true(digs_rows: torch.Tensor, rev_flat: torch.Tensor, R: int, 
 def window_matmul_counted(name: str, digs_rows: torch.Tensor, rev_flat: torch.Tensor, R: int, Q: int,
                           plain, launch) -> torch.Tensor:
     """#8's function on a row-major block rev_flat int8 [(2nt-1)*R*T, M*T]
-    on either device, csrc/std_step.cu's mma.sync matmul on the card,
-    under the caller's counts: ``plain(fn, *args)`` runs the plain twin,
-    ``launch(name, rc, lib)`` checks a launch's return code and counts it
-    (fhe/negacyclic.py's #2 is this function)."""
+    on either device, under the caller's counts: ``plain(fn, *args)`` runs
+    the plain twin, ``launch(name, rc, lib)`` checks a launch's return code
+    and counts it (fhe/negacyclic.py's #2 is this function).  On the card
+    csrc/negacyclic.cu's oece_window_matmul: the block transposed into
+    int8 scratch [M*T, rows] (K-major [M, T, rows]), then #8's GEMMs on
+    it."""
     B, nt = _check_digits(name, digs_rows, R)
     M = _block_planes(name, rev_flat, R, nt)
     if not _on_card(name, digs_rows, rev_flat):
@@ -224,9 +228,10 @@ def window_matmul_counted(name: str, digs_rows: torch.Tensor, rev_flat: torch.Te
     if B == 0:
         return out
     lib = _build.load()
-    rc = lib.oece_window_matmul_true(
-        digs_rows.data_ptr(), rev_flat.data_ptr(), out.data_ptr(), B, nt * TILE, R,
-        M // 4, Q, _stream(out),
+    scratch = torch.empty((M * TILE, rev_flat.shape[0]), dtype=torch.int8, device=digs_rows.device)
+    rc = lib.oece_window_matmul(
+        digs_rows.data_ptr(), rev_flat.data_ptr(), scratch.data_ptr(), out.data_ptr(), B,
+        nt * TILE, R, M // 4, Q, _stream(out),
     )
     launch(name, rc, lib)
     return out

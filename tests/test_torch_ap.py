@@ -27,6 +27,7 @@ from oece_tpu.fhe.params import BinGate as JGate
 from oece_tpu_torch.fhe import ap, keys
 from oece_tpu_torch.fhe.params import MICRO_A, STD128_OPT, TOY, BinFHEMethod
 from test_torch_copies import jax_params, port_bootstrap_key
+from test_torch_std import one_torch_thread  # noqa: F401
 
 MICRO_AP2 = dataclasses.replace(MICRO_A, name="MICRO_AP2", B_r=2)
 TOY_AP2_N2 = dataclasses.replace(TOY, name="TOY_AP2_N2", n=2, B_r=2)

@@ -31,6 +31,7 @@ from oece_tpu_torch.fhe.golden import LWESecretKey
 from oece_tpu_torch.fhe.params import MICRO_A, BinFHEMethod
 from oece_tpu_torch.runtime.evaluator import Circuit
 from test_torch_copies import jax_params, port_bootstrap_key
+from test_torch_std import one_torch_thread  # noqa: F401
 
 MICRO_AP2 = dataclasses.replace(MICRO_A, name="MICRO_AP2", B_r=2)
 ADDER = os.path.join(

@@ -35,6 +35,7 @@ import torch
 from oece_tpu_torch.fhe import ap, keys, rot
 from oece_tpu_torch.fhe.modmath import red31
 from oece_tpu_torch.fhe.params import MICRO_A, STD128_OPT, TOY
+from test_torch_std import one_torch_thread  # noqa: F401
 
 T = 128
 MICRO_AP2 = dataclasses.replace(MICRO_A, name="MICRO_AP2", B_r=2)

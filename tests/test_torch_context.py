@@ -32,7 +32,7 @@ from oece_tpu_torch.fhe import params as pparams
 from oece_tpu_torch.fhe.context import BinFHEContext
 from oece_tpu_torch.runtime.evaluator import Circuit
 from test_torch_copies import port_bootstrap_key
-from test_torch_std import jax_fast
+from test_torch_std import jax_fast, one_torch_thread  # noqa: F401
 
 TRUTH = {
     "AND": lambda a, b: a & b, "OR": lambda a, b: a | b, "NAND": lambda a, b: 1 - (a & b),

@@ -15,6 +15,9 @@ full int8 range:
     materialized negacyclic matrix), empty batches, the wrappers' shape,
     type and device errors and their launch counters.
 
+The JAX kernels of #5 and the split pipeline compile with
+``test_torch_std.jax_fast``.
+
 #2 and #6 are in tests/test_torch_negacyclic_window.py, #7 in
 tests/test_torch_negacyclic_conj.py.  The CUDA kernels are held to the same
 plain twins on the card by chip_smoke.py (phase neg-kernel).
@@ -32,7 +35,7 @@ from oece_tpu.fhe import pallas_kernels as pk
 from oece_tpu_torch.fhe import negacyclic as ng
 from oece_tpu_torch.fhe import rev, rot
 from oece_tpu_torch.fhe.params import Q27
-from test_torch_std import _undo_planes
+from test_torch_std import _undo_planes, jax_fast, one_torch_thread  # noqa: F401
 
 T = 128
 ROOT = Path(__file__).resolve().parents[1]
@@ -64,8 +67,8 @@ def test_negacyclic_matmul_matches_pallas(B, N, R):
     M = 16
     digs, kx = _inputs(B + N + R, B, N, R, M)
     dt = pk.pack_digits_for_pallas(jnp.asarray(digs))
-    want = np.asarray(pk.negacyclic_matmul_pallas(dt, jnp.asarray(pk.pack_keys_for_pallas(kx)), R,
-                                                  interpret=True))
+    pallas = jax_fast(lambda d, k: pk.negacyclic_matmul_pallas(d, k, R, interpret=True))
+    want = np.asarray(pallas(dt, jnp.asarray(pk.pack_keys_for_pallas(kx))))
     ref = np.asarray(pk.negacyclic_matmul_reference(jnp.asarray(digs), jnp.asarray(kx)))
     dig = ng.pack_digits_rows(_t(digs))
     np.testing.assert_array_equal(dig.numpy(), np.asarray(pk.pack_digits_rows(jnp.asarray(digs))))
@@ -98,8 +101,8 @@ def test_negacyclic_matmul_split_matches_pallas(B, N, R, max_b):
     M = 16
     digs, kx = _inputs(B + max_b, B, N, R, M)
     dt = pk.pack_digits_for_pallas(jnp.asarray(digs))
-    want = np.asarray(pk.negacyclic_matmul_split(dt, jnp.asarray(pk.pack_keys_for_pallas(kx)), R,
-                                                 max_b=max_b, interpret=True))
+    split = jax_fast(lambda d, k: pk.negacyclic_matmul_split(d, k, R, max_b=max_b, interpret=True))
+    want = np.asarray(split(dt, jnp.asarray(pk.pack_keys_for_pallas(kx))))
     # the port's digits from JAX's tiled layout, as the tests of fhe/std.py take them
     dig = _t(np.array(dt).transpose(1, 0, 2).reshape(B, -1))
     got = ng.negacyclic_matmul_split(dig, _t(kx.reshape(R, M, 2 * N)))
@@ -168,7 +171,7 @@ def test_cpu_calls_count_as_plain():
 
 
 class _FakeLib:
-    """The kernel library's entry points of #8 and #10, returning ``rc``."""
+    """The kernel library's entry points of #2 and #10, returning ``rc``."""
 
     def __init__(self, rc: int):
         self.rc, self.calls = rc, 0
@@ -177,7 +180,7 @@ class _FakeLib:
         self.calls += 1
         return self.rc
 
-    oece_window_matmul_true = oece_cmux_epilogue_true = _entry
+    oece_window_matmul = oece_cmux_epilogue_true = _entry
 
     def oece_error_string(self, rc: int) -> bytes:
         return b"stub failure"

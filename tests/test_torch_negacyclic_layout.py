@@ -12,9 +12,22 @@ of ``keys.rev_block`` of the same key, transposed, at STD128_OPT widths
 (N = 1024, R = 4, M = 16 and 8), at N = 512 and at R = 8, windows that
 wrap at 2N included; and the digits times those tiles, summed stage by
 stage over gate tiles padded with zero rows as the TMA unit pads them,
-must equal ``negacyclic_matmul_plain``.  The plain twins themselves are held to the
-JAX package's interpret-mode kernels in tests/test_torch_negacyclic*.py;
-the CUDA kernels to them on the card by chip_smoke.py (neg-kernel).
+must equal ``negacyclic_matmul_plain``.
+
+#2 transposes the block with #3's transpose_kernel, whose 128 x 128 tile
+in shared memory ``transpose_tile_plain`` models (its word swizzle and 4 x
+4 byte transposes by the kernel's byte permutes), then runs rev_step.cu's
+GEMMs on the result.  The blocks transposed tile by tile must equal the
+block transposed, and every A tile that the GEMMs' TMA boxes take from
+them must equal its window of the block, at N = 256 and 1024, M = 16 and
+8 (tests/test_torch_rev_layout.py holds the GEMMs' model over such K-major
+tiles to ``window_matmul_true_plain``, and
+tests/test_torch_negacyclic_window.py the whole of #2 to the Pallas
+kernel).
+
+The plain twins themselves are held to the JAX package's interpret-mode
+kernels in tests/test_torch_negacyclic*.py; the CUDA kernels to them on
+the card by chip_smoke.py (neg-kernel).
 """
 
 import numpy as np
@@ -23,6 +36,8 @@ import torch
 
 from oece_tpu_torch.fhe import negacyclic as ng
 from oece_tpu_torch.fhe import rev
+from test_torch_rev_layout import _a_tile
+from test_torch_std import one_torch_thread  # noqa: F401
 
 T = 128
 
@@ -135,6 +150,42 @@ def test_tile_sums_are_the_raw_product(N, R, M, B):
     got5 = _gemm_by_tiles(dig, lambda k, c, ct: ng.phase_key_tile(F, k, c, ct), M, N, R)
     assert torch.equal(got3, want)
     assert torch.equal(got5, want)
+
+
+def test_byte_transpose():
+    """transpose4x4's byte permutes transpose every 4 x 4 byte block
+    ([..., word, byte])."""
+    x = torch.from_numpy(np.random.default_rng(5).integers(-128, 128, (7, 4, 4, 4)).astype(np.int8))
+    assert torch.equal(ng.transpose4x4(x), x.transpose(-1, -2))
+
+
+def window_block_t(block):
+    """#2's pre-pass as transpose_kernel runs it, one 128 x 128 tile per
+    block of its grid, as the K-major block [M, T, rows] that #8 reads."""
+    rows, cols = block.shape
+    tiles = block.view(rows // T, T, cols // T, T).transpose(1, 2)  # [row tile, column tile, T, T]
+    out = ng.transpose_tile_plain(tiles)  # out[rt, ct] is blockT's tile (ct, rt)
+    return out.permute(1, 2, 0, 3).reshape(cols // T, T, rows)
+
+
+@pytest.mark.parametrize("N, M", [(256, 16), (256, 8), (1024, 16), (1024, 8)])
+def test_window_tiles_are_block_windows(N, M):
+    """#2: the block transposed tile by tile == block.T, and the A tile of
+    column chunk cc = (o, t0) at every contraction row x = 128c that the
+    GEMMs' boxes take from it (4 planes x 16 coefficients x 128 bytes, limb
+    l at rows 16l) == block rows x .. x+127 at the columns (4o + l)*T + t0
+    + tt, ordered (l, tt), transposed."""
+    R = 4
+    block = ng.build_diagonals_plain(_key(N + M, R, M, N))
+    blockT = window_block_t(block)
+    assert torch.equal(blockT.view(M * T, -1), ng.transpose_block_plain(block))
+    xs = block.shape[0] // 128
+    # every tile at once: [o, t0 chunk, x block, limb, tt, 128 bytes]
+    tiles = blockT.view(M // 4, 4, T // 16, 16, xs, 128).permute(0, 2, 4, 1, 3, 5)
+    want = block.view(xs, 128, M // 4, 4, T // 16, 16).permute(2, 4, 0, 3, 5, 1)
+    assert torch.equal(tiles, want)
+    for o, t0c, x in ((0, 0, 0), (M // 4 - 1, 7, xs - 1), (1, 3, xs // 2)):  # the boxes at their origins
+        assert torch.equal(_a_tile(blockT, 128 * x, 8 * o + t0c), tiles[o, t0c, x].reshape(64, 128))
 
 
 class _RecordingLib:

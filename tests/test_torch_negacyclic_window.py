@@ -5,13 +5,17 @@ interpret mode, inputs drawn by numpy from a seed:
   * #2: ``negacyclic_matmul_window`` (#1 then #2) and ``window_matmul`` on
     the port's block against ``pk.negacyclic_matmul_window`` (the cases of
     tests/test_pallas.py, B = 12 chunked raggedly by max_b = 8 on the JAX
-    side) and against the port's reference with the limb combine;
+    side) and against the port's reference with the limb combine (the card
+    runs #3's transpose, whose tiles tests/test_torch_negacyclic_layout.py
+    models, then #8's GEMMs, whose tiling tests/test_torch_rev_layout.py
+    models against this plain twin);
   * #6: ``cmux_epilogue`` against ``pk.cmux_epilogue_pallas`` and the jnp
     formula of boot.py (GINX amount pairs), and against the Pallas kernel
     for any amount pairs.
 
-The CUDA kernels are #8's and #10's, held to these plain twins on the card
-by chip_smoke.py (phases rev-kernel and neg-kernel).
+The JAX kernels compile with ``test_torch_std.jax_fast``.  The CUDA
+kernels are #8's GEMMs and #10's kernel, held to these plain twins on the
+card by chip_smoke.py (phases rev-kernel and neg-kernel).
 """
 
 import jax.numpy as jnp
@@ -25,6 +29,7 @@ from oece_tpu.fhe import pallas_kernels as pk
 from oece_tpu_torch.fhe import negacyclic as ng
 from oece_tpu_torch.fhe import rot
 from oece_tpu_torch.fhe.params import Q27
+from test_torch_std import jax_fast, one_torch_thread  # noqa: F401
 
 
 def _t(x):
@@ -37,10 +42,8 @@ def test_window_matches_pallas(B, N):
     rng = np.random.default_rng(4 + B + N)
     digs = rng.integers(-128, 128, (R, B, N)).astype(np.int8)
     kx = rng.integers(-128, 128, (R * M, 2 * N)).astype(np.int8)
-    want = np.asarray(pk.negacyclic_matmul_window(
-        pk.pack_digits_rows(jnp.asarray(digs)), jnp.asarray(pk.pack_keys_for_pallas(kx)), R, Q,
-        max_b=8, interpret=True,
-    ))
+    window = jax_fast(lambda d, k: pk.negacyclic_matmul_window(d, k, R, Q, max_b=8, interpret=True))
+    want = np.asarray(window(pk.pack_digits_rows(jnp.asarray(digs)), jnp.asarray(pk.pack_keys_for_pallas(kx))))
     dig, ext = ng.pack_digits_rows(_t(digs)), _t(kx.reshape(R, M, 2 * N))
     got = ng.negacyclic_matmul_window(dig, ext, Q)
     assert got.dtype == torch.int32 and got.shape == (B, M // 4, N)
@@ -66,6 +69,6 @@ def test_cmux_epilogue_matches_pallas(B, N):
     pairs = np.stack([c_pos, a_col], axis=1)
     np.testing.assert_array_equal(ng.cmux_epilogue(_t(P), _t(acc), _t(pairs), Q).numpy(), want)
     for amt in (pairs, rng.integers(0, 2 * N, (B, 2)).astype(np.int32)):
-        pallas = np.asarray(pk.cmux_epilogue_pallas(jP, jnp.asarray(acc), jnp.asarray(amt), Q,
-                                                    block_b=4, interpret=True))
+        pallas = np.asarray(jax_fast(lambda P_, a_, m_: pk.cmux_epilogue_pallas(
+            P_, a_, m_, Q, block_b=4, interpret=True))(jP, jnp.asarray(acc), jnp.asarray(amt)))
         np.testing.assert_array_equal(ng.cmux_epilogue(_t(P), _t(acc), _t(amt), Q).numpy(), pallas)

@@ -45,6 +45,7 @@ from oece_tpu.fhe import devkeygen as jdevkeygen
 from oece_tpu_torch.fhe import keys, modmath, rev, rot
 from oece_tpu_torch.fhe.params import MICRO, STD128_OPT, TOY
 from test_torch_copies import jax_params
+from test_torch_std import one_torch_thread  # noqa: F401
 
 T = 128
 BK, CHUNK = rot.GEMM_BK, rot.GEMM_CHUNK

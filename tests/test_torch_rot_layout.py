@@ -38,6 +38,7 @@ from oece_tpu.fhe import devkeygen as jdevkeygen
 from oece_tpu_torch.fhe import keys, modmath, rot
 from oece_tpu_torch.fhe.params import MICRO_A, STD128_OPT, TOY
 from test_torch_copies import jax_params
+from test_torch_std import one_torch_thread  # noqa: F401
 
 T = 128
 STD_N2 = dataclasses.replace(STD128_OPT, name="STD128_OPT_N2", n=2)

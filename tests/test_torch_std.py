@@ -58,6 +58,20 @@ def _t(x):
     return torch.from_numpy(np.ascontiguousarray(x))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread while a module's tests run (modules import this
+    fixture to use it).  Each of the suite's xdist workers would otherwise
+    run torch on every core, and the layout models' many small ops then
+    wait on each other's thread pools: on 8 cores with six workers the
+    heavy layout modules took 786 s by default and 72 s with one thread.
+    The results do not depend on it (the ops are exact)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def jax_fast(fn, level=0):
     """fn under jax.jit, compiled by XLA's CPU backend at optimization
     ``level``: the same integer program in less compile time.  The

@@ -39,7 +39,7 @@ from oece_tpu.fhe import pallas_kernels as pk
 from oece_tpu_torch.fhe import keys, std
 from oece_tpu_torch.fhe.params import MICRO, STD128_OPT, TOY
 from test_torch_rev_layout import _brk, _id, _inputs, _rotation_by_tiles
-from test_torch_std import _undo_planes, jax_fast
+from test_torch_std import _undo_planes, jax_fast, one_torch_thread  # noqa: F401
 
 T = 128
 ROOT = Path(__file__).resolve().parents[1]
