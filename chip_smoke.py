@@ -24,9 +24,11 @@ before the result lines):
              is decrypted and checked against the plaintext chain.
   4. circuit Circuit(set="STD128_OPT", method="GINX", seed=0,
              device="cuda") runs examples/old_bristol_ckts/arith/
-             adder_32bit.txt in verify mode on 4 random cases; the sums
-             must equal a+b, and the rotation must have gone through the
-             kernel (launch counter) and never through the plain version.
+             adder_32bit.txt in verify mode on 4 random cases, its checks
+             on the device branch (the card's default); the sums must
+             equal a+b with no repair, and the rotation must have gone
+             through the kernel (launch counter) and never through the
+             plain version.  Prints the per-level wall (c.trace).
   5. ap-kernel   the AP rotation #13 (csrc/ap_step.cu: the live-gate
              table, then per live step the digits and a wgmma GEMM over
              the live gates, key tiles made on chip) against its plain
@@ -156,8 +158,24 @@ before the result lines):
              steps), scans A-I through its own entry points; scan A ==
              std.blind_rotate_std on the same inputs, one step of scan G
              combined == #4's P4.
+ 18. tb      the reference's test benches through the port's TB command
+             line in this process (oece_tpu_torch.harness.tb.main),
+             STD128_OPT, seed 0, verify mode on the card: adders -n 4
+             (adder_32bit, adder_64bit), multipliers -n 4 (mult_32x32),
+             adders -c 1 -n 4 -m AP; main must return 0 and every bench
+             line be PASS with no repair; prints each line with its
+             seconds and the launches of #12's and #13's kernels.
+ 19. recover-circuit  adder_32bit T=4 pure-encrypted, automatic recovery
+             on the device branch: right sums, no HARD failure; again with
+             one input's b shifted by q/12: right sums and input-side
+             repairs (IN_*); prints recover_counts and max_phase_err.
+ 20. compound-circuit  adder_32bit verify T=4, xor_mode="compound": right
+             sums, no repair, XOR_BOOTSTRAPS = 3 x T x the XOR/XNOR gates;
+             its wall beside circuit's.
+ 21. dff     a generated 4-bit DFF counter, encrypted in verify mode for 6
+             cycles: it must read 0, 1, ..., 5 with no repair.
 
-Each main-path run (phases 4, 7, 9, 10, 14, 15 and 17) sets every launch
+Each main-path run (phases 4, 7, 9, 10, 14, 15 and 17-21) sets every launch
 count to 0 just before it and reads the counts just after: the rotation
 calls that reached each version, and each CUDA kernel's launches (one per
 step; in phase 17 one per call of a kernel of fhe/negacyclic.py).
@@ -763,6 +781,20 @@ def phase_gates(phase="gates", method="GINX", B=2048, K=3, layout="rev2"):
     torch.cuda.empty_cache()
 
 
+def adder_inputs(T=4):
+    """adder_32bit's operands, T random cases, and their bits (LSB first)."""
+    rng = np.random.default_rng(1234)
+    a = rng.integers(0, 1 << 32, T, dtype=np.uint64)
+    b = rng.integers(0, 1 << 32, T, dtype=np.uint64)
+    bits = lambda v: ((v[:, None] >> np.arange(32, dtype=np.uint64)) & np.uint64(1)).astype(np.int64)  # noqa: E731
+    return a, b, [bits(a), bits(b)]
+
+
+def adder_sums(c):
+    (out,) = c.GetOutput()
+    return (out.astype(np.uint64) << np.arange(out.shape[1], dtype=np.uint64)).sum(1)
+
+
 def phase_circuit(phase="circuit", method="GINX", host_keys=False, layout="rev2", rot_mega=True):
     """adder_32bit in verify mode on device keys (GINX in ``layout``, under
     OECE_LAYOUT; rev2 in one call per step with ``rot_mega`` False), or on
@@ -789,11 +821,8 @@ def phase_circuit(phase="circuit", method="GINX", host_keys=False, layout="rev2"
     log(phase, t0, f"Circuit keygen {c.keygen_s:.1f}s")
     c.ReadFile(ADDER)
     c.setVerify(True)
-    rng = np.random.default_rng(1234)
-    a = rng.integers(0, 1 << 32, 4, dtype=np.uint64)
-    b = rng.integers(0, 1 << 32, 4, dtype=np.uint64)
-    bits = lambda v, w: ((v[:, None] >> np.arange(w, dtype=np.uint64)) & np.uint64(1)).astype(np.int64)
-    c.SetInput([bits(a, 32), bits(b, 32)])
+    a, b, ins = adder_inputs()
+    c.SetInput(ins)
     reset_counts()
     mega0, boot.ROT_MEGA = boot.ROT_MEGA, rot_mega
     try:
@@ -804,17 +833,29 @@ def phase_circuit(phase="circuit", method="GINX", host_keys=False, layout="rev2"
     finally:
         boot.ROT_MEGA = mega0
     counts = read_counts()
-    (out,) = c.GetOutput()
-    sums = (out.astype(np.uint64) << np.arange(out.shape[1], dtype=np.uint64)).sum(1)
+    sums = adder_sums(c)
     if not np.array_equal(sums, a + b):
         fail(f"{phase} adder_32bit sums {sums} != {a + b}")
     launches = check_only(phase, counts, kernel)
+    if sum(c.bad_gate_counts.values()):
+        fail(f"{phase}: verify repaired {c.bad_gate_counts}, want none")
+    WALLS[phase] = wall
     log(phase, t0, f"{method} adder_32bit verify T=4: sums == a+b; wall {wall:.2f}s; "
         f"bad_gate_counts {c.bad_gate_counts}; trace {c.trace.summary()}; "
-        f"rotation calls {counts}, {launches} launches of each {kernel} kernel")
+        f"{level_walls(c)}; rotation calls {counts}, {launches} launches of each {kernel} kernel")
     del c
     torch.cuda.empty_cache()
     return launches
+
+
+WALLS: dict = {}  # each circuit phase's Clock() wall (s)
+
+
+def level_walls(c) -> str:
+    """The check branch and the per-level wall of the last Clock's trace."""
+    w = np.array([r.wall_s for r in c.trace.records])
+    return (f"{'device' if c._dev_branch else 'host'} branch, {len(w)} levels, per-level wall "
+            f"median {1e3 * np.median(w):.3f} ms, mean {1e3 * w.mean():.3f} ms")
 
 
 def _max_err(got, want) -> tuple[int, int]:
@@ -1490,6 +1531,161 @@ def phase_context(B=2048, K=3):
     return launches
 
 
+def phase_tb():
+    """The reference's test benches through the port's TB command line
+    (oece_tpu_torch.harness.tb.main, in this process), STD128_OPT, seed 0,
+    verify mode on the card: every bench line PASS with no repair; returns
+    the launches of #12's and #13's kernels."""
+    import contextlib
+    import gc
+    import io
+
+    import torch
+    from oece_tpu_torch.harness import tb
+
+    launches = {}
+    for argv, want, kernel in ((["adders", "-n", "4"], 2, "rot"),
+                               (["multipliers", "-n", "4"], 1, "rot"),
+                               (["adders", "-c", "1", "-n", "4", "-m", "AP"], 1, "ap")):
+        t0 = time.time()
+        buf = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = tb.main(argv + ["-s", "STD128_OPT", "--seed", "0", "--device", "cuda"])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith(("PASS", "FAIL"))]
+        name = " ".join(argv)
+        if rc != 0 or len(lines) != want or not all(ln.startswith("PASS") for ln in lines):
+            print(buf.getvalue(), flush=True)
+            fail(f"tb {name}: main returned {rc}, bench lines {lines}, want {want} PASS lines")
+        if any("bad gates fixed" in ln for ln in lines):
+            fail(f"tb {name}: verify repaired gates: {lines}")
+        launches[kernel] = launches.get(kernel, 0) + check_only(f"tb {name}", counts, kernel)
+        for ln in lines:
+            log("tb", t0, f"{name}: {ln}")
+        log("tb", t0, f"{name}: rotation calls {counts}, {read_step_launches(kernel)} launches "
+            f"of each {kernel} kernel")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_recover_circuit():
+    """adder_32bit, T=4, pure-encrypted (automatic recovery, the device
+    branch): right sums and no HARD failure; then with one input's b
+    shifted by q/12 (a drift past the prep check's threshold): right sums
+    and input-side repairs (IN_*) in recover_counts."""
+    import torch
+    from oece_tpu_torch.runtime.evaluator import Circuit
+
+    t0 = time.time()
+    c = Circuit(set="STD128_OPT", seed=0, device="cuda")
+    c.ReadFile(ADDER)
+    a, b, ins = adder_inputs()
+    launches = 0
+    for drift in (0, c.params.q // 12):
+        c.Reset()
+        c.setPlaintext(False)
+        c.setEncrypted(True)
+        c.SetInput(ins)
+        if drift:
+            slot = int(c._slot[int(c.netlist.inputs[0][0])])
+            c._ct_arena[slot, 0, -1] += drift
+        reset_counts()
+        ts = time.time()
+        c.Clock()
+        torch.cuda.synchronize()
+        wall = time.time() - ts
+        launches += check_only("recover-circuit", read_counts(), "rot")
+        if not c.recover_flag or not c._dev_branch:
+            fail(f"recover-circuit: recovery {c.recover_flag}, device branch {c._dev_branch}")
+        if not np.array_equal(adder_sums(c), a + b):
+            fail(f"recover-circuit (drift {drift}): sums {adder_sums(c)} != {a + b}")
+        if c.recover_counts.get("HARD", 0):
+            fail(f"recover-circuit (drift {drift}): HARD failures {c.recover_counts}")
+        if drift and not any(k.startswith("IN_") for k in c.recover_counts):
+            fail(f"recover-circuit: the drift of q/12 was not repaired on the input side: {c.recover_counts}")
+        log("recover-circuit", t0, f"adder_32bit T=4 pure-encrypted, input drift {drift}: sums == a+b; "
+            f"wall {wall:.2f}s; recover_counts {c.recover_counts}; max_phase_err {c.max_phase_err}; "
+            f"{level_walls(c)}")
+    del c
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_compound_circuit():
+    """adder_32bit verify T=4 with xor_mode="compound": right sums, no
+    repair, and 3 bootstraps per XOR/XNOR lane."""
+    import torch
+    from oece_tpu_torch.circuits.netlist import Op
+    from oece_tpu_torch.runtime.evaluator import Circuit
+
+    t0 = time.time()
+    c = Circuit(set="STD128_OPT", seed=0, device="cuda", xor_mode="compound")
+    c.ReadFile(ADDER)
+    c.setVerify(True)
+    a, b, ins = adder_inputs()
+    c.SetInput(ins)
+    reset_counts()
+    ts = time.time()
+    c.Clock()
+    torch.cuda.synchronize()
+    wall = time.time() - ts
+    launches = check_only("compound-circuit", read_counts(), "rot")
+    n_xor = int(np.isin(c.netlist.op, (int(Op.XOR), int(Op.XNOR))).sum())
+    if not np.array_equal(adder_sums(c), a + b):
+        fail(f"compound-circuit: sums {adder_sums(c)} != {a + b}")
+    if sum(c.bad_gate_counts.values()):
+        fail(f"compound-circuit: verify repaired {c.bad_gate_counts}")
+    if c.gate_counts.get("XOR_BOOTSTRAPS") != 3 * 4 * n_xor:
+        fail(f"compound-circuit: XOR_BOOTSTRAPS {c.gate_counts.get('XOR_BOOTSTRAPS')} != 3*4*{n_xor}")
+    log("compound-circuit", t0, f"adder_32bit verify T=4 compound XOR: sums == a+b, no repair, "
+        f"XOR_BOOTSTRAPS {3 * 4 * n_xor} for {n_xor} XOR/XNOR gates; wall {wall:.2f}s "
+        f"(native: circuit {WALLS.get('circuit', float('nan')):.2f}s); {level_walls(c)}")
+    del c
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_dff():
+    """A generated 4-bit DFF counter (q += en each cycle), encrypted in
+    verify mode on the card for 6 cycles: it must read 0, 1, ..., 5 with no
+    repair."""
+    import torch
+    from oece_tpu_torch.circuits.gen import Builder
+    from oece_tpu_torch.runtime.evaluator import Circuit
+
+    t0 = time.time()
+    bld = Builder("counter4")
+    (en,) = bld.input_word(1)
+    qs = [bld.DFF() for _ in range(4)]
+    carry = en
+    for q in qs:
+        d = bld.XOR(q, carry)
+        carry = bld.AND(q, carry)
+        bld.dff_bind(q, d)
+    bld.output_word(qs)
+    c = Circuit(set="STD128_OPT", seed=0, device="cuda")
+    c.LoadNetlist(bld.build())
+    c.setVerify(True)
+    seen = []
+    reset_counts()
+    for _ in range(6):
+        c.SetInput([np.array([[1]])])
+        c.Clock()
+        seen.append(int(sum(int(v) << i for i, v in enumerate(c.GetOutput()[0][0]))))
+    torch.cuda.synchronize()
+    launches = check_only("dff", read_counts(), "rot")
+    if seen != list(range(6)) or sum(c.bad_gate_counts.values()):
+        fail(f"dff: the counter read {seen}, repairs {c.bad_gate_counts}; want 0..5 and none")
+    log("dff", t0, f"4-bit DFF counter, 6 encrypted verify cycles: {seen}, no repair; "
+        f"gate counts {c.gate_counts}")
+    del c
+    torch.cuda.empty_cache()
+    return launches
+
+
 def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None) -> dict:
     """One kernel's record in the kernels JSON line."""
     return {
@@ -1521,6 +1717,10 @@ PHASES = {
     "rot-steps-circuit": lambda: phase_circuit("rot-steps-circuit", rot_mega=False),
     "neg-kernel": phase_neg_kernel,
     "profile-boot": phase_profile_boot,
+    "tb": phase_tb,
+    "recover-circuit": phase_recover_circuit,
+    "compound-circuit": phase_compound_circuit,
+    "dff": phase_dff,
 }
 
 

@@ -1,6 +1,7 @@
 """The parts of the JAX package's ``Circuit`` surface that the port honours
 or refuses by name: ``OECE_AUTO_RECOVER=0`` runs pure-encrypted circuits
-with recovery off, as the JAX package does, bit for bit; ``generate_keys``
+with recovery off and ``=1`` with it on, as the JAX package does, bit for
+bit; ``generate_keys``
 skips key generation; ``mesh=``, ``setMesh``, the checkpoint arguments of
 ``Clock`` and ``OECE_BAD_TRACE=1`` raise NotImplementedError naming their
 ROADMAP item."""
@@ -63,14 +64,35 @@ def test_auto_recover_off_matches_jax(jax_circuit, monkeypatch):
     np.testing.assert_array_equal((tc.GetOutput()[0] << np.arange(5)).sum(1), a + b)
 
 
-def test_auto_recover_on_still_raises(monkeypatch):
+def test_auto_recover_on_still_raises(jax_circuit, monkeypatch):
+    """A pure-encrypted Clock() under OECE_AUTO_RECOVER=1, without
+    setRecovery: both packages switch recovery on at Clock() and run the
+    host branch's output-side margin checks, bit for bit (it used to
+    raise in the port)."""
+    jc, kt = jax_circuit
     monkeypatch.setenv("OECE_AUTO_RECOVER", "1")
-    c = Circuit(set="MICRO", seed=1, device="cpu")
-    c.LoadNetlist(gen_adder(2))
-    c.setPlaintext(False)
-    c.setEncrypted(True)
-    with pytest.raises(NotImplementedError, match="recovery"):
-        c.Clock()
+    monkeypatch.delenv("OECE_LEVEL_JIT", raising=False)
+    nl = gen_adder(4)
+    jc.LoadNetlist(nl)
+    jc.recover_flag, jc._recover_explicit = False, False
+    tc = Circuit(set="MICRO_A", device="cpu", keys=kt, sk=LWESecretKey(s=jc.sk.s, params=kt.params),
+                 rng=copy.deepcopy(jc._rng))
+    tc.LoadNetlist(nl)
+    for c in (jc, tc):
+        c.setPlaintext(False)
+        c.setEncrypted(True)
+    ins = _inputs(nl, 3, seed=10)
+    jc.SetInput(ins)
+    tc.SetInput(ins)
+    assert not tc.recover_flag
+    jc.Clock()
+    tc.Clock()
+    assert jc.recover_flag and tc.recover_flag
+    for a, b in zip(jc.GetOutput(), tc.GetOutput()):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(tc._ct_arena.numpy(), np.asarray(jc._ct_arena))
+    assert tc.recover_counts == jc.recover_counts and tc.max_phase_err == jc.max_phase_err > 0
+    assert tc._rng.bit_generator.state == jc._rng.bit_generator.state
 
 
 def test_bad_trace_raises(monkeypatch):

@@ -44,10 +44,11 @@ def jax_circuit(request):
     mp.undo()
 
 
-def _twin(jc, kt, nl: Netlist, plaintext: bool, encrypted: bool, verify: bool):
+def _twin(jc, kt, nl: Netlist, plaintext: bool, encrypted: bool, verify: bool, xor_mode="native"):
     jc.LoadNetlist(nl)
     sk = LWESecretKey(s=jc.sk.s, params=kt.params)
-    tc = Circuit(set=jc.params.name, device="cpu", keys=kt, sk=sk, rng=copy.deepcopy(jc._rng))
+    tc = Circuit(set=jc.params.name, device="cpu", keys=kt, sk=sk, rng=copy.deepcopy(jc._rng),
+                 xor_mode=xor_mode)
     tc.LoadNetlist(nl)
     for c in (jc, tc):
         c.setPlaintext(plaintext)
@@ -158,23 +159,40 @@ def test_port_keygen_runs_circuit():
     assert c.gate_counts["AND"] == 3 * 16
 
 
-def test_unported_features_raise():
+def test_unported_features_raise(monkeypatch):
+    """The generic-base AP method still raises; recovery, compound XOR,
+    DFF state and the automatic recovery of a pure-encrypted Clock() now
+    run, and match the JAX package's main-path Circuit bit for bit on the
+    host branch (MICRO keys, secret and generator injected)."""
     with pytest.raises(NotImplementedError, match="AP method"):
         Circuit(set="MICRO", method="AP", device="cpu")
-    with pytest.raises(NotImplementedError, match="compound XOR"):
-        Circuit(set="MICRO", xor_mode="compound", device="cpu")
-    c = Circuit(set="MICRO", seed=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="recovery"):
-        c.setRecovery(True)
+    monkeypatch.setenv("OECE_FORCE_DEVICE_KEYGEN", "1")
+    monkeypatch.setenv("OECE_AUTO_RECOVER", "1")
+    monkeypatch.delenv("OECE_LEVEL_JIT", raising=False)
+    monkeypatch.setattr(jboot, "PALLAS_INTERPRET", True)
+    jc = JaxCircuit(set="MICRO", method="GINX", seed=1)
+    kt = keys.from_jax(jc.dkeys)
     nl = gen_adder(2)
     dff = dataclasses.replace(nl, dff_d=nl.outputs[0][:1], dff_q=nl.inputs[0][:1])
-    with pytest.raises(NotImplementedError, match="DFF"):
-        c.LoadNetlist(dff)
-    c.LoadNetlist(gen_adder(2))
-    c.setPlaintext(False)
-    c.setEncrypted(True)
-    with pytest.raises(NotImplementedError, match="recovery"):
-        c.Clock()
+    for xor_mode, net, modes in (("native", nl, "recovery"), ("native", nl, "auto"),
+                                 ("compound", nl, "verify"), ("native", dff, "verify")):
+        jc.xor_mode = xor_mode
+        jc.recover_flag, jc._recover_explicit = False, False
+        tc = _twin(jc, kt, net, modes == "verify", True, modes == "verify", xor_mode)
+        if modes == "recovery":
+            for c in (jc, tc):
+                c.setRecovery(True)
+        for cycle in range(2 if net is dff else 1):
+            ins = _inputs(net, 2, seed=cycle)
+            jc.SetInput(ins)
+            tc.SetInput(ins)
+            jc.Clock()
+            tc.Clock()
+            _assert_same(jc, tc)
+        assert tc.recover_flag == jc.recover_flag == (modes != "verify")
+        assert tc.recover_counts == jc.recover_counts and tc.max_phase_err == jc.max_phase_err
+        assert ("XOR_BOOTSTRAPS" in tc.gate_counts) == (xor_mode == "compound")
+    assert tc._state_ct is not None  # the DFF netlist latched its state
 
 
 def test_cuda_device_is_explicit():

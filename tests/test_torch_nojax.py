@@ -1,8 +1,10 @@
 """The port runs without JAX and without the JAX package: a fresh
 interpreter with ``jax`` blocked imports oece_tpu_torch, generates MICRO
 keys with the port's own keygen and clocks adder_2bit to the right sums in
-verify mode, then runs gates through a MICRO ``BinFHEContext`` (what
-chip_smoke.py needs on a machine that has no JAX); no module of
+verify mode, runs gates through a MICRO ``BinFHEContext``, imports the
+harness, circuit generators and tools, and passes the adder_2bit test
+bench pure-encrypted with recovery (what chip_smoke.py needs on a machine
+that has no JAX); no module of
 ``oece_tpu`` is loaded on the way.  An AST scan finds no import of ``jax``
 or ``oece_tpu`` in the port's sources, chip_smoke.py or chip_profile.py."""
 
@@ -38,6 +40,12 @@ cc.BTKeyGen(sk)
 x, y = cc.EncryptBatch(sk, [0, 1, 1, 0]), cc.EncryptBatch(sk, [1, 1, 0, 0])
 got = cc.DecryptBatch(sk, cc.EvalBinGateBatch(["AND", "OR", "XOR", "NOR"], x, y))
 assert list(got) == [0, 1, 1, 1], got
+from oece_tpu_torch.circuits import analyze, fp, gen  # noqa: F401
+from oece_tpu_torch.harness import models, tb, testlib  # noqa: F401
+from oece_tpu_torch.tools import circuit_walls, run_circuit  # noqa: F401
+from oece_tpu_torch.utils import cli  # noqa: F401
+
+assert tb.main(["adder_2bit", "-s", "MICRO", "-n", "2", "--device", "cpu", "--recover"]) == 0
 loaded = sorted(m for m in sys.modules if m.split(".")[0] == "jax" and sys.modules[m] is not None)
 assert not loaded, loaded
 jaxpkg = sorted(m for m in sys.modules if m.split(".")[0] == "oece_tpu")
