@@ -174,11 +174,50 @@ before the result lines):
              its wall beside circuit's.
  21. dff     a generated 4-bit DFF counter, encrypted in verify mode for 6
              cycles: it must read 0, 1, ..., 5 with no repair.
+ 22. ap-generic  the generic-base AP method (TOY, B_r = 32: golden's host
+             keys with every digit value, ap.blind_rotate_ap_generic,
+             torch ops and no kernel): adder_32bit verify T=4 on the card,
+             sums == a+b with no repair, only the generic rotation run;
+             seconds and bootstraps/s; one rotation at B=8 against one
+             digit value's matrix build and torch._int_mm; then tb adders
+             -c 1 -n 4 -s TOY -m AP through tb.main, PASS.
+ 23. checkpoint  adder_32bit verify T=4 at STD128_OPT on the device branch,
+             one input of case 1 shifted by q/2 (level 1 repairs): whole,
+             then from the same generator state with Clock(checkpoint_path=
+             build/chip_smoke_checkpoint.npz, checkpoint_every=10)
+             interrupted before level 20 and resumed there: outputs,
+             ciphertext arena, bad_gate_counts, bad_gate_levels and
+             recover_counts == the whole run's, no file left; save and
+             resume times, and each save's split: the host copy, then
+             np.savez against np.savez_compressed of the same state.
+ 24. bad-trace   OECE_BAD_TRACE=1, tests/test_evaluator.py's corruption at
+             STD128_OPT (adder_2bit, T=2, input bit 0 of case 1 shifted
+             by q/2), on the device branch and the host branch: sums
+             right, one lane per repair, each in case 1, reading the
+             corrupted wire, naming its gate's op and output wire.
+ 25. ntt     fhe/ntt_dev.py on the card == fhe/ntt.py at N=1024 (forward,
+             inverse, product) at B = 4 and 2048; one STD128_OPT step's
+             product in NTT form == torch._int_mm on the materialized
+             negacyclic matrix plus the limb combine (B = 32, 2048);
+             times of the transforms and of that product beside
+             torch._int_mm's and #3's (when neg-kernel ran).
+ 26. native  the port's native parser and levelizer (g++ from
+             oece_tpu_torch/csrc/host/oece_native.cpp into
+             build/oece_tpu_torch/, failing if it does not build) ==
+             the Python versions on examples/new_bristol_ckts/crypto/
+             sha256.txt; both timed.
+ 27. mesh    a one-rank NCCL process group and its (1, 1) parallel.mesh:
+             Circuit(mesh=...) adder_32bit verify T=4 at STD128_OPT, the
+             batches through bootstrap_sharded (no padding at dp = 1,
+             #12's kernels, an NCCL all_gather): sums right, no repair,
+             outputs == phase circuit's, #12 only; then, warm, without
+             the mesh on the host branch and with it again, timed.
 
-Each main-path run (phases 4, 7, 9, 10, 14, 15 and 17-21) sets every launch
-count to 0 just before it and reads the counts just after: the rotation
-calls that reached each version, and each CUDA kernel's launches (one per
-step; in phase 17 one per call of a kernel of fhe/negacyclic.py).
+Each main-path run (phases 4, 7, 9, 10, 14, 15, 17-21 and 27) sets every
+launch count to 0 just before it and reads the counts just after: the
+rotation calls that reached each version, and each CUDA kernel's launches
+(one per step; in phase 17 one per call of a kernel of fhe/negacyclic.py);
+phase 22 checks that no kernel ran and the generic rotation did.
 The last two lines are the kernels' JSON record and {"ok": true,
 "device": {...}}.  JAX and the JAX package are blocked from being
 imported.  ``python3 chip_smoke.py PHASE ...`` runs the build and the
@@ -840,6 +879,7 @@ def phase_circuit(phase="circuit", method="GINX", host_keys=False, layout="rev2"
     if sum(c.bad_gate_counts.values()):
         fail(f"{phase}: verify repaired {c.bad_gate_counts}, want none")
     WALLS[phase] = wall
+    OUTPUTS[phase] = [o.copy() for o in c.GetOutput()]
     log(phase, t0, f"{method} adder_32bit verify T=4: sums == a+b; wall {wall:.2f}s; "
         f"bad_gate_counts {c.bad_gate_counts}; trace {c.trace.summary()}; "
         f"{level_walls(c)}; rotation calls {counts}, {launches} launches of each {kernel} kernel")
@@ -849,13 +889,16 @@ def phase_circuit(phase="circuit", method="GINX", host_keys=False, layout="rev2"
 
 
 WALLS: dict = {}  # each circuit phase's Clock() wall (s)
+OUTPUTS: dict = {}  # each circuit phase's GetOutput()
+RESULTS: dict = {}  # each finished phase's return value, for later phases
 
 
 def level_walls(c) -> str:
     """The check branch and the per-level wall of the last Clock's trace."""
     w = np.array([r.wall_s for r in c.trace.records])
     return (f"{'device' if c._dev_branch else 'host'} branch, {len(w)} levels, per-level wall "
-            f"median {1e3 * np.median(w):.3f} ms, mean {1e3 * w.mean():.3f} ms")
+            f"median {1e3 * np.median(w):.3f} ms, mean {1e3 * w.mean():.3f} ms, first "
+            f"{1e3 * w[0]:.3f} ms, max {1e3 * w.max():.3f} ms")
 
 
 def _max_err(got, want) -> tuple[int, int]:
@@ -1686,6 +1729,436 @@ def phase_dff():
     return launches
 
 
+def phase_ap_generic():
+    """The generic-base AP method (TOY, B_r = 32; ap.blind_rotate_ap_generic,
+    torch ops, on golden's host keys as in the JAX package): adder_32bit
+    verify T=4 on the card with no repair, then the TB adders at -s TOY
+    -m AP through tb.main; only the generic rotation ran, no kernel."""
+    import contextlib
+    import io
+
+    import torch
+    from oece_tpu_torch.fhe import ap
+    from oece_tpu_torch.harness import tb
+    from oece_tpu_torch.runtime.evaluator import Circuit
+
+    t0 = time.time()
+    c = Circuit(set="TOY", method="AP", seed=0, device="cuda")
+    p = c.params
+    log("ap-generic", t0, f"TOY AP keygen (host draws, device products) {c.keygen_s:.1f}s, ap_ext "
+        f"{tuple(c.keys.ap_ext.shape)} ({c.keys.ap_ext.numel() / 2**20:.0f} MiB)")
+    c.ReadFile(ADDER)
+    c.setVerify(True)
+    a, b, ins = adder_inputs()
+    c.SetInput(ins)
+    reset_counts()
+    g0 = ap.GENERIC_LAUNCHES
+    ts = time.time()
+    c.Clock()
+    torch.cuda.synchronize()
+    wall = time.time() - ts
+    counts, calls = read_counts(), ap.GENERIC_LAUNCHES - g0
+    if any(counts.values()) or calls == 0:
+        fail(f"ap-generic: kernel launches {counts}, generic rotations {calls}: want generic only")
+    if not np.array_equal(adder_sums(c), a + b):
+        fail(f"ap-generic: adder_32bit sums {adder_sums(c)} != {a + b}")
+    if sum(c.bad_gate_counts.values()):
+        fail(f"ap-generic: verify repaired {c.bad_gate_counts}, want none")
+    boots = c.trace.total_bootstraps
+    log("ap-generic", t0, f"TOY AP (n={p.n}, N={p.N}, B_r={p.B_r}, d_r={p.d_r}) adder_32bit verify T=4: "
+        f"sums == a+b, no repair; wall {wall:.2f}s, {boots} bootstraps = {boots / wall:.1f} bootstraps/s; "
+        f"{calls} generic rotations; {level_walls(c)}")
+    # where a rotation's time goes: one whole rotation at B = 8 against one
+    # digit value's matrix build and product (CUDA events)
+    rng = np.random.default_rng(3)
+    acc = torch.from_numpy(rng.integers(0, p.Q, (8, 2, p.N)).astype(np.int32)).cuda()
+    a2N = torch.from_numpy(rng.integers(0, 2 * p.N, (8, p.n)).astype(np.int32)).cuda()
+    ext = c.keys.ap_ext
+    rot_ms = cuda_time_ms(lambda: ap.blind_rotate_ap_generic(acc, ext, a2N, p), reps=3)
+    mat = ap.negacyclic_matrices(ext[5:6])[0]
+    dig = torch.randint(-64, 64, (ap.MIN_ROWS, mat.shape[0]), dtype=torch.int8, device="cuda")
+    mat_ms = cuda_time_ms(lambda: ap.negacyclic_matrices(ext[5:6]), reps=20)
+    mm_ms = cuda_time_ms(lambda: torch._int_mm(dig, mat), reps=20)
+    groups = sum(len(set(col.tolist()) - {0}) for col in ap.ap_digit_values(a2N, p).t().cpu())
+    log("ap-generic", t0, f"one rotation at B=8: {rot_ms:.2f} ms for {groups} digit-value groups "
+        f"({p.n * p.d_r} steps); one group's matrix ({mat.numel() / 2**20:.1f} MiB) {1e3 * mat_ms:.1f} us, "
+        f"its torch._int_mm on {ap.MIN_ROWS} rows {1e3 * mm_ms:.1f} us")
+    del c, ext, mat
+    torch.cuda.empty_cache()
+    buf = io.StringIO()
+    ts = time.time()
+    g0 = ap.GENERIC_LAUNCHES
+    with contextlib.redirect_stdout(buf):
+        rc = tb.main(["adders", "-c", "1", "-n", "4", "-m", "AP", "-s", "TOY", "--seed", "0",
+                      "--device", "cuda"])
+    torch.cuda.synchronize()
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith(("PASS", "FAIL"))]
+    if rc != 0 or len(lines) != 1 or not lines[0].startswith("PASS") or "bad gates fixed" in lines[0]:
+        print(buf.getvalue(), flush=True)
+        fail(f"ap-generic: tb adders -s TOY -m AP returned {rc}, bench lines {lines}")
+    log("ap-generic", t0, f"tb adders -c 1 -n 4 -s TOY -m AP: {lines[0]} ({time.time() - ts:.2f}s, "
+        f"{ap.GENERIC_LAUNCHES - g0} generic rotations)")
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "bootstraps_per_s": boots / wall, "rotation_ms": rot_ms}
+
+
+def phase_checkpoint():
+    """adder_32bit verify T=4 at STD128_OPT on the device branch, one input
+    of case 1 shifted by q/2 (so its first consumers are repaired), Clock()ed
+    once whole, then again from the same generator state with a checkpoint
+    every 10 levels and an interruption before level 20, and resumed:
+    outputs, ciphertext arena, bad_gate_counts, bad_gate_levels and
+    recover_counts must equal the whole run's."""
+    import copy
+
+    import torch
+    from oece_tpu_torch.runtime import checkpoint
+    from oece_tpu_torch.runtime.evaluator import Circuit
+
+    t0 = time.time()
+    c = Circuit(set="STD128_OPT", seed=0, device="cuda")
+    c.ReadFile(ADDER)
+    c.setVerify(True)
+    a, b, ins = adder_inputs()
+    rng0 = copy.deepcopy(c._rng)
+
+    def set_input():
+        """The inputs, with b of input bit 0 in case 1 shifted by q/2: its
+        first consumers (level 1) are repaired, before the interruption."""
+        c.SetInput(ins)
+        c._ct_arena[int(c._slot[int(c.netlist.inputs[0][0])]), 1, -1] += c.params.q // 2
+
+    set_input()
+    ts = time.time()
+    c.Clock()
+    torch.cuda.synchronize()
+    whole = time.time() - ts
+    want = dict(out=[o.copy() for o in c.GetOutput()], arena=c._ct_arena.clone(),
+                bad=dict(c.bad_gate_counts), lv=dict(c.bad_gate_levels), rec=dict(c.recover_counts))
+    if not c._dev_branch or not np.array_equal(adder_sums(c), a + b) or not want["bad"]:
+        fail(f"checkpoint: device branch {c._dev_branch}, sums {adder_sums(c)} (want {a + b}), "
+             f"repairs {want['bad']} (want some)")
+
+    c.Reset()
+    c._rng, c._gen = rng0, None  # the same draws as the whole run
+    set_input()
+    ck = os.path.join(REPO, "build", "chip_smoke_checkpoint.npz")
+    os.makedirs(os.path.dirname(ck), exist_ok=True)
+    if os.path.exists(ck):
+        os.remove(ck)
+    saves, resumes = [], []
+    real_save, real_resume, real_run = checkpoint.save, checkpoint.maybe_resume, c._run_level
+
+    def timed_save(circ, path, next_level):
+        """The save, timed after the work queued on the card has ended, and
+        its split: the host copy of the state, then np.savez and
+        np.savez_compressed of it (side files, removed)."""
+        torch.cuda.synchronize()
+        ts = time.time()
+        real_save(circ, path, next_level)
+        total = time.time() - ts
+        ts = time.time()
+        meta, arrays = checkpoint.state(circ, next_level)
+        split = [time.time() - ts]
+        for compress in (False, True):
+            side = f"{path}.{int(compress)}.npz"
+            ts = time.time()
+            checkpoint.write(side, meta, arrays, compress)
+            split += [time.time() - ts, os.path.getsize(side)]
+            os.remove(side)
+        saves.append((total, os.path.getsize(path), *split))
+
+    def timed_resume(*args):
+        ts = time.time()
+        lv = real_resume(*args)
+        resumes.append((time.time() - ts, lv))
+        return lv
+
+    class Interrupted(RuntimeError):
+        pass
+
+    def failing(level):
+        if c._cur_level == 20:
+            raise Interrupted()
+        real_run(level)
+
+    checkpoint.save, checkpoint.maybe_resume = timed_save, timed_resume
+    try:
+        c._run_level = failing
+        try:
+            c.Clock(checkpoint_path=ck, checkpoint_every=10)
+            fail("checkpoint: the interruption before level 20 did not happen")
+        except Interrupted:
+            pass
+        c._run_level = real_run
+        ts = time.time()
+        c.Clock(checkpoint_path=ck, checkpoint_every=10)
+        torch.cuda.synchronize()
+        resumed = time.time() - ts
+    finally:
+        checkpoint.save, checkpoint.maybe_resume = real_save, real_resume
+    if [lv for _, lv in resumes] != [0, 20] or os.path.exists(ck):
+        fail(f"checkpoint: resumed at levels {resumes}, file left {os.path.exists(ck)}")
+    got_out = c.GetOutput()
+    same = (all(np.array_equal(x, y) for x, y in zip(got_out, want["out"]))
+            and torch.equal(c._ct_arena, want["arena"]) and c.bad_gate_counts == want["bad"]
+            and c.bad_gate_levels == want["lv"] and c.recover_counts == want["rec"])
+    if not same:
+        fail(f"checkpoint: the resumed run differs from the whole one: bad {c.bad_gate_counts} vs "
+             f"{want['bad']}, recover {c.recover_counts} vs {want['rec']}")
+    log("checkpoint", t0, f"adder_32bit verify T=4, device branch: whole Clock {whole:.2f}s; interrupted "
+        f"before level 20 with a checkpoint every 10 levels and resumed at level {resumes[-1][1]}: "
+        f"outputs, ciphertext arena, bad_gate_counts {c.bad_gate_counts}, recover_counts "
+        f"{c.recover_counts} == the whole run's; saves (np.savez) "
+        f"{', '.join(f'{1e3 * s[0]:.1f} ms ({s[1] / 2**20:.2f} MiB)' for s in saves)}, resume "
+        f"{1e3 * resumes[-1][0]:.1f} ms, resumed Clock {resumed:.2f}s; split per save (host copy ms / "
+        f"np.savez ms, MiB / np.savez_compressed ms, MiB): "
+        + ", ".join(f"{1e3 * g:.1f} / {1e3 * u:.1f}, {nu / 2**20:.3f} / {1e3 * z:.1f}, {nz / 2**20:.3f}"
+                    for _, _, g, u, nu, z, nz in saves))
+    del c
+    torch.cuda.empty_cache()
+    return {"save_ms": [1e3 * s[0] for s in saves], "resume_ms": 1e3 * resumes[-1][0]}
+
+
+def phase_bad_trace():
+    """OECE_BAD_TRACE=1 on tests/test_evaluator.py's corruption at
+    STD128_OPT: adder_2bit verify, T=2, b of input bit 0 in case 1 shifted
+    by q/2; on the device branch and the host branch every recorded lane
+    sits in case 1, reads the corrupted wire and names its gate's op and
+    output wire; one record per repair; the sums are right."""
+    import torch
+    from oece_tpu_torch.circuits.netlist import Op
+    from oece_tpu_torch.runtime.evaluator import Circuit
+
+    t0 = time.time()
+    path = os.path.join(REPO, "examples", "simple_ckts", "adder_2bit", "adder_2bit.out")
+    in1, in2 = np.array([[1, 0], [0, 1]]), np.array([[1, 1], [1, 0]])
+    os.environ["OECE_BAD_TRACE"] = "1"
+    try:
+        c = Circuit(set="STD128_OPT", seed=0, device="cuda")
+        c.ReadFile(path)
+        for branch in ("1", "0"):
+            os.environ["OECE_LEVEL_JIT"] = branch
+            c.Reset()
+            c.setVerify(True)
+            c.SetInput([in1, in2])
+            w = int(c.netlist.inputs[0][0])
+            c._ct_arena[int(c._slot[w]), 1, -1] += c.params.q // 2
+            c.Clock()
+            sums = (c.GetOutput()[0] << np.arange(3)).sum(1)
+            lanes = c.bad_gate_lanes
+            ok = list(sums) == [4, 3] and lanes and len(lanes) == sum(c.bad_gate_counts.values())
+            for rec in lanes:
+                lv = c.plan.levels[rec["level"]]
+                k = rec["lane"]
+                ok = ok and rec["case"] == 1 and rec["wire"] == int(lv["boot_out"][k]) and (
+                    rec["op"] == Op(int(lv["boot_op"][k])).name
+                    and w in (int(lv["boot_in0"][k]), int(lv["boot_in1"][k])))
+            if not ok or c._dev_branch != (branch == "1"):
+                fail(f"bad-trace (OECE_LEVEL_JIT={branch}): sums {list(sums)}, lanes {lanes}, "
+                     f"counts {c.bad_gate_counts}")
+            log("bad-trace", t0, f"{'device' if branch == '1' else 'host'} branch: sums [4, 3], "
+                f"{len(lanes)} lanes, each in case 1 reading wire {w}: {lanes}")
+    finally:
+        os.environ.pop("OECE_BAD_TRACE")
+        os.environ.pop("OECE_LEVEL_JIT", None)
+    del c
+    torch.cuda.empty_cache()
+
+
+def phase_ntt():
+    """fhe/ntt_dev.py on the card against fhe/ntt.py (NumPy) at
+    STD128_OPT's N = 1024, bit for bit (forward, inverse, product); the
+    NTT form of one step's product (4 digit polynomials x a step key of 4
+    polynomials) against the same product as torch._int_mm on the
+    materialized negacyclic matrix and the limb combine; times of the
+    transforms at B = 4 and 2048 polynomials and of the step product at
+    B = 2048 gates beside #3's and torch._int_mm's."""
+    import torch
+    from oece_tpu_torch.fhe import keys, ntt, ntt_dev, rot
+    from oece_tpu_torch.fhe.params import STD128_OPT
+
+    t0 = time.time()
+    p = STD128_OPT
+    N, Q, R, M = p.N, p.Q, 2 * p.d_g_used, 16
+    rng = np.random.default_rng(11)
+    times = {}
+    for B in (4, 2048):
+        a = rng.integers(0, Q, (B, N))
+        b = rng.integers(0, Q, (B, N))
+        ad, bd = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+        fa = ntt_dev.ntt_forward_dev(ad)
+        ok = (np.array_equal(fa.cpu().numpy(), ntt.ntt_forward(a))
+              and np.array_equal(ntt_dev.ntt_inverse_dev(ad).cpu().numpy(), ntt.ntt_inverse(a))
+              and np.array_equal(ntt_dev.ntt_inverse_dev(fa).cpu().numpy(), a))
+        if B == 4:
+            ok = ok and np.array_equal(ntt_dev.negacyclic_mul_ntt_dev(ad, bd).cpu().numpy(),
+                                       ntt.negacyclic_mul_ntt(a, b))
+        if not ok:
+            fail(f"ntt: ntt_dev != ntt.py at B={B}, N={N}")
+        times[B] = (cuda_time_ms(lambda: ntt_dev.ntt_forward_dev(ad), reps=20),
+                    cuda_time_ms(lambda: ntt_dev.ntt_inverse_dev(fa), reps=20))
+    # one step's product: NTT form against the int8 GEMM on the negacyclic matrix
+    polys = torch.from_numpy(rng.integers(0, Q, (R, 4, N))).cuda()
+    ext = keys.ext_planes(polys.to(torch.int32), Q).reshape(R, M, 2 * N)
+    full = negacyclic_matrix(ext)
+    key_ntt = ntt_dev.ntt_forward_dev(polys.reshape(R * 4, N)).view(R, 4, N)
+    prods = {}
+    for B in (32, 2048):
+        dig = torch.randint(-64, 64, (B, R, N), dtype=torch.int8, device="cuda")
+        tiles = dig.view(B, R, N // 128, 128).permute(0, 2, 1, 3).reshape(B, -1)
+        via_ntt = ntt_dev.step_product_ntt(dig, key_ntt, Q)
+        via_mm = rot.combine_planes(torch._int_mm(tiles, full).view(B, M, N), Q)
+        if not torch.equal(via_ntt, via_mm.to(torch.int64)):
+            fail(f"ntt: the NTT form of the step product != torch._int_mm + combine at B={B}")
+        prods[B] = (dig, tiles)
+    dig, tiles = prods[2048]
+    ntt_ms = cuda_time_ms(lambda: ntt_dev.step_product_ntt(dig, key_ntt, Q), reps=10)
+    mm_ms = cuda_time_ms(lambda: torch._int_mm(tiles, full), reps=20)
+    neg = RESULTS.get("neg-kernel", {}).get("diag", {})
+    d3 = f"#3 {neg['ms']:.4f} ms (neg-kernel)" if neg else "#3 not run in this call"
+    log("ntt", t0, f"ntt_dev == ntt.py (N={N}) at B = 4 and 2048; forward / inverse per batch: B=4 "
+        f"{1e3 * times[4][0]:.1f} / {1e3 * times[4][1]:.1f} us, B=2048 {1e3 * times[2048][0]:.1f} / "
+        f"{1e3 * times[2048][1]:.1f} us; one step's product at B=2048 gates (R={R} digit and 4 key "
+        f"polynomials): NTT form {ntt_ms:.4f} ms (== torch._int_mm + combine at B = 32 and 2048), "
+        f"torch._int_mm raw {mm_ms:.4f} ms, {d3}")
+    return {"fwd_us": {B: 1e3 * t[0] for B, t in times.items()},
+            "inv_us": {B: 1e3 * t[1] for B, t in times.items()}, "step_ntt_ms": ntt_ms, "int_mm_ms": mm_ms}
+
+
+def phase_native():
+    """The port's native parser and levelizer (g++ from
+    oece_tpu_torch/csrc/host/oece_native.cpp into build/oece_tpu_torch/)
+    on examples/new_bristol_ckts/crypto/sha256.txt against the Python
+    versions: the same netlist and the same levels; both timed."""
+    from oece_tpu_torch.circuits import bristol, native, netlist
+
+    t0 = time.time()
+    path = os.path.join(REPO, "examples", "new_bristol_ckts", "crypto", "sha256.txt")
+    if not native.available():
+        fail(f"native: the library did not build: {native.BUILD_ERROR}")
+    ts = time.time()
+    nl_c = native.parse_bristol_native(path)
+    parse_c = time.time() - ts
+    os.environ["OECE_NO_NATIVE"] = "1"
+    try:
+        ts = time.time()
+        nl_py = bristol.parse_bristol(path)
+        parse_py = time.time() - ts
+    finally:
+        os.environ.pop("OECE_NO_NATIVE")
+    same = nl_c.n_wires == nl_py.n_wires and all(
+        np.array_equal(getattr(nl_c, f), getattr(nl_py, f)) for f in ("op", "in0", "in1", "out")) and [
+        list(w) for w in nl_c.inputs + nl_c.outputs] == [list(w) for w in nl_py.inputs + nl_py.outputs]
+    ts = time.time()
+    plan_c = netlist.levelize(nl_c)
+    lev_c = time.time() - ts
+    real = native.levelize_native
+    native.levelize_native = lambda nl: None
+    try:
+        ts = time.time()
+        plan_py = netlist.levelize(nl_py)
+        lev_py = time.time() - ts
+    finally:
+        native.levelize_native = real
+    same = same and len(plan_c.levels) == len(plan_py.levels) and all(
+        all(np.array_equal(x[k], y[k]) for k in x) for x, y in zip(plan_c.levels, plan_py.levels))
+    if not same:
+        fail("native: the native netlist or levels differ from the Python versions")
+    s = plan_c.stats()
+    log("native", t0, f"sha256 ({nl_c.n_gates} gates, depth {s['depth']}, {s['bootstrap_gates']} "
+        f"bootstrap gates): native == Python; parse {1e3 * parse_c:.1f} ms native, {1e3 * parse_py:.1f} "
+        f"ms Python; levelize {1e3 * lev_c:.1f} ms native, {1e3 * lev_py:.1f} ms Python; g++ "
+        f"{native.BUILD_SECONDS:.1f}s")
+    return {"parse_ms": (1e3 * parse_c, 1e3 * parse_py), "levelize_ms": (1e3 * lev_c, 1e3 * lev_py)}
+
+
+def phase_mesh():
+    """A one-rank NCCL process group (tcp://localhost, a free port) and its
+    (1, 1) mesh: Circuit(mesh=...) runs adder_32bit verify T=4 at
+    STD128_OPT with the level batches through parallel.mesh
+    (bootstrap_sharded: no padding at dp = 1, the rotation's kernels, an
+    NCCL all_gather); its outputs must equal phase circuit's.  The NCCL
+    communicator is set up by one all_gather before the timed Clock; the
+    same circuit then runs without the mesh on the host branch, which a
+    mesh takes, and with the mesh again: the two warm walls compare."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from oece_tpu_torch.parallel import mesh as mesh_mod
+    from oece_tpu_torch.runtime.evaluator import Circuit
+
+    t0 = time.time()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        mesh = mesh_mod.make_mesh(1, tp=1)
+        c = Circuit(set="STD128_OPT", seed=0, device="cuda", mesh=mesh)
+        c.ReadFile(ADDER)
+        c.setVerify(True)
+        a, b, ins = adder_inputs()
+        c.SetInput(ins)
+        ts = time.time()
+        warm = [torch.empty(1, device="cuda")]
+        dist.all_gather(warm, torch.zeros(1, device="cuda"))
+        torch.cuda.synchronize()
+        nccl_s = time.time() - ts
+        reset_counts()
+        ts = time.time()
+        c.Clock()
+        torch.cuda.synchronize()
+        wall = time.time() - ts
+        launches = check_only("mesh", read_counts(), "rot")
+        walls = level_walls(c)
+        want = OUTPUTS.get("circuit")
+        same = want is None or all(np.array_equal(x, y) for x, y in zip(c.GetOutput(), want))
+        if not np.array_equal(adder_sums(c), a + b) or not same or sum(c.bad_gate_counts.values()):
+            fail(f"mesh: sums {adder_sums(c)} (want {a + b}), outputs equal circuit's {same}, "
+                 f"repairs {c.bad_gate_counts}")
+        mesh_out = [o.copy() for o in c.GetOutput()]
+        c.setMesh(None)
+        c.Reset()
+        c.SetInput(ins)
+        old_jit = os.environ.get("OECE_LEVEL_JIT")
+        os.environ["OECE_LEVEL_JIT"] = "0"
+        try:
+            ts = time.time()
+            c.Clock()
+            torch.cuda.synchronize()
+            host_wall = time.time() - ts
+        finally:
+            if old_jit is None:
+                os.environ.pop("OECE_LEVEL_JIT")
+            else:
+                os.environ["OECE_LEVEL_JIT"] = old_jit
+        if c._dev_branch or not all(np.array_equal(x, y) for x, y in zip(c.GetOutput(), mesh_out)):
+            fail(f"mesh: the unsharded host-branch run differs from the mesh's (device branch {c._dev_branch})")
+        host_walls = level_walls(c)
+        c.setMesh(mesh)  # once more, warm, beside the unsharded run
+        c.Reset()
+        c.SetInput(ins)
+        ts = time.time()
+        c.Clock()
+        torch.cuda.synchronize()
+        warm_wall = time.time() - ts
+        if not all(np.array_equal(x, y) for x, y in zip(c.GetOutput(), mesh_out)):
+            fail("mesh: the second mesh run differs from the first")
+        log("mesh", t0, f"one-rank NCCL mesh {mesh.shape}: adder_32bit verify T=4 sums == a+b, "
+            f"outputs {'==' if want is not None else '(circuit not run)'} phase circuit's, no repair; "
+            f"NCCL set-up {1e3 * nccl_s:.1f} ms; first wall {wall:.2f}s ({walls}); then without the "
+            f"mesh on the host branch {host_wall:.2f}s ({host_walls}); then with the mesh "
+            f"{warm_wall:.2f}s ({level_walls(c)}); circuit (device branch, first run) "
+            f"{WALLS.get('circuit', float('nan')):.2f}s")
+        del c
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None) -> dict:
     """One kernel's record in the kernels JSON line."""
     return {
@@ -1721,6 +2194,12 @@ PHASES = {
     "recover-circuit": phase_recover_circuit,
     "compound-circuit": phase_compound_circuit,
     "dff": phase_dff,
+    "ap-generic": phase_ap_generic,
+    "checkpoint": phase_checkpoint,
+    "bad-trace": phase_bad_trace,
+    "ntt": phase_ntt,
+    "native": phase_native,
+    "mesh": phase_mesh,
 }
 
 
@@ -1740,7 +2219,9 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     t_all = time.time()
     phase_build()
-    res = {name: PHASES[name]() for name in (sys.argv[1:] or PHASES)}
+    res = RESULTS
+    for name in sys.argv[1:] or PHASES:
+        res[name] = PHASES[name]()
     print(f"total {time.time() - t_all:.1f}s", flush=True)
     if sys.argv[1:]:
         return

@@ -63,11 +63,22 @@ def _detect_new_format(line2: List[str], line3: List[str]) -> bool:
 def parse_bristol(path: str, name: str | None = None, fmt: str = "auto") -> Netlist:
     """Parse either Bristol fashion; fmt in ('auto', 'old', 'new').
 
-    The JAX package also has a native C++ parser, bit-identical to this
-    one; the port has only this Python version.
+    Uses the native C++ parser (circuits/native.py) when it builds:
+    bit-identical to this implementation (tests/test_torch_native.py).
     """
     if not os.path.exists(path):
         raise FileNotFoundError(2, "no such circuit file", path)
+    if fmt == "auto" and os.environ.get("OECE_NO_NATIVE", "0") != "1":
+        try:
+            from . import native as native_mod
+
+            nl = native_mod.parse_bristol_native(path, name)
+            if nl is not None:
+                return nl
+        except ValueError:
+            raise
+        except Exception:
+            pass
     with open(path) as f:
         raw = [ln.strip() for ln in f]
     lines = [ln for ln in raw if ln]

@@ -234,28 +234,36 @@ def levelize(nl: Netlist) -> LevelPlan:
     G = nl.n_gates
     is_boot = np.isin(nl.op, [int(o) for o in BOOTSTRAP_OPS])
 
-    # (the JAX package also has a bit-identical native C++ levelizer; the
-    # port has only this loop)
-    wire_level = np.zeros(nl.n_wires, dtype=np.int64)
-    # rank: sub-order inside a level for linear chains; bootstrap
-    # outputs are rank 0, each linear gate is max(input rank) + 1.
-    wire_rank = np.zeros(nl.n_wires, dtype=np.int64)
-    glevel = np.zeros(G, dtype=np.int64)
-    grank = np.zeros(G, dtype=np.int64)
-    for k in range(G):
-        o = int(nl.op[k])
-        if o in (int(Op.EQ0), int(Op.EQ1)):
-            lv, rk = 0, 1
-        elif is_boot[k]:
-            lv = max(wire_level[nl.in0[k]], wire_level[nl.in1[k]]) + 1
-            rk = 0
-        else:  # NOT / EQW: free, stays in the producer's level
-            lv = wire_level[nl.in0[k]]
-            rk = wire_rank[nl.in0[k]] + 1
-        glevel[k] = lv
-        grank[k] = rk
-        wire_level[nl.out[k]] = lv
-        wire_rank[nl.out[k]] = rk
+    native_res = None
+    try:  # C++ fast path (bit-identical; tests/test_torch_native.py)
+        from . import native as native_mod
+
+        native_res = native_mod.levelize_native(nl)
+    except Exception:
+        native_res = None
+    if native_res is not None:
+        glevel, grank = native_res
+    else:
+        wire_level = np.zeros(nl.n_wires, dtype=np.int64)
+        # rank: sub-order inside a level for linear chains; bootstrap
+        # outputs are rank 0, each linear gate is max(input rank) + 1.
+        wire_rank = np.zeros(nl.n_wires, dtype=np.int64)
+        glevel = np.zeros(G, dtype=np.int64)
+        grank = np.zeros(G, dtype=np.int64)
+        for k in range(G):
+            o = int(nl.op[k])
+            if o in (int(Op.EQ0), int(Op.EQ1)):
+                lv, rk = 0, 1
+            elif is_boot[k]:
+                lv = max(wire_level[nl.in0[k]], wire_level[nl.in1[k]]) + 1
+                rk = 0
+            else:  # NOT / EQW: free, stays in the producer's level
+                lv = wire_level[nl.in0[k]]
+                rk = wire_rank[nl.in0[k]] + 1
+            glevel[k] = lv
+            grank[k] = rk
+            wire_level[nl.out[k]] = lv
+            wire_rank[nl.out[k]] = rk
 
     n_levels = int(glevel.max()) + 1 if G else 0
     levels = []

@@ -1,4 +1,4 @@
-"""The binary-base AP blind rotation (B_r = 2).
+"""The AP blind rotation: the binary base (B_r = 2) and a generic base.
 
 Counterpart of ``oece_tpu.fhe.boot._blind_rotate_ap_fused`` ->
 ``pallas_kernels.blind_rotate_ap_megakernel`` (-> ``_ap_megakernel``,
@@ -30,18 +30,30 @@ key tiles on chip from ``ap_ext`` as it is (no card layout; the CPU's
 version, ``STEP_LAUNCHES`` the live steps the step loop launched (each a
 digits kernel and a GEMM) and ``KERNEL_LAUNCHES`` every kernel launch of
 ``csrc/ap_step.cu`` (the table, the steps' kernels, the last finalize).
+
+A generic base (B_r != 2: MICRO and TOY, B_r = 32) is the JAX package's
+``boot.blind_rotate_ap_dev``, which has no Pallas kernel: step (i, j)
+takes digit v = (neg_a >> j*log2 B_r) & (B_r - 1) of each gate and
+multiplies the gate's digits by the negacyclic matrix of key (i, j, v);
+v = 0 keeps the accumulator.  ``blind_rotate_ap_generic`` groups a step's
+gates by v, so each of at most B_r - 1 matrices is made once per step
+(``negacyclic_matrices``) and shared by its gates, instead of one matrix
+per gate; it is torch ops on both devices (``GENERIC_LAUNCHES`` counts
+its calls).  The select digits are public and come to the host once per
+rotation.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from . import _build
 from .keys import TILE, rev_block, rev_index
 from .params import BinFHEParams
-from .rot import SMEM_MAX, check_operands, split_groups, tile_digits, tile_products
+from .rot import SMEM_MAX, check_operands, combine_planes, split_groups, tile_digits, tile_products
 
 GEMM_BK = 128  # contraction bytes of a key tile row
 GEMM_CHUNK = 16  # coefficients of a key tile: 4 limbs x 16 = 64 rows
@@ -52,6 +64,7 @@ LAUNCHES = 0  # calls that launched the CUDA kernels (one per rotation)
 PLAIN_LAUNCHES = 0  # calls that ran the plain torch version
 STEP_LAUNCHES = 0  # live steps the CUDA step loop launched (each: digits + GEMM)
 KERNEL_LAUNCHES = 0  # every launch of an ap_step.cu kernel (table, digits, GEMMs)
+GENERIC_LAUNCHES = 0  # calls of blind_rotate_ap_generic (torch ops, both devices)
 
 
 def ap_bits(a2N: torch.Tensor, p: BinFHEParams) -> torch.Tensor:
@@ -230,3 +243,103 @@ def blind_rotate_ap(
     if acc.device.type != "cuda":
         raise ValueError(f"blind_rotate_ap: no kernel for device {acc.device}")
     return _blind_rotate_ap_cuda(acc, ap_ext, a2N, p)
+
+
+def negacyclic_matrices(ext: torch.Tensor) -> torch.Tensor:
+    """Step keys' planes int8 [V, R, M, 2N] -> their product matrices int8
+    [V, nt*R*T, M*N] for digits in ``reversed_digits`` order: entry [v,
+    j'*RT + r*T + u', m*N + k] = ext[v, r, m, (k - i) mod 2N] for
+    coefficient i = N-1 - (j'*T + u').  With the rows reversed so, every
+    stride of the source is positive: the matrices are one strided copy of
+    the keys doubled (no gather).  Each is stored column-major (the
+    transpose of a contiguous [M*N, nt*R*T]), the layout cuBLAS's int8
+    product takes as it is."""
+    V, R, M, two_n = ext.shape
+    N = two_n // 2
+    ext2 = torch.cat([ext, ext], dim=-1)  # [V, R, M, 4N]: (k - i) mod 2N = N+1 + k + j'T + u'
+    src = ext2.as_strided(
+        (V, M, N, N // TILE, R, TILE), (R * M * 2 * two_n, 2 * two_n, 1, TILE, M * 2 * two_n, 1), N + 1
+    )
+    return src.reshape(V, M * N, N * R).transpose(1, 2)
+
+
+def reversed_digits(dig: torch.Tensor, R: int) -> torch.Tensor:
+    """Digits int8 [B, nt*R*T] in ``rot.tile_digits`` order (column j*RT +
+    r*T + u) -> the row order of ``negacyclic_matrices`` (tile nt-1-j, lane
+    T-1-u)."""
+    B, K = dig.shape
+    return dig.view(B, K // (R * TILE), R, TILE).flip(1).flip(3).reshape(B, K)
+
+
+# torch._int_mm on the card takes more than 16 rows: products of fewer
+# gates run on this many rows of a zero-padded buffer
+MIN_ROWS = 17
+
+
+def ap_digit_values(a2N: torch.Tensor, p: BinFHEParams) -> torch.Tensor:
+    """The select digits int64 [B, n*d_r]: digit j (base B_r) of (-a_i mod
+    2N) at column i*d_r + j (boot.blind_rotate_ap_dev)."""
+    two_n = 2 * p.N
+    neg_a = ((two_n - a2N) & (two_n - 1)).to(torch.int64)
+    shift = torch.arange(p.d_r, device=a2N.device) * int(math.log2(p.B_r))
+    return ((neg_a[:, :, None] >> shift) & (p.B_r - 1)).reshape(a2N.shape[0], -1)
+
+
+def blind_rotate_ap_generic(
+    acc: torch.Tensor, ap_ext: torch.Tensor, a2N: torch.Tensor, p: BinFHEParams
+) -> torch.Tensor:
+    """The AP rotation for any base, torch ops on the tensors' device: acc
+    int32 [B, 2, N], ap_ext int8 [n*d_r*B_r, R, 8, 2N] (every digit value,
+    keys.py), a2N int32 [B, n] in [0, 2N).  Bit-identical to
+    ``blind_rotate_ap_dev``: each step's gates are sorted by their digit
+    v, each run of one v > 0 takes the digits of its accumulators times
+    key (i, j, v)'s matrix and the Horner combine of the 4 limbs, and
+    v = 0 keeps the accumulator.  Per step: the digits of its live gates,
+    one strided copy that makes the matrices of the digit values in use,
+    one ``torch._int_mm`` per value (int8 x int8 -> int32, exact: |sum| <=
+    nt*R*T * 128 * 128 <= 2**27), one combine."""
+    global GENERIC_LAUNCHES
+    B, _, N = acc.shape
+    S, V = p.n * p.d_r, p.B_r
+    if N != p.N or N % TILE or a2N.shape != (B, p.n) or ap_ext.shape != (S * V, 2 * p.d_g_used, 8, 2 * N):
+        raise ValueError(
+            f"blind_rotate_ap_generic: bad shapes acc {tuple(acc.shape)}, ap_ext "
+            f"{tuple(ap_ext.shape)}, a2N {tuple(a2N.shape)} for {p.name} "
+            f"(N={p.N}, n={p.n}, d_r={p.d_r}, B_r={p.B_r})"
+        )
+    GENERIC_LAUNCHES += 1
+    R = 2 * p.d_g_used
+    K = N // TILE * R * TILE
+    acc = acc.clone()
+    if B == 0:
+        return acc
+    vals = ap_digit_values(a2N, p)  # [B, S]
+    order = torch.argsort(vals, dim=0, stable=True)  # per step: gates by digit
+    counts = torch.zeros((S, V), dtype=torch.int64, device=acc.device)
+    counts.scatter_add_(1, vals.t(), torch.ones_like(vals.t()))
+    in_use = counts[:, 1:] > 0
+    # the keys of every (step, value > 0) in use, in step order, on the device
+    key_rows = (in_use.nonzero() * torch.tensor([V, 1], device=acc.device)).sum(1) + 1
+    counts = counts.cpu().numpy()  # the rotation's one transfer
+    first = 0
+    for s in range(S):
+        if counts[s, 0] == B:
+            continue  # every gate keeps its accumulator
+        live = order[int(counts[s, 0]):, s]
+        L = live.shape[0]
+        # the step's digits and raw products, MIN_ROWS - 1 rows of slack so
+        # every value's product can run on MIN_ROWS rows; a product's extra
+        # rows land on the next value's rows before that value writes them
+        dig = torch.zeros((L + MIN_ROWS - 1, K), dtype=torch.int8, device=acc.device)
+        dig[:L] = reversed_digits(tile_digits(acc[live], p), R)
+        raw = torch.empty((L + MIN_ROWS - 1, 8 * N), dtype=torch.int32, device=acc.device)
+        used = np.nonzero(counts[s, 1:])[0] + 1
+        mats = negacyclic_matrices(ap_ext[key_rows[first:first + len(used)]])
+        first += len(used)
+        row = 0
+        for k, v in enumerate(used):
+            c = max(int(counts[s, v]), MIN_ROWS)
+            torch._int_mm(dig[row:row + c], mats[k], out=raw[row:row + c])
+            row += int(counts[s, v])
+        acc[live] = combine_planes(raw[:L].view(L, 8, N), p.Q)
+    return acc

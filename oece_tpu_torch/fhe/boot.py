@@ -1,5 +1,5 @@
 """Batched gate bootstrapping on torch tensors (counterpart of
-oece_tpu.fhe.boot: the GINX paths and the binary-base AP path).
+oece_tpu.fhe.boot: the GINX paths and the AP paths).
 
 eval_bin_gate_batch = prepare_gates -> q->2N mod switch -> accumulator init
 -> blind rotation -> sample extract -> Q->Q_ks mod switch -> key switch ->
@@ -13,7 +13,8 @@ blind_rotate_ginx_dev:
             layout="rev2", the Circuit default): the whole-rotation step
             loop, or with OECE_ROT_MEGA=0 (``ROT_MEGA`` False) one
             ``rot_step_true`` call per step;
-  ap_ext    the AP method (fhe/ap.py).
+  ap_ext    the AP method (fhe/ap.py): kernel #13 for the binary base,
+            blind_rotate_ap_generic (torch ops) for a generic one.
 Every stage is exact integer arithmetic, so given the same keys and
 ciphertexts the result is bit-identical to the JAX package's and to
 golden.bootstrap (form="std" for ginx_ext and rev, form="rot" for rev2).
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from . import modmath
-from .ap import blind_rotate_ap
+from .ap import blind_rotate_ap, blind_rotate_ap_generic
 from .keys import BootKeys
 from .rot import (  # noqa: F401  (re-export: the gadget helpers live with the rotation)
     acc_gadget_digits_dev,
@@ -39,7 +40,7 @@ from .rot import (  # noqa: F401  (re-export: the gadget helpers live with the r
     monomial_rotate,
 )
 from .rev import blind_rotate_rev
-from .std import blind_rotate_std
+from .std import blind_rotate_std, blind_rotate_std_tp
 
 # rev2 keys: the whole rotation as one step loop (True) or one call per
 # step (False), read at import as in the JAX package (boot.py:62).
@@ -79,18 +80,28 @@ def sample_extract(acc: torch.Tensor, Q: int) -> torch.Tensor:
     return torch.cat([a[:, :1], neg, acc[:, 1, :1]], dim=1)
 
 
-def key_switch_dev(ct_N: torch.Tensor, keys: BootKeys) -> torch.Tensor:
+def key_switch_dev(ct_N: torch.Tensor, keys: BootKeys, tp=None) -> torch.Tensor:
     """LWE [B, N+1] mod Q_ks -> [B, n+1] mod Q_ks.  The int8 product runs in
     float32, exact because |sum| <= N*d_ks * 2 * 128 = 2**21 < 2**24 (torch
-    has no integer matmul on CUDA); TF32 would round it, so it must be off."""
+    has no integer matmul on CUDA); TF32 would round it, so it must be off.
+    Under tensor parallelism (``tp``, a parallel.mesh.Mesh) keys.ksk holds
+    this rank's rows of the contraction, and the partial products are
+    summed over the tp group (the JAX package's psum)."""
     p = keys.params
     Qks, N, n = p.Q_ks, p.N, p.n
     if ct_N.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("key_switch_dev needs torch.backends.cuda.matmul.allow_tf32 = False")
     B = ct_N.shape[0]
     digs = signed_digits_dev(ct_N[:, :N], p.B_ks, p.d_ks).reshape(B, N * p.d_ks)
-    ksk = keys.ksk.reshape(N * p.d_ks, (n + 1) * 2)
+    k = keys.ksk.shape[0]
+    if tp is not None:
+        digs = digs[:, tp.tp_rank * k:(tp.tp_rank + 1) * k]
+    ksk = keys.ksk.reshape(k, (n + 1) * 2)
     prod = (digs.to(torch.float32) @ ksk.to(torch.float32)).to(torch.int32)
+    if tp is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(prod, group=tp.tp_group)
     prod = prod.reshape(B, n + 1, 2)
     out = -(prod[..., 0] + (prod[..., 1] << 8))
     out[:, n] += ct_N[:, N]
@@ -108,7 +119,8 @@ def blind_rotation(acc: torch.Tensor, a2N: torch.Tensor, keys: BootKeys) -> torc
     """The rotation that the keys' layout selects."""
     p = keys.params
     if keys.ap_ext is not None:
-        return blind_rotate_ap(acc, keys.ap_ext, a2N, p)
+        rotate = blind_rotate_ap if p.B_r == 2 else blind_rotate_ap_generic
+        return rotate(acc, keys.ap_ext, a2N, p)
     if keys.ginx_ext is not None:
         return blind_rotate_std(acc, keys.ginx_ext, a2N, p)
     if keys.rev is not None:
@@ -119,19 +131,27 @@ def blind_rotation(acc: torch.Tensor, a2N: torch.Tensor, keys: BootKeys) -> torc
     raise ValueError("keys hold no rotation key (ap_ext, ginx_ext, rev or rev2)")
 
 
-def bootstrap_batch(prep: torch.Tensor, gate_ids: torch.Tensor, keys: BootKeys) -> torch.Tensor:
-    """Bootstrap prepared LWE cts [B, n+1] mod q -> fresh cts [B, n+1]."""
+def bootstrap_batch(prep: torch.Tensor, gate_ids: torch.Tensor, keys: BootKeys, tp=None) -> torch.Tensor:
+    """Bootstrap prepared LWE cts [B, n+1] mod q -> fresh cts [B, n+1].
+    With ``tp`` (a parallel.mesh.Mesh with tp > 1) ``keys`` is this rank's
+    tp shard of host GINX keys, and the rotation and the key switch sum
+    their partial products over the tp group."""
     p = keys.params
     Q, N, q, Qks = p.Q, p.N, p.q, p.Q_ks
     log_q, log_qks = int(math.log2(q)), int(math.log2(Qks))
     ct2N = mod_switch_pow2(prep, log_q, int(math.log2(2 * N)))
     a2N = ct2N[:, :-1].contiguous()
     acc = acc_init(keys.tv_table[gate_ids.long()], ct2N[:, -1], N, Q)
-    acc = blind_rotation(acc, a2N, keys)
+    if tp is None:
+        acc = blind_rotation(acc, a2N, keys)
+    else:
+        if keys.ginx_ext is None:
+            raise ValueError("tensor parallelism runs on host GINX keys (ginx_ext) only")
+        acc = blind_rotate_std_tp(acc, keys.ginx_ext, a2N, p, tp)
     ct_N = sample_extract(acc, Q)
     ct_N[:, -1] = (ct_N[:, -1] + Q // 8) % Q
     ct_ks = modmath.mod_switch_from_q27(ct_N, log_qks, Q)
-    return mod_switch_pow2(key_switch_dev(ct_ks, keys), log_qks, log_q)
+    return mod_switch_pow2(key_switch_dev(ct_ks, keys, tp), log_qks, log_q)
 
 
 def prepare_gates(ct1: torch.Tensor, ct2: torch.Tensor, gate_ids: torch.Tensor, q: int) -> torch.Tensor:

@@ -14,8 +14,10 @@ card.
 
 The keys are golden's host keys, packed as the JAX package packs them on
 an accelerator: GINX keys as ``ginx_ext`` (the standard-form rotation of
-fhe/std.py, Pallas kernels #1 and #4), binary-base AP keys (B_r = 2) as
-``ap_ext`` (fhe/ap.py, kernel #13).  The ring products of key generation
+fhe/std.py, Pallas kernels #1 and #4), AP keys as ``ap_ext`` (fhe/ap.py:
+kernel #13 for the binary base, B_r = 2; every digit value and the
+torch-ops rotation ``blind_rotate_ap_generic`` for a generic base, as
+MICRO and TOY have it).  The ring products of key generation
 run on the device (fhe/hostkeygen.py).  ``device`` defaults to "cuda";
 "cpu" runs every kernel's plain torch version.
 """
@@ -71,13 +73,7 @@ class BinFHEContext:
         return golden.lwe_keygen(self.params, self._rng)
 
     def BTKeyGen(self, sk: golden.LWESecretKey) -> None:
-        p = self.params
-        if self.method == BinFHEMethod.AP and p.B_r != 2:
-            raise NotImplementedError(
-                f"method='AP' with B_r={p.B_r} is not ported to oece_tpu_torch yet "
-                "(ROADMAP.md queue 1, the generic-base AP method)"
-            )
-        self.keys = hostkeygen.bootstrap_keygen(p, sk, self._rng, self.method, self.device)
+        self.keys = hostkeygen.bootstrap_keygen(self.params, sk, self._rng, self.method, self.device)
 
     # -- encryption boundary ------------------------------------------------
     def Encrypt(self, sk: golden.LWESecretKey, m: int) -> np.ndarray:

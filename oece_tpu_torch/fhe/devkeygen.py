@@ -150,15 +150,21 @@ def refresh_keys(params: BinFHEParams, s, z, A, E) -> torch.Tensor:
     return _rgsw_rows(p, z, A, E, mg[..., None] * coeff0)
 
 
-def ap_refresh_keys(params: BinFHEParams, s, z, A, E) -> torch.Tensor:
-    """Binary-base AP refresh keys int32 [n*d_r, 2d, out=2, N] mod Q: step
-    i*d_r + j holds RGSW(X^c) with c = (s_i * 2**j) mod 2N, the monomial
-    ±1 at c mod N (negative when c >= N).  The gadget term is formed
-    without the int32-overflowing product (Q-1)*g."""
+def ap_refresh_keys(params: BinFHEParams, s, z, A, E, values=(1,)) -> torch.Tensor:
+    """AP refresh keys int32 [n*d_r*len(values), 2d, out=2, N] mod Q: step
+    key (i, j, v), v = values[k], at (i*d_r + j)*len(values) + k holds
+    RGSW(X^c) with c = (v * B_r**j * s_i) mod 2N (golden.bootstrap_keygen),
+    the monomial ±1 at c mod N (negative when c >= N).  The binary base
+    keeps v = 1 only (v = 0 is the identity), a generic base every v in
+    0 .. B_r-1.  The gadget term is formed without the int32-overflowing
+    product (Q-1)*g."""
     p = params
     Q, N = p.Q, p.N
-    c = (s[:, None].to(torch.int64) * 2 ** torch.arange(p.d_r, device=s.device)) % (2 * N)
-    c = c.reshape(-1)  # [n*d_r], floor mod: s_i = -1 lands in [N, 2N)
+    powers = torch.tensor([pow(p.B_r, j, 2 * N) for j in range(p.d_r)], dtype=torch.int64,
+                          device=s.device)
+    vals = torch.tensor(list(values), dtype=torch.int64, device=s.device)
+    c = s[:, None, None].to(torch.int64) * powers[None, :, None] * vals[None, None, :]
+    c = (c % (2 * N)).reshape(-1)  # floor mod: s_i = -1 lands in [N, 2N)
     at_c = torch.arange(N, device=s.device)[None, :] == (c % N)[:, None]  # [steps, N]
     pos = (at_c & (c < N)[:, None])[:, None, :]
     neg = (at_c & (c >= N)[:, None])[:, None, :]

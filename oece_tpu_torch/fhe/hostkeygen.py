@@ -17,7 +17,9 @@ Draw order (golden.bootstrap_keygen): the ring secret z [N]; the key-switch
 key, per row (i, j) a [n] uniform mod Q_ks then one Gaussian; then each
 RGSW key's 2*d_g_used rows, each a [N] uniform mod Q then e [N] Gaussian,
 for GINX every RGSW(s+_i) then every RGSW(s-_i), for AP every (i, j, v).
-Only the v = 1 AP keys are kept (binary base: v = 0 is the identity).
+The binary base (B_r = 2) keeps only the v = 1 AP keys (v = 0 is the
+identity, and kernel #13 reads v = 1 only); a generic base keeps all B_r
+of each (i, j), v = 0 included, in golden's order.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ def _rgsw_draws(p: BinFHEParams, rng: np.random.Generator):
 def sample(params: BinFHEParams, rng: np.random.Generator, method: BinFHEMethod):
     """golden.bootstrap_keygen's draws: (z [N], Aks [N*d_ks, n], Eks
     [N*d_ks], A [keys, 2d, N], E [keys, 2d, N]), int64 NumPy.  GINX keys
-    are ordered (part, i), AP keys (i, j) with v = 1."""
+    are ordered (part, i), AP keys (i, j) with v = 1 for B_r = 2, else
+    (i, j, v) with every v."""
     p = params
     z = golden.ring_secret(p, rng)
     rows = p.N * p.d_ks
@@ -52,8 +55,10 @@ def sample(params: BinFHEParams, rng: np.random.Generator, method: BinFHEMethod)
         Eks[r] = int(golden.gauss(rng, p.sigma, ()))
     if method == BinFHEMethod.GINX:
         keys = [_rgsw_draws(p, rng) for _ in range(2 * p.n)]
-    else:  # every (i, j, v); keep v = 1
+    elif p.B_r == 2:  # every (i, j, v); keep v = 1
         keys = [[_rgsw_draws(p, rng) for _ in range(p.B_r)][1] for _ in range(p.n * p.d_r)]
+    else:
+        keys = [_rgsw_draws(p, rng) for _ in range(p.n * p.d_r * p.B_r)]
     A = np.stack([a for a, _ in keys])
     E = np.stack([e for _, e in keys])
     return z, Aks, Eks, A, E
@@ -67,10 +72,9 @@ def bootstrap_keygen(
     device="cuda",
 ) -> keys_mod.BootKeys:
     """golden.bootstrap_keygen + keys.pack_bootstrap_key, with the products
-    on ``device``: GINX keys as ginx_ext, binary-base AP keys as ap_ext."""
+    on ``device``: GINX keys as ginx_ext, AP keys as ap_ext (v = 1 only
+    for B_r = 2, every v for a generic base)."""
     p = params
-    if method == BinFHEMethod.AP and p.B_r != 2:
-        raise ValueError(f"only binary-base AP keys are generated here, got B_r={p.B_r}")
 
     def dev(x):
         return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(device)
@@ -88,5 +92,6 @@ def bootstrap_keygen(
         E = E.reshape(2, p.n, *E.shape[1:]).transpose(0, 1).contiguous()
         brk = devkeygen.refresh_keys(p, s, z, A, E)
         return keys_mod.BootKeys(**common, ginx_ext=keys_mod.ginx_ext_planes(brk, p.Q))
-    rows = devkeygen.ap_refresh_keys(p, s, z, A, E)
+    values = (1,) if p.B_r == 2 else range(p.B_r)
+    rows = devkeygen.ap_refresh_keys(p, s, z, A, E, values)
     return keys_mod.BootKeys(**common, ap_ext=keys_mod.ap_ext_planes(rows, p.Q))

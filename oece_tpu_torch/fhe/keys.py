@@ -38,10 +38,15 @@ port's rotations read (T = 128, nt = N/T, R = 2*d_g_used, L = 4 limbs):
              ``pack_rotated_form(..., device="cuda")`` and ``BootKeys.to``
              write it K-major, one step at a time (``rev2_to``), so the card
              never holds both layouts of a whole key.
-  ap_ext   : AP (B_r = 2) only.  int8 [n*d_r, R, 8, 2N]  the limb planes
-             (plane = out*4 + limb) of each v=1 step key, over v then -v
-             mod Q: oece_tpu's ``_ext_limb_planes`` form, before the TPU's
-             window packing.  362 MB at STD128_OPT.
+  ap_ext   : AP.  int8 [n*d_r, R, 8, 2N] for the binary base (B_r = 2)
+             the limb planes (plane = out*4 + limb) of each v=1 step key,
+             over v then -v mod Q: oece_tpu's ``_ext_limb_planes`` form,
+             before the TPU's window packing.  362 MB at STD128_OPT.  A
+             generic base (B_r != 2, MICRO and TOY) keeps every digit
+             value: int8 [n*d_r*B_r, R, 8, 2N], key (i, j, v) at (i*d_r +
+             j)*B_r + v, v = 0 included and never read: oece_tpu's
+             ``ap_kext`` [n, d_r, B_r, R, out, L, 2N] with (out, L) as one
+             plane axis.  268 MB at TOY.
   ksk      : int8 [N*d_ks, n+1, 2]  centred base-256 limbs of the key-switch
              key mod Q_ks.
   tv_table : int32 [6, N]  test vectors mod Q, in GATE_ORDER.
@@ -106,7 +111,7 @@ class BootKeys:
         )
 
 
-def tv_table(params: BinFHEParams, device="cpu") -> torch.Tensor:
+def tv_table(params: BinFHEParams, device) -> torch.Tensor:
     tv = np.stack([golden.make_test_vector(params, g) for g in GATE_ORDER])
     return torch.from_numpy(tv.astype(np.int32)).to(device)
 
@@ -289,8 +294,8 @@ def unpack_windows(wins: np.ndarray, R: int, M: int, N: int) -> torch.Tensor:
 
 def from_jax(dkeys) -> BootKeys:
     """Numpy copies of a JAX ``DeviceBootKeys``: GINX keys in the rev or
-    rev2 layout or the ``ginx_pallas`` windows, or binary-base AP keys in
-    the ``ap_pallas`` windows."""
+    rev2 layout or the ``ginx_pallas`` windows, binary-base AP keys in the
+    ``ap_pallas`` windows, or generic-base AP keys in ``ap_kext``."""
     p = BinFHEParams(**{f.name: getattr(dkeys.params, f.name)
                         for f in dataclasses.fields(BinFHEParams)})
     method = BinFHEMethod[dkeys.method.name]
@@ -301,8 +306,13 @@ def from_jax(dkeys) -> BootKeys:
         tv_table=torch.from_numpy(np.array(dkeys.tv_table, dtype=np.int32)),
     )
     if method == BinFHEMethod.AP:
+        if dkeys.ap_kext is not None and p.B_r != 2:
+            kext = np.array(dkeys.ap_kext, dtype=np.int8)  # [n, d_r, B_r, R, out, L, 2N]
+            return BootKeys(**common, ap_ext=torch.from_numpy(
+                np.ascontiguousarray(kext.reshape(-1, R, 8, 2 * p.N))))
         if dkeys.ap_pallas is None:
-            raise ValueError("from_jax needs binary-base AP keys in the ap_pallas layout")
+            raise ValueError("from_jax needs binary-base AP keys in the ap_pallas layout "
+                             "or generic-base AP keys in ap_kext")
         wins = np.array(dkeys.ap_pallas, dtype=np.int32)
         return BootKeys(**common, ap_ext=unpack_windows(wins, R, 8, p.N))
     if dkeys.ginx_rev is not None:
@@ -338,13 +348,13 @@ def _brk(bk, p: BinFHEParams, device) -> torch.Tensor:
 def pack_bootstrap_key(bk: golden.BootstrapKey, device="cuda") -> BootKeys:
     """Pack a golden ``BootstrapKey`` on ``device`` (boot.pack_bootstrap_key
     on an accelerator): GINX refresh keys into ginx_ext (the standard
-    form), binary-base AP keys (their v=1 entries) into ap_ext."""
+    form), AP keys into ap_ext (binary base: their v=1 entries; a generic
+    base: every v, as the JAX package's ap_kext)."""
     p, method = _port_record(bk)
     common = dict(params=p, method=method, **_ksk_and_tv(bk, p, device))
     if method == BinFHEMethod.AP:
-        if p.B_r != 2:
-            raise ValueError(f"only binary-base AP keys are packed, got B_r={p.B_r}")
-        rows = bk.ak[:, :, 1].reshape(p.n * p.d_r, 2 * p.d_g_used, 2, p.N) % p.Q
+        ak = bk.ak[:, :, 1] if p.B_r == 2 else bk.ak
+        rows = ak.reshape(-1, 2 * p.d_g_used, 2, p.N) % p.Q
         rows = torch.from_numpy(rows.astype(np.int32)).to(device)
         return BootKeys(**common, ap_ext=ap_ext_planes(rows, p.Q))
     return BootKeys(**common, ginx_ext=ginx_ext_planes(_brk(bk, p, device), p.Q))

@@ -28,6 +28,17 @@ rev's digits kernel (with the previous step's CMUX) and its GEMM read it
 for the CPU layout tests.  The ginx_ext key stays compact (131 KB per
 step); a prebuilt block per step is ``OECE_LAYOUT=rev``.
 
+``blind_rotate_std_tp`` is the rotation under tensor parallelism
+(parallel/mesh.py, the JAX package's ``_external_cmux_ginx`` with a
+``tp_axis``): each rank holds R/tp rows of every step key, takes the
+digits of its rows, sums its rows' raw limb products with the other
+ranks' (``all_reduce``), then combines the limbs mod Q and applies the
+CMUX.  It is the plain version in torch ops, for CPU ranks on gloo only:
+NCCL takes one rank per GPU, so tp > 1 has no card here, and a CUDA
+tensor raises rather than run the plain version on the card (the fused
+step loop cannot take its place: its digits kernel adds the accumulator,
+which would then be added tp times).
+
 ``blind_rotate_std`` and ``build_diagonals_kmajor`` run the plain version
 for CPU tensors and launch their kernels for CUDA tensors, or raise.
 ``LAUNCHES`` / ``PLAIN_LAUNCHES`` count the wrapper calls that reached
@@ -46,7 +57,7 @@ from . import _build, rev
 from .keys import TILE, rev_block, rev_block_kmajor, rev_index
 from .params import BinFHEParams
 from .rev import cmux_epilogue_true_plain, rev_step_plain
-from .rot import amount_pairs, check_operands, tile_products
+from .rot import amount_pairs, check_operands, combine_planes, tile_digits, tile_products, tile_products_raw
 
 LAUNCHES = 0  # wrapper calls that launched CUDA kernels
 PLAIN_LAUNCHES = 0  # wrapper calls that ran the plain version
@@ -110,6 +121,36 @@ def blind_rotate_std_plain(
     idx = rev_index(acc.shape[-1], acc.device)
     for i in range(ginx_ext.shape[0]):
         acc = std_step_plain(acc, a2N[:, i], ginx_ext[i], idx, p)
+    return acc
+
+
+def blind_rotate_std_tp(
+    acc: torch.Tensor, ginx_ext: torch.Tensor, a2N: torch.Tensor, p: BinFHEParams, tp
+) -> torch.Tensor:
+    """All n steps with this rank's key rows: ginx_ext int8 [n, R/tp, 16,
+    2N] holds rows [t*R/tp, (t+1)*R/tp) (t = tp.tp_rank); the raw limb sums
+    of those rows are summed over tp.tp_group before the combine mod Q and
+    the CMUX, so every rank returns the whole rotation's result.  CPU
+    tensors only (counted in PLAIN_LAUNCHES); any other device raises."""
+    import torch.distributed as dist
+
+    global PLAIN_LAUNCHES
+    if acc.device.type != "cpu":
+        raise RuntimeError(
+            f"blind_rotate_std_tp: tensor parallelism runs on CPU ranks (gloo) only, got {acc.device}; "
+            "on the card build the mesh with tp=1"
+        )
+    PLAIN_LAUNCHES += 1
+    B, _, N = acc.shape
+    r = ginx_ext.shape[1]
+    r0 = tp.tp_rank * r
+    nt = N // TILE
+    idx = rev_index(N, acc.device)
+    for i in range(ginx_ext.shape[0]):
+        dig = tile_digits(acc, p).view(B, nt, 2 * p.d_g_used, TILE)[:, :, r0:r0 + r]
+        raw = tile_products_raw(dig.reshape(B, -1), build_diagonals_plain(ginx_ext[i], idx))
+        dist.all_reduce(raw, group=tp.tp_group)
+        acc = cmux_epilogue_plain(acc, combine_planes(raw, p.Q), a2N[:, i], p.Q)
     return acc
 
 

@@ -39,25 +39,41 @@ host branch, and unset the device branch on "cuda" and the host branch on
 
 Both blind-rotation methods run: GINX, and AP with the binary rotation
 base (B_r = 2, as STD128 and STD128_OPT have it), each on device-generated
-keys.  As in the JAX package, ``OECE_LAYOUT`` picks the device GINX key
-layout (default "rev2", the rotated-difference form of fhe/rot.py, run as
-one step loop, or one call per step under ``OECE_ROT_MEGA=0``; "rev", the
-standard form on prebuilt diagonals of fhe/rev.py; any other value
-raises).  With ``OECE_HOST_KEYGEN=1`` in the environment, as in the JAX
-package, the keys are golden's host keys instead, drawn from ``self._rng``
-(the LWE secret, then golden.bootstrap_keygen's draws, no seed words) and
-packed as the JAX package packs them on an accelerator: GINX then runs the
-standard form (fhe/std.py, Pallas kernels #1 and #4), AP its ap_ext
-kernel.  Not ported yet (each raises NotImplementedError naming its ROADMAP
-item): the generic-base AP method (B_r != 2), device meshes (``mesh=``,
-``setMesh``), checkpointing (``Clock(checkpoint_path=...)``) and the
-``OECE_BAD_TRACE=1`` lane trace of verify runs.  ``generate_keys=False``
+keys, and AP with a generic base (B_r = 32, MICRO and TOY) on golden's host
+keys, as the JAX package runs it.  As in the JAX package, ``OECE_LAYOUT``
+picks the device GINX key layout (default "rev2", the rotated-difference
+form of fhe/rot.py, run as one step loop, or one call per step under
+``OECE_ROT_MEGA=0``; "rev", the standard form on prebuilt diagonals of
+fhe/rev.py; any other value raises).  With ``OECE_HOST_KEYGEN=1`` in the
+environment, as in the JAX package, the keys are golden's host keys
+instead, drawn from ``self._rng`` (the LWE secret, then
+golden.bootstrap_keygen's draws, no seed words) and packed as the JAX
+package packs them on an accelerator: GINX then runs the standard form
+(fhe/std.py, Pallas kernels #1 and #4), AP its ap_ext kernel (or, for a
+generic base, ``ap.blind_rotate_ap_generic``).  ``generate_keys=False``
 skips key generation, as in the JAX package (plaintext work, or keys
 injected with ``keys``/``sk``).
+
+``mesh=`` / ``setMesh`` take a parallel.mesh.Mesh (process groups on
+torch.distributed): every level's bootstrap batch is padded and sharded
+over its dp ranks; a tp axis (> 1) runs on host GINX keys, drawn as under
+``OECE_HOST_KEYGEN=1``, and shards the rows of the rotation's product and
+the key switch's contraction.  With a mesh and ``OECE_LEVEL_JIT`` unset
+the checks run on the host branch, as the JAX package's.
+
+``Clock(checkpoint_path=..., checkpoint_every=k)`` saves the evaluation
+state every k levels and resumes a matching interrupted evaluation from
+the last save (runtime/checkpoint.py); a resumed run equals an
+uninterrupted one bit for bit on both branches, repairs included.
+``OECE_BAD_TRACE=1`` in verify mode records every repaired lane in
+``bad_gate_lanes`` ({level, lane, case, op, wire, cycle}; ``lane`` is the
+gate's place in the level's bootstrap order, also under compound XOR,
+``cycle`` the Clock() since Reset).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Dict, List, Optional, Sequence
@@ -72,6 +88,8 @@ from ..fhe import _build, boot, devkeygen, golden, hostkeygen, lwe
 from ..fhe.keys import GATE_INDEX, BootKeys
 from ..fhe.params import BinFHEMethod, BinGate, get_params
 from ..utils.trace import LevelRecord, Trace
+from ..parallel import mesh as mesh_mod
+from . import checkpoint as ckpt_mod
 
 _OP_TO_GATE = {
     Op.AND: BinGate.AND, Op.OR: BinGate.OR, Op.NAND: BinGate.NAND,
@@ -94,10 +112,9 @@ _N_OPS = max(int(o) for o in Op) + 1  # device repair accumulators' op axis
 MAX_LANES = 4096
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to oece_tpu_torch yet (ROADMAP.md queue 1, {item})"
-    )
+def _check_mesh(mesh) -> None:
+    if mesh is not None and not isinstance(mesh, mesh_mod.Mesh):
+        raise TypeError(f"mesh: want a parallel.mesh.Mesh (make_mesh), got {type(mesh).__name__}")
 
 
 class Circuit:
@@ -109,7 +126,9 @@ class Circuit:
     ``device`` from ``seed`` (None draws OS entropy; ``OECE_HOST_KEYGEN=1``
     selects golden's host keys, see the module docstring), or injected with
     ``keys`` (of the same method), ``sk`` and ``rng`` (the generator for
-    host encryption; an injected generator counts as a seed).
+    host encryption; an injected generator counts as a seed).  The
+    generic-base AP method and a mesh with tp > 1 take golden's host keys,
+    as in the JAX package.
     """
 
     def __init__(
@@ -126,19 +145,17 @@ class Circuit:
         generate_keys: bool = True,
         mesh=None,
     ):
-        if mesh is not None:
-            raise _not_ported("Circuit(mesh=...)", "item 10, the mesh")
         self.params = get_params(set) if isinstance(set, str) else set
         self.method = (
             method if isinstance(method, BinFHEMethod)
             else BinFHEMethod[str(method).upper()]
         )
-        if self.method == BinFHEMethod.AP and (self.params.B_r != 2 or self.params.N % 128):
-            raise _not_ported(
-                f"method='AP' with B_r={self.params.B_r}, N={self.params.N} "
-                "(only the binary rotation base with N % 128 == 0 is ported)",
-                "the generic-base AP method",
-            )
+        if self.params.N % 128:
+            raise ValueError(f"N={self.params.N}: the port's rotations need N % 128 == 0")
+        _check_mesh(mesh)
+        tp = 1 if mesh is None else mesh.tp
+        if tp > 1 and self.method == BinFHEMethod.AP:
+            raise ValueError("AP shards dp-only: build the mesh with tp=1")
         if keys is not None and keys.method != self.method:
             raise ValueError(f"keys are {keys.method.name} keys, the circuit is {self.method.name}")
         if xor_mode not in ("native", "compound"):
@@ -165,7 +182,8 @@ class Circuit:
         self.keygen_s = 0.0
         if self.keys is None and generate_keys:
             t0 = time.time()
-            if os.environ.get("OECE_HOST_KEYGEN") == "1":
+            if (os.environ.get("OECE_HOST_KEYGEN") == "1" or tp > 1
+                    or (self.method == BinFHEMethod.AP and self.params.B_r != 2)):
                 self.sk = golden.lwe_keygen(self.params, self._rng)
                 self.keys = hostkeygen.bootstrap_keygen(
                     self.params, self.sk, self._rng, self.method, self.device
@@ -191,6 +209,11 @@ class Circuit:
             torch.as_tensor(np.asarray(self.sk.s), dtype=torch.int32, device=self.device)
             if self.sk is not None else None
         )
+
+        self.mesh = None
+        self._mesh_keys: Optional[BootKeys] = None  # this rank's shard of the keys
+        if mesh is not None:
+            self.setMesh(mesh)
 
         self.netlist: Optional[Netlist] = None
         self.plan = None
@@ -259,9 +282,14 @@ class Circuit:
         self.recover_threshold = int(threshold) if threshold is not None else self.params.q // 16
 
     def setMesh(self, mesh) -> None:
-        """Only ``setMesh(None)`` (no mesh) is supported."""
-        if mesh is not None:
-            raise _not_ported("setMesh", "item 10, the mesh")
+        """Attach a parallel.mesh.Mesh (None detaches it): every level's
+        bootstrap batch is sharded over its ``dp`` ranks, keys replicated;
+        a ``tp`` axis shards host GINX keys' rows (parallel/mesh.py)."""
+        _check_mesh(mesh)
+        if mesh is not None and mesh.device.type != self.device.type:
+            raise ValueError(f"the mesh's device {mesh.device} is not the circuit's {self.device}")
+        self.mesh = mesh
+        self._mesh_keys = self._shard_keys() if mesh is not None and self.keys is not None else None
 
     def Reset(self) -> None:
         self._plain_arena: Optional[np.ndarray] = None
@@ -274,6 +302,7 @@ class Circuit:
         self.exec_time = 0.0
         self._done = False
         self._cur_level = 0
+        self._cycle = -1  # Clock() calls since Reset, less one
         self._bootstraps_run = 0
         self.trace: Optional[Trace] = None
         # sequential state: values latched on wires dff_q, cleared to 0 here
@@ -286,6 +315,11 @@ class Circuit:
         self._bad_lv_dev: Optional[torch.Tensor] = None  # [depth+1, ops]
         self._rec_dev: Optional[torch.Tensor] = None  # [3, ops]: suspects, HARD, IN_
         self._rec_max: Optional[torch.Tensor] = None  # worst |phase error|
+        # OECE_BAD_TRACE=1: every verify repair's lane
+        self.bad_gate_lanes: List[dict] = []
+        self._trace_lanes = False
+        self._bad_mask_dev: Optional[torch.Tensor] = None  # [depth+1, wmax, T] int8
+        self._plain_dev: Optional[torch.Tensor] = None  # device branch: the plaintext arena
 
     # -- inputs -------------------------------------------------------------
     def SetInput(self, inputs: Sequence[np.ndarray]) -> None:
@@ -329,11 +363,12 @@ class Circuit:
     # -- the engine ---------------------------------------------------------
     def _use_level_jit(self) -> bool:
         """The JAX package's branch switch: OECE_LEVEL_JIT=1 the device
-        branch, =0 the host branch, unset the device branch on the card."""
+        branch, =0 the host branch, unset the device branch on the card
+        without a mesh."""
         v = os.environ.get("OECE_LEVEL_JIT")
         if v is not None:
             return v == "1"
-        return self.device.type == "cuda"
+        return self.device.type == "cuda" and self.mesh is None
 
     def _next_gen(self) -> torch.Generator:
         """The device branch's generator, seeded at its first use: from one
@@ -353,19 +388,17 @@ class Circuit:
         checkpoint_path: Optional[str] = None,
         checkpoint_every: int = 0,
     ) -> None:
-        """Evaluate the whole circuit (one cycle of a sequential one);
-        ``checkpoint_every`` is read only with a ``checkpoint_path``, which
-        is not ported."""
+        """Evaluate the whole circuit (one cycle of a sequential one).
+        With ``checkpoint_path``, the state is saved there every
+        ``checkpoint_every`` levels and a matching checkpoint found there
+        is resumed from; the file is removed when the evaluation ends."""
         if self.plan is None:
             raise RuntimeError("ReadFile first")
         if self._done:
             raise RuntimeError("Circuit already evaluated; call Reset")
-        if checkpoint_path is not None:
-            raise _not_ported("Clock(checkpoint_path=...)", "item 7, checkpointing")
-        if self.verify_flag and os.environ.get("OECE_BAD_TRACE", "0") == "1":
-            raise _not_ported("OECE_BAD_TRACE=1", "item 8, OECE_BAD_TRACE lanes")
         t_start = time.time()
         exec0 = self.exec_time
+        self._cycle += 1
         if (self.encrypted_flag and not self.verify_flag and not self._recover_explicit
                 and os.environ.get("OECE_AUTO_RECOVER", "1") == "1"):
             self.recover_flag = True  # pure-encrypted runs are margin-protected by default
@@ -376,33 +409,39 @@ class Circuit:
         )
         self.trace = Trace(circuit=self.netlist.name, mode=mode)
         self.trace.begin()
-        index = self._level_index()
-        plain_dev = None
-        if self._dev_branch and self.verify_flag:
-            # the whole plaintext pass first, then one upload: the device
-            # checks read it without a host copy per level
-            for level in self.plan.levels:
-                self._plain_level(level)
-            plain_dev = torch.from_numpy(self._plain_arena).to(self.device)
-            self._bad_dev = torch.zeros(_N_OPS, dtype=torch.int64, device=self.device)
-            self._bad_lv_dev = torch.zeros(
-                (self.plan.depth + 1, _N_OPS), dtype=torch.int64, device=self.device
-            )
-        on_cuda = self.device.type == "cuda"
+        self._level_index()
+        dev_verify = self._dev_branch and self.verify_flag
+        self._trace_lanes = (self.verify_flag and self.encrypted_flag
+                             and os.environ.get("OECE_BAD_TRACE", "0") == "1")
+        # the device branch's accumulators of this Clock (fetched at its end)
+        zeros = lambda *shape, dtype=torch.int64: torch.zeros(shape, dtype=dtype, device=self.device)  # noqa: E731
+        self._bad_dev = zeros(_N_OPS) if dev_verify else None
+        self._bad_lv_dev = zeros(self.plan.depth + 1, _N_OPS) if dev_verify else None
+        self._rec_dev = self._rec_max = None
+        self._bad_mask_dev = (
+            zeros(self.plan.depth + 1, self._lane_width(), self._batch, dtype=torch.int8)
+            if dev_verify and self._trace_lanes else None
+        )
+        self._plain_dev = None
+        start_lv = 0
+        if checkpoint_path is not None:
+            start_lv = ckpt_mod.maybe_resume(self, checkpoint_path)
+        if dev_verify:
+            # the whole plaintext pass first (a resumed arena holds it
+            # already), then one upload: the device checks read it without
+            # a host copy per level
+            if start_lv == 0:
+                for level in self.plan.levels:
+                    self._plain_level(level)
+            self._plain_dev = torch.from_numpy(self._plain_arena).to(self.device)
+        depth = self.plan.depth
         for lv, level in enumerate(self.plan.levels):
+            if lv < start_lv:
+                continue
             t0 = time.time()
             self._cur_level = lv
             b0 = self._bootstraps_run
-            self._count_level(level)
-            if self.plaintext_flag and plain_dev is None:
-                self._plain_level(level)
-            if self.encrypted_flag:
-                groups, segments = index[lv]
-                for grp in groups:
-                    self._run_group(grp, plain_dev)
-                self._run_linear_encrypted(segments)
-                if on_cuda:
-                    torch.cuda.synchronize(self.device)
+            self._run_level(level)
             dt = time.time() - t0
             self.exec_time += dt
             self.trace.add(LevelRecord(
@@ -410,13 +449,22 @@ class Circuit:
                 linear_gates=len(level["lin_op"]), batch=self._batch,
                 wall_s=dt, bootstraps=self._bootstraps_run - b0,
             ))
-            if (self.verbose or verbose) and self.plan.depth > 1:
+            if (checkpoint_path is not None and checkpoint_every > 0
+                    and (lv + 1) % checkpoint_every == 0 and lv + 1 < depth):
+                ckpt_mod.save(self, checkpoint_path, lv + 1)
+            if (self.verbose or verbose) and depth > 1:
                 print(
-                    f"\rProcessing level {lv + 1} of {self.plan.depth}",
-                    end="" if lv + 1 < self.plan.depth else "\n", flush=True,
+                    f"\rProcessing level {lv + 1} of {depth}",
+                    end="" if lv + 1 < depth else "\n", flush=True,
                 )
+        if checkpoint_path is not None:
+            # crash-recovery state of this evaluation only: a stale file must
+            # not be resumed by the next Clock() (the ranks of a mesh share it)
+            with contextlib.suppress(FileNotFoundError):
+                os.remove(checkpoint_path)
         self._flush_bad_dev()
         self._flush_rec_dev()
+        self._plain_dev = None
         self._collect_outputs()
         nl = self.netlist
         if nl.n_dff:  # latch D into the state; the circuit stays clockable
@@ -431,6 +479,25 @@ class Circuit:
         if self.verbose or verbose:
             eff = 100.0 * (self.exec_time - exec0) / total if total > 0 else 0.0
             print(f"### Total time {total * 1e3:.1f} msec, efficiency {eff:.1f}%")
+
+    def _run_level(self, level: dict) -> None:
+        """Level ``self._cur_level``: gate counts, its plaintext pass
+        (unless the device branch ran them all first), its bootstrap groups
+        with their checks, and its linear runs."""
+        self._count_level(level)
+        if self.plaintext_flag and self._plain_dev is None:
+            self._plain_level(level)
+        if self.encrypted_flag:
+            groups, segments = self._index[self._cur_level]
+            for grp in groups:
+                self._run_group(grp)
+            self._run_linear_encrypted(segments)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+    def _lane_width(self) -> int:
+        """The lane trace's width: the widest level's bootstrap gates."""
+        return max([len(level["boot_op"]) for level in self.plan.levels] + [1])
 
     def _level_index(self) -> list:
         """Per level, ([bootstrap gate groups], [linear op runs]) with the
@@ -460,7 +527,8 @@ class Circuit:
                     continue
                 gids = [GATE_INDEX[_OP_TO_GATE[Op(int(o))]] for o in ops[m]]
                 groups.append(dict(
-                    compound=compound, ops=ops[m], outw=outw[m],
+                    compound=compound, ops=ops[m], outw=outw[m], lane_np=np.nonzero(m)[0],
+                    lane=put(np.nonzero(m)[0]),
                     s0=put(slot[in0[m]]), s1=put(slot[in1[m]]), so=put(slot[outw[m]]),
                     wo=put(outw[m]), gids=put(gids), opsv=put(ops[m]),
                     xnor=put(ops[m] == int(Op.XNOR)),
@@ -479,7 +547,7 @@ class Circuit:
         views = torch.split(flat.to(self.device), [len(a) for a in parts])
         for groups, segments in index:
             for g in groups:
-                for key in ("s0", "s1", "so", "wo", "gids", "opsv", "xnor"):
+                for key in ("s0", "s1", "so", "wo", "gids", "opsv", "xnor", "lane"):
                     g[key] = views[g[key]]
             segments[:] = [(o, views[i], views[j]) for o, i, j in segments]
         self._index = index
@@ -518,12 +586,23 @@ class Circuit:
                 pa[:, w] = 1 if oo == int(Op.EQ1) else 0
 
     def _bootstrap(self, prep: torch.Tensor, gids: torch.Tensor) -> torch.Tensor:
+        if self.mesh is not None:
+            if self._mesh_keys is None:
+                self._mesh_keys = self._shard_keys()
+            run = lambda x, g: mesh_mod.bootstrap_sharded(x, g, self._mesh_keys, self.mesh)  # noqa: E731
+        else:
+            run = lambda x, g: boot.bootstrap_batch(x, g, self.keys)  # noqa: E731
         return torch.cat([
-            boot.bootstrap_batch(prep[k:k + MAX_LANES], gids[k:k + MAX_LANES], self.keys)
+            run(prep[k:k + MAX_LANES], gids[k:k + MAX_LANES])
             for k in range(0, prep.shape[0], MAX_LANES)
         ])
 
-    def _run_group(self, grp: dict, plain_dev: Optional[torch.Tensor]) -> None:
+    def _shard_keys(self) -> BootKeys:
+        if self.keys is None:
+            raise RuntimeError("no keys")
+        return mesh_mod.shard_bootstrap_keys(self.keys, self.mesh)
+
+    def _run_group(self, grp: dict) -> None:
         """One group's bootstraps, its check, and the scatter."""
         T, W = self._batch, len(grp["ops"])
         B = W * T
@@ -561,23 +640,28 @@ class Circuit:
             self._bootstraps_run += B
         out = out.reshape(W, T, -1)
         if self.verify_flag:
-            out = (self._verify_fix_dev(grp, out, plain_dev, gen) if self._dev_branch
-                   else self._verify_fix(grp["ops"], grp["outw"], out))
+            out = (self._verify_fix_dev(grp, out, gen) if self._dev_branch
+                   else self._verify_fix(grp["ops"], grp["outw"], out, grp["lane_np"]))
         elif self.recover_flag:
             out = (self._recover_fix_dev(grp, out, gen) if self._dev_branch
                    else self._recover_fix(grp["ops"], out))
         arena[grp["so"]] = out
 
     # -- the host branch's checks (the parity anchor) -------------------------
-    def _verify_fix(self, ops, outw, out: torch.Tensor) -> torch.Tensor:
+    def _verify_fix(self, ops, outw, out: torch.Tensor, lanes) -> torch.Tensor:
         """Per-level decrypt-compare-fix (gate.cpp:153-160 parity): the JAX
-        package's host-branch semantics, with the decryption on the device."""
+        package's host-branch semantics, with the decryption on the device.
+        ``lanes``: the gates' places in the level (the lane trace's)."""
         T, W = self._batch, len(ops)
         want_np = self._plain_arena[:, outw].T.astype(np.int32)  # [W, T]
         got = lwe.decrypt_bits_dev(self._s_dev, out, self.params.q).cpu().numpy()
         bad = got != want_np
         if not np.any(bad):
             return out
+        if self._trace_lanes:
+            for g, case in zip(*np.nonzero(bad)):
+                self.bad_gate_lanes.append(self._lane_record(
+                    self._cur_level, int(lanes[g]), int(case), int(ops[g]), int(outw[g])))
         for o in np.unique(ops):
             name = Op(int(o)).name
             cnt = int(bad[ops == o].sum())
@@ -617,19 +701,25 @@ class Circuit:
         return out
 
     # -- the device branch's checks -----------------------------------------
-    def _verify_fix_dev(self, grp: dict, out, plain_dev, gen) -> torch.Tensor:
+    def _verify_fix_dev(self, grp: dict, out, gen) -> torch.Tensor:
         """Decrypt, compare with the plaintext arena, re-encrypt every lane
         and keep the fresh ciphertext where the bit was wrong; per-op and
         per-level counts add up on the device."""
         p = self.params
         W, T = out.shape[0], self._batch
-        want = plain_dev[:, grp["wo"]].T  # [W, T]
+        want = self._plain_dev[:, grp["wo"]].T  # [W, T]
         bad = lwe.decrypt_bits_dev(self._s_dev, out, p.q) != want
         fixed = lwe.encrypt_bits_dev(self._s_dev, want, gen, p).reshape(W, T, -1)
         per_op = bad.sum(1)
         self._bad_dev.index_add_(0, grp["opsv"], per_op)
         self._bad_lv_dev[self._cur_level].index_add_(0, grp["opsv"], per_op)
+        if self._bad_mask_dev is not None:
+            self._bad_mask_dev[self._cur_level, grp["lane"]] = bad.to(torch.int8)
         return torch.where(bad[:, :, None], fixed, out)
+
+    def _lane_record(self, lv: int, lane: int, case: int, op: int, wire: int) -> dict:
+        return {"level": lv, "lane": lane, "case": case, "op": Op(op).name, "wire": wire,
+                "cycle": self._cycle}
 
     def _rec_acc(self):
         if self._rec_dev is None:
@@ -671,7 +761,16 @@ class Circuit:
 
     def _flush_bad_dev(self) -> None:
         """Fetch the device verify counts (one small copy) into
-        bad_gate_levels and bad_gate_counts, with their lines."""
+        bad_gate_levels and bad_gate_counts, with their lines, and the lane
+        trace's cube into bad_gate_lanes."""
+        if self._bad_mask_dev is not None:
+            cube = self._bad_mask_dev.cpu().numpy()
+            self._bad_mask_dev = None
+            for lv, lane, case in zip(*np.nonzero(cube)):
+                level = self.plan.levels[lv]
+                self.bad_gate_lanes.append(self._lane_record(
+                    int(lv), int(lane), int(case), int(level["boot_op"][lane]),
+                    int(level["boot_out"][lane])))
         if self._bad_lv_dev is not None:
             lv_counts = self._bad_lv_dev.cpu().numpy()
             self._bad_lv_dev = None

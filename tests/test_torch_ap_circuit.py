@@ -174,5 +174,7 @@ def test_method_and_keys_must_agree(jax_circuit):
     _, kt = jax_circuit
     with pytest.raises(ValueError, match="AP keys"):
         Circuit(set=MICRO_AP2, method="GINX", device="cpu", keys=kt)
-    with pytest.raises(NotImplementedError, match="generic-base AP method"):
-        Circuit(set="MICRO", method="AP", device="cpu")
+    # a generic base (MICRO, B_r = 32) takes golden's host keys, every digit value
+    c = Circuit(set="MICRO", method="AP", seed=1, device="cpu")
+    p = c.params
+    assert c.keys.ap_ext.shape == (p.n * p.d_r * p.B_r, 2 * p.d_g_used, 8, 2 * p.N)

@@ -93,10 +93,13 @@ def test_own_ap_keygen_gives_working_gates():
 
 
 def test_ap_keygen_refuses_generic_base():
+    """Device AP keygen is binary-base only, as in the JAX package; golden's
+    generic-base keys (B_r = 32) are packed with every digit value (they
+    used to be refused; tests/test_torch_ap_generic.py runs them)."""
     with pytest.raises(ValueError, match="B_r=32"):
         devkeygen.device_keygen_ap(MICRO, np.zeros(8, np.uint32))
     jp = jax_params(MICRO)
     sk = golden.lwe_keygen(jp, np.random.default_rng(0))
     bk = golden.bootstrap_keygen(jp, sk, np.random.default_rng(1), JMethod.AP)
-    with pytest.raises(ValueError, match="B_r=32"):
-        keys.pack_bootstrap_key(port_bootstrap_key(bk), "cpu")
+    kt = keys.pack_bootstrap_key(port_bootstrap_key(bk), "cpu")
+    assert kt.ap_ext.shape == (MICRO.n * MICRO.d_r * MICRO.B_r, 2 * MICRO.d_g_used, 8, 2 * MICRO.N)

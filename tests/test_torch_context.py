@@ -5,7 +5,7 @@
     EvalBinGate, EvalNOT, EvalBinGateBatch, Decrypt) through both contexts
     gives identical keys and ciphertexts: GINX at MICRO_A (and at MICRO in
     tests/test_torch_context_micro.py), the binary-base AP method at
-    MICRO_AP2; the generic-base AP method raises;
+    MICRO_AP2, the generic-base AP method (B_r = 32) at MICRO;
   * the port's BTKeyGen (golden's draws, products on the device) equals
     golden.bootstrap_keygen packed, and leaves the generator where golden
     leaves it;
@@ -41,6 +41,8 @@ TRUTH = {
 
 
 def _both(name):
+    if name == "MICRO_AP":  # MICRO's own generic rotation base, B_r = 32
+        return jparams.MICRO, pparams.MICRO, "AP"
     if name == "MICRO_AP2":  # binary rotation base at MICRO_A size
         return (dataclasses.replace(jparams.MICRO_A, name=name, B_r=2),
                 dataclasses.replace(pparams.MICRO_A, name=name, B_r=2), "AP")
@@ -87,7 +89,9 @@ def check_sequence(name, monkeypatch):
         np.testing.assert_array_equal(tb, jb)
         cts.append((ta, tb))
     kernel = ap if method == "AP" else std
-    plain0 = kernel.PLAIN_LAUNCHES
+    # a generic base rotates with torch ops on every device, counted apart
+    count = "GENERIC_LAUNCHES" if method == "AP" and pp.B_r != 2 else "PLAIN_LAUNCHES"
+    plain0 = getattr(kernel, count)
     for gate, fn in TRUTH.items():  # one single call per gate
         (a, b), (ca, cb) = pairs[len(gate) % 4], cts[len(gate) % 4]
         want = np.asarray(jc.EvalBinGate(gate, ca, cb))
@@ -95,7 +99,7 @@ def check_sequence(name, monkeypatch):
         assert isinstance(got, np.ndarray)
         np.testing.assert_array_equal(got, want)
         assert tc.Decrypt(tsk, got) == jc.Decrypt(jsk, want) == fn(a, b)
-    assert kernel.PLAIN_LAUNCHES == plain0 + 6
+    assert getattr(kernel, count) == plain0 + 6
     np.testing.assert_array_equal(tc.EvalNOT(cts[1][0]), np.asarray(jc.EvalNOT(cts[1][0])))
     assert tc.Decrypt(tsk, tc.EvalNOT(cts[1][0])) == 1
 
@@ -119,12 +123,11 @@ def check_sequence(name, monkeypatch):
     np.testing.assert_array_equal(tc.Encrypt(tsk, 1), jc.Encrypt(jsk, 1))
 
 
-def test_generic_base_ap_raises():
-    tc = BinFHEContext(device="cpu").GenerateBinFHEContext("MICRO", "AP", seed=1)
-    sk = tc.KeyGen()
-    with pytest.raises(NotImplementedError, match="the generic-base AP method"):
-        tc.BTKeyGen(sk)
-    assert tc.keys is None
+def test_generic_base_ap_raises(monkeypatch):
+    """The generic-base AP method (MICRO, B_r = 32) used to raise; it now
+    runs the whole call sequence bit for bit as the JAX context, with
+    every digit value's keys (ap.blind_rotate_ap_generic)."""
+    check_sequence("MICRO_AP", monkeypatch)
 
 
 @pytest.mark.parametrize("name", ["MICRO_A", "MICRO_AP2"])

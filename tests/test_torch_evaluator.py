@@ -160,12 +160,13 @@ def test_port_keygen_runs_circuit():
 
 
 def test_unported_features_raise(monkeypatch):
-    """The generic-base AP method still raises; recovery, compound XOR,
-    DFF state and the automatic recovery of a pure-encrypted Clock() now
-    run, and match the JAX package's main-path Circuit bit for bit on the
-    host branch (MICRO keys, secret and generator injected)."""
-    with pytest.raises(NotImplementedError, match="AP method"):
-        Circuit(set="MICRO", method="AP", device="cpu")
+    """The generic-base AP method (tests/test_torch_ap_generic.py),
+    recovery, compound XOR, DFF state and the automatic recovery of a
+    pure-encrypted Clock() used to raise; they now run, and match the JAX
+    package's main-path Circuit bit for bit on the host branch (MICRO keys,
+    secret and generator injected)."""
+    c = Circuit(set="MICRO", method="AP", seed=2, device="cpu")
+    assert c.keys.ap_ext.shape[0] == c.params.n * c.params.d_r * c.params.B_r
     monkeypatch.setenv("OECE_FORCE_DEVICE_KEYGEN", "1")
     monkeypatch.setenv("OECE_AUTO_RECOVER", "1")
     monkeypatch.delenv("OECE_LEVEL_JIT", raising=False)

@@ -4,7 +4,9 @@ keys with the port's own keygen and clocks adder_2bit to the right sums in
 verify mode, runs gates through a MICRO ``BinFHEContext``, imports the
 harness, circuit generators and tools, and passes the adder_2bit test
 bench pure-encrypted with recovery (what chip_smoke.py needs on a machine
-that has no JAX); no module of
+that has no JAX), clocks the adder again with a checkpoint and the lane
+trace, builds the native parser and runs the NTT, the key cache and the
+MICRO generic-base AP rotation; no module of
 ``oece_tpu`` is loaded on the way.  An AST scan finds no import of ``jax``
 or ``oece_tpu`` in the port's sources, chip_smoke.py or chip_profile.py."""
 
@@ -46,6 +48,34 @@ from oece_tpu_torch.tools import circuit_walls, run_circuit  # noqa: F401
 from oece_tpu_torch.utils import cli  # noqa: F401
 
 assert tb.main(["adder_2bit", "-s", "MICRO", "-n", "2", "--device", "cpu", "--recover"]) == 0
+import os
+import tempfile
+
+import torch
+from oece_tpu_torch.circuits import native
+from oece_tpu_torch.fhe import ap, keycache, ntt, ntt_dev
+from oece_tpu_torch.fhe.params import MICRO, BinFHEMethod
+from oece_tpu_torch.parallel import mesh  # noqa: F401
+from oece_tpu_torch.runtime import checkpoint  # noqa: F401
+
+tmp = tempfile.mkdtemp()
+os.environ["OECE_BAD_TRACE"] = "1"
+c.Reset()
+c.setVerify(True)
+c.SetInput([np.array([[x & 1, x >> 1] for x, _ in cases]),
+            np.array([[y & 1, y >> 1] for _, y in cases])])
+c.Clock(checkpoint_path=os.path.join(tmp, "ck.npz"), checkpoint_every=1)
+(out,) = c.GetOutput()
+assert list((out << np.arange(out.shape[1])).sum(1)) == [x + y for x, y in cases]
+assert not os.listdir(tmp) and len(c.bad_gate_lanes) == sum(c.bad_gate_counts.values())
+assert native.available(), native.BUILD_ERROR
+a = np.random.default_rng(0).integers(0, MICRO.Q, (2, 128))
+assert np.array_equal(ntt_dev.ntt_forward_dev(torch.from_numpy(a)).numpy(), ntt.ntt_forward(a))
+os.environ["OECE_KEY_CACHE"] = tmp
+sk2, kt = keycache.load_or_generate(MICRO, BinFHEMethod.AP, seed=1, device="cpu")
+acc = torch.zeros((1, 2, MICRO.N), dtype=torch.int32)
+a2N = torch.ones((1, MICRO.n), dtype=torch.int32)
+assert ap.blind_rotate_ap_generic(acc, kt.ap_ext, a2N, MICRO).shape == acc.shape
 loaded = sorted(m for m in sys.modules if m.split(".")[0] == "jax" and sys.modules[m] is not None)
 assert not loaded, loaded
 jaxpkg = sorted(m for m in sys.modules if m.split(".")[0] == "oece_tpu")
