@@ -208,16 +208,49 @@ before the result lines):
              sha256.txt; both timed.
  27. mesh    a one-rank NCCL process group and its (1, 1) parallel.mesh:
              Circuit(mesh=...) adder_32bit verify T=4 at STD128_OPT, the
-             batches through bootstrap_sharded (no padding at dp = 1,
-             #12's kernels, an NCCL all_gather): sums right, no repair,
-             outputs == phase circuit's, #12 only; then, warm, without
-             the mesh on the host branch and with it again, timed.
+             batches through bootstrap_sharded (no padding and no gather
+             at dp = 1, #12's kernels): sums right, no repair, outputs ==
+             phase circuit's, #12 only; then, warm, without the mesh on
+             the host branch and with it again, timed.
+ 28. tp      tensor parallelism on the card (std.blind_rotate_std_tp,
+             STD128_OPT golden host keys of seed 0 from fhe/keycache.py):
+             #1, #3 and #5 against their plain twins at R = 1, 2 and 4 key
+             rows and #6 at B = 4 and 64; for tp = 2 and 4 at B = 4 and
+             64, each rank's raw limb sums of one step through #5 and
+             through #1 then #3, summed over the ranks, == the unsharded
+             step's, and after the combine and #6 == std.std_step_plain;
+             the device times of both products per rank at R = 2 and 1
+             (B = 8, 64) and of #6, with bounds; then two gloo processes
+             on cuda:0 (torch.multiprocessing, each loading the cached
+             keys): adder_2bit verify T=4 through Circuit(mesh=...) on a
+             (1, 2) mesh and unsharded: right sums, no repair, the same
+             ciphertexts, walls; a batch of 64 gates through
+             eval_bin_gate_sharded == the unsharded batch bit for bit (a
+             (2, 1) mesh's too, its gather staged through the host), its
+             step split into device time by kernel (16 steps under the
+             profiler), the all-reduce alone (at 64 and 4 gates, card and
+             host tensors) and the rest; the sharded runs launch the tp
+             route's kernels only (#5 and #6; not #1, #3, the std step
+             loop or a plain version).
+ 29. noise   the port's noise tools at STD128_OPT through their functions
+             (oece_tpu_torch/tools/measure_noise.py run: 20 chained batches
+             of 1024 mixed gates each on rev2 and rev device keys and on
+             host keys, 10 on the rev2 keys of seeds 1-4;
+             measure_xor_noise.py run: 10 chained batches of 2048 per gate
+             type, XOR, AND, XNOR, OR, on rev2), each chunk with the card's
+             sync debug mode at "error" (no host wait between progress
+             lines): no failure (|e| >= q/8) anywhere; sigma, max |e| and
+             margin/sigma beside NOISE.md's TPU sigma, and each key's mean
+             beside the one its key-switch key predicts.
 
-Each main-path run (phases 4, 7, 9, 10, 14, 15, 17-21 and 27) sets every
+The phases run in that order, except that 28 and 29 come right after 17.
+Each main-path run (phases 4, 7, 9, 10, 14, 15, 17-21, 27 and 28) sets every
 launch count to 0 just before it and reads the counts just after: the
 rotation calls that reached each version, and each CUDA kernel's launches
 (one per step; in phase 17 one per call of a kernel of fhe/negacyclic.py);
-phase 22 checks that no kernel ran and the generic rotation did.
+phase 22 checks that no kernel ran and the generic rotation did; in
+phase 28 each process resets and reads its own counts, and rank 0's go
+into the kernels line beside phase 17's.
 The last two lines are the kernels' JSON record and {"ok": true,
 "device": {...}}.  JAX and the JAX package are blocked from being
 imported.  ``python3 chip_smoke.py PHASE ...`` runs the build and the
@@ -242,9 +275,11 @@ ADDER = os.path.join(REPO, "examples", "old_bristol_ckts", "arith", "adder_32bit
 INT8_OPS_PER_S = 1979e12
 HBM_BYTES_PER_S = 3.35e12
 
-# device_ms: the host's wait on each edge of a profile window, and how many
-# windows in a row may miss a timed launch's record before it fails.
+# device_ms: the host's wait on each edge of a profile window, the fill
+# launches on each side of its first wait, and how many windows in a row
+# may miss a timed launch's record before it fails.
 EDGE_S = 0.25
+FILLS = 16
 WINDOWS = 3
 
 
@@ -323,21 +358,33 @@ def check_only(phase: str, counts: dict, kernel: str) -> int:
     return read_step_launches(kernel)
 
 
+def open_window() -> None:
+    """A profile window's first launches, before the timed ones: FILLS
+    fills, EDGE_S of waiting, FILLS more.  The profiler may lose the
+    window's first records (window_span says which went)."""
+    import torch
+
+    for _ in range(FILLS):
+        torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    time.sleep(EDGE_S)
+    for _ in range(FILLS):
+        torch.zeros(1, device="cuda")
+
+
 def device_ms(fn, reps: int, *kernels: str, per_call: int = 1) -> list[float]:
     """Device time per call of fn spent in the CUDA kernels whose name
     contains each of ``kernels`` (torch.profiler), each launched
     ``per_call`` times per call: for kernels shorter than the host's launch
     overhead, where back-to-back CUDA events time the host instead.
 
-    The profiler keeps only the kernels whose device timestamps fall
-    inside its capture window, which opens and closes on the host's clock;
-    on the card's machine the device timestamps can read earlier than the
-    host's, so the window's first launch is often lost (PERF.md §6).  A
-    fill kernel goes first and the host then waits ``EDGE_S`` on each edge
-    of the window, so the timed launches lie well inside it.  A window
-    that still misses a timed record is said and taken again, and
-    ``WINDOWS`` such windows in a row fail: a time comes only from a
-    window that recorded every launch."""
+    On the card's machine the profiler often loses a window's first
+    records, and late in a long process it lost the first five (PERF.md
+    §7), so open_window's fills go first, and the host waits ``EDGE_S`` on
+    each edge of the window.  A window that still misses a timed record is
+    said, with what it kept, and taken again, and ``WINDOWS`` such windows
+    in a row fail: a time comes only from a window that recorded every
+    launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -346,9 +393,7 @@ def device_ms(fn, reps: int, *kernels: str, per_call: int = 1) -> list[float]:
     want = [reps * per_call] * len(kernels)
     for _ in range(WINDOWS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.zeros(1, device="cuda")  # the window's first launch
-            torch.cuda.synchronize()
-            time.sleep(EDGE_S)
+            open_window()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -363,12 +408,28 @@ def device_ms(fn, reps: int, *kernels: str, per_call: int = 1) -> list[float]:
                     totals[k] += us
                     counts[k] += ev.count
         if not fills:
-            print(f"device_ms: the profiler dropped the fill's record, timing {kernels}", flush=True)
+            print(f"device_ms: the profiler dropped every fill record, timing {kernels}", flush=True)
         if counts == want:
             return [us / 1e3 / reps for us in totals]
-        print(f"device_ms: the profiler recorded {counts} launches of {kernels}, want {want}; "
-              "taking the window again", flush=True)
+        print(f"device_ms: the profiler recorded {counts} launches of {kernels}, want {want} "
+              f"({window_span(prof, kernels)}); taking the window again", flush=True)
     fail(f"the profiler missed launches of {kernels} in {WINDOWS} windows in a row")
+
+
+def window_span(prof, kernels) -> str:
+    """What a profile window kept: the fill records from before and after
+    open_window's wait (of FILLS each), and the span of the records of
+    ``kernels``."""
+    from torch.autograd import DeviceType
+
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    t = sorted(e.time_range.start for e in evs if any(k in e.name for k in kernels))
+    if not t:
+        return f"{len(evs)} CUDA records, none of these"
+    fills = [e.time_range.start for e in evs if "FillFunctor" in e.name and e.time_range.start < t[0]]
+    early = sum(f < t[0] - 5e5 * EDGE_S for f in fills)  # before the wait
+    return (f"{len(evs)} CUDA records; fills kept {early} of {FILLS} before the wait and "
+            f"{len(fills) - early} of {FILLS} after it; these span {(t[-1] - t[0]) / 1e3:.1f} ms")
 
 
 def timeline_ms(fn, reps: int, *kernels: str) -> list[float]:
@@ -702,9 +763,7 @@ def kernel_timeline(fn, names, steps, want=0):
     torch.cuda.synchronize()
     for _ in range(WINDOWS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.zeros(1, device="cuda")
-            torch.cuda.synchronize()
-            time.sleep(EDGE_S)
+            open_window()
             fn()
             torch.cuda.synchronize()
             time.sleep(EDGE_S)
@@ -1082,7 +1141,7 @@ REV_BATCHES = (1, 4, 8, 13, 16, 17, 37, 64, 256, 2048)
 
 def kernel_names(fn) -> set:
     """The names of the CUDA kernels that one call of fn launched
-    (torch.profiler, with device_ms's fill kernel and waits)."""
+    (torch.profiler, after open_window)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1090,9 +1149,7 @@ def kernel_names(fn) -> set:
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.zeros(1, device="cuda")
-        torch.cuda.synchronize()
-        time.sleep(EDGE_S)
+        open_window()
         fn()
         torch.cuda.synchronize()
         time.sleep(EDGE_S)
@@ -2077,8 +2134,8 @@ def phase_mesh():
     """A one-rank NCCL process group (tcp://localhost, a free port) and its
     (1, 1) mesh: Circuit(mesh=...) runs adder_32bit verify T=4 at
     STD128_OPT with the level batches through parallel.mesh
-    (bootstrap_sharded: no padding at dp = 1, the rotation's kernels, an
-    NCCL all_gather); its outputs must equal phase circuit's.  The NCCL
+    (bootstrap_sharded: no padding and no gather at dp = 1, the
+    rotation's kernels); its outputs must equal phase circuit's.  The NCCL
     communicator is set up by one all_gather before the timed Clock; the
     same circuit then runs without the mesh on the host branch, which a
     mesh takes, and with the mesh again: the two warm walls compare."""
@@ -2159,6 +2216,465 @@ def phase_mesh():
     return launches
 
 
+TP_ROWS = (1, 2, 4)  # key rows per rank: tp = 4, 2 and 1 at STD128_OPT (R = 4)
+TP_BATCHES = (4, 64)
+TP_WORLD, TP_LOOPS, TP_GATES = 2, 4, 64  # the gloo mesh's processes, circuit cases, gate batch
+ADDER_2BIT = os.path.join(REPO, "examples", "simple_ckts", "adder_2bit", "adder_2bit.out")
+TP_KERNELS = ("build_diagonals", "diag_matmul", "negacyclic_matmul", "cmux_epilogue")
+
+
+def tp_keys():
+    """STD128_OPT golden host keys of seed 0 on the card, through the key
+    cache (the first call generates and writes them, later calls and the
+    tp phase's processes read them): (sk, keys)."""
+    from oece_tpu_torch.fhe import keycache
+    from oece_tpu_torch.fhe.params import STD128_OPT, BinFHEMethod
+
+    return keycache.load_or_generate(STD128_OPT, BinFHEMethod.GINX, 0, "cuda")
+
+
+def tp_counts() -> dict:
+    """The launches of the tp route's kernels (fhe/negacyclic.py), of the
+    std step loop (csrc/rev_step.cu) and of every plain version."""
+    from oece_tpu_torch.fhe import negacyclic as ng
+    from oece_tpu_torch.fhe import std
+
+    return {**{k: ng.LAUNCHES[k] for k in TP_KERNELS}, "std_steps": std.STEP_LAUNCHES,
+            "plain": read_counts()["plain"]}
+
+
+def tp_route_only(what: str, c: dict) -> None:
+    """Raise unless the tp route's kernels, #5 and #6, launched, and neither
+    #1 nor #3 (the route it does not take), the std step loop nor a plain
+    version did."""
+    if (not (c["negacyclic_matmul"] and c["cmux_epilogue"]) or c["build_diagonals"] or c["diag_matmul"]
+            or c["std_steps"] or c["plain"]):
+        raise RuntimeError(f"{what}: launches {c}: want the tp route's kernels only")
+
+
+def _tp_circuit_inputs(nl, T: int):
+    """T random cases of each input word of nl (bits, LSB first)."""
+    rng = np.random.default_rng(1234)
+    return [rng.integers(0, 2, (T, len(w))) for w in nl.inputs]
+
+
+def _value(bits) -> np.ndarray:
+    return (np.asarray(bits, np.uint64) << np.arange(bits.shape[1], dtype=np.uint64)).sum(1)
+
+
+def _tp_rank(rank: int, port: int, circuit: str, out: str) -> None:
+    """One of the TP_WORLD processes of the tp check, all on cuda:0 over
+    gloo: the circuit (verify, T = TP_LOOPS) on a (1, TP_WORLD) mesh and
+    unsharded, then a gate batch of TP_GATES on that mesh and on a
+    (TP_WORLD, 1) mesh, the tp rotation's steps under the profiler, and the
+    all-reduce alone; rank 0 writes what it measured to ``out`` as JSON.
+    Raises on any disagreement."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.modules["jax"] = None
+    sys.modules["oece_tpu"] = None
+    from torch.profiler import ProfilerActivity, profile
+
+    from oece_tpu_torch.fhe import boot, lwe, std
+    from oece_tpu_torch.parallel import mesh as mesh_mod
+    from oece_tpu_torch.runtime.evaluator import Circuit
+
+    world, gates = TP_WORLD, TP_GATES
+    t_start = time.time()
+    stages = {}  # seconds from this process's start to the end of each stage
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.environ["OECE_LEVEL_JIT"] = "0"  # a mesh runs the host branch: the unsharded run too
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        sk, keys = tp_keys()
+        p = keys.params
+        tp_mesh = mesh_mod.make_mesh(world, tp=world)
+        dp_mesh = mesh_mod.make_mesh(world, tp=1)
+        if tp_mesh.device != torch.device("cuda", 0):
+            raise RuntimeError(f"rank {rank}: make_mesh chose {tp_mesh.device}, want cuda:0")
+        shard = mesh_mod.shard_bootstrap_keys(keys, tp_mesh)
+        stages["set-up"] = time.time() - t_start
+        res = {"shape": tp_mesh.shape, "rows": shard.ginx_ext.shape[1], "walls": {}, "stages": stages}
+        sync = torch.cuda.synchronize
+        arenas = {}
+        for name, m in (("sharded", tp_mesh), ("unsharded", None)):
+            c = Circuit(set=p, seed=0, device="cuda", keys=keys, sk=sk, mesh=m)
+            c.ReadFile(circuit)
+            c.setVerify(True)
+            ins = _tp_circuit_inputs(c.netlist, TP_LOOPS)
+            c.SetInput(ins)
+            sync()
+            reset_counts()
+            ts = time.time()
+            c.Clock()
+            sync()
+            res["walls"][name] = time.time() - ts
+            if m is not None:
+                res["circuit_counts"] = tp_counts()
+                tp_route_only(f"rank {rank}: {name} circuit", res["circuit_counts"])
+            (outw,) = c.GetOutput()
+            sums = (_value(ins[0]) + _value(ins[1])) % (np.uint64(1) << np.uint64(outw.shape[1]))
+            if c._dev_branch or c.bad_gate_counts or not np.array_equal(_value(outw), sums):
+                raise RuntimeError(f"rank {rank}: {name} circuit: sums {_value(outw)} (want {sums}), "
+                                   f"repairs {c.bad_gate_counts}, device branch {c._dev_branch}")
+            arenas[name] = c._ct_arena
+            res["levels"], res["bootstraps"] = len(c.trace.records), c.trace.summary()["total_bootstraps"]
+            stages[f"{name} circuit"] = time.time() - t_start
+        if not torch.equal(arenas["sharded"], arenas["unsharded"]):
+            raise RuntimeError(f"rank {rank}: the sharded circuit's ciphertexts differ from the unsharded one's")
+        rng = np.random.default_rng(7)
+        c1 = torch.from_numpy(lwe.encrypt_bits(sk, rng.integers(0, 2, gates), rng)).cuda()
+        c2 = torch.from_numpy(lwe.encrypt_bits(sk, rng.integers(0, 2, gates), rng)).cuda()
+        gids = torch.from_numpy(rng.integers(0, 6, gates).astype(np.int32)).cuda()
+        want = boot.eval_bin_gate_batch(keys, gids, c1, c2)
+        sync()
+        reset_counts()
+        ts = time.time()
+        got = mesh_mod.eval_bin_gate_sharded(shard, gids, c1, c2, tp_mesh)
+        sync()
+        res["gate_s"] = time.time() - ts
+        res["gate_counts"] = tp_counts()
+        tp_route_only(f"rank {rank}: gate batch", res["gate_counts"])
+        if not torch.equal(got, want):
+            raise RuntimeError(f"rank {rank}: the (1, {world}) gate batch differs from the unsharded one")
+        stages["tp gate batch"] = time.time() - t_start
+        if not torch.equal(mesh_mod.eval_bin_gate_sharded(keys, gids, c1, c2, dp_mesh), want):
+            raise RuntimeError(f"rank {rank}: the ({world}, 1) gate batch differs from the unsharded one")
+        stages["dp gate batch"] = time.time() - t_start
+        # the device's share of a step: 16 steps of the tp rotation at this
+        # batch under the profiler (both ranks hold the same accumulator)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(5)
+        acc = torch.randint(0, p.Q, (gates, 2, p.N), generator=g, device="cuda", dtype=torch.int32)
+        a2N = 2 * torch.randint(0, p.N, (gates, 16), generator=g, device="cuda", dtype=torch.int32)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            std.blind_rotate_std_tp(acc, shard.ginx_ext[:16], a2N, p, tp_mesh)
+            sync()
+        stages["profiled steps"] = time.time() - t_start
+        dev = {}
+        for ev in prof.key_averages():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(ev, "self_device_time_total", None)
+            us = ev.self_cuda_time_total if us is None else us
+            key = next((k for k in ("phase_expand", "raw_gemm", "std_cmux", "Memcpy") if k in ev.key),
+                       "other")
+            dev[key] = dev.get(key, 0.0) + us / 16
+        res["device_us"] = dev
+        stages["profile read"] = time.time() - t_start
+        # the all-reduce alone: the step's raw sums at this batch and at 4
+        # gates, as the card's tensors (staged by gloo) and as host ones;
+        # the median of 10 calls (the loopback's times vary 2x)
+        res["all_reduce_ms"] = {}
+        for B in (gates, 4):
+            for where in ("cuda", "cpu"):
+                raw = torch.zeros((B, 16, p.N), dtype=torch.int32, device=where)
+                dist.all_reduce(raw, group=tp_mesh.tp_group)
+                times = []
+                for _ in range(10):
+                    sync()
+                    ts = time.time()
+                    dist.all_reduce(raw, group=tp_mesh.tp_group)
+                    sync()
+                    times.append(1e3 * (time.time() - ts))
+                res["all_reduce_ms"][f"B={B} {where}"] = float(np.median(times))
+        stages["all-reduce alone"] = time.time() - t_start
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_mesh_run(phase: str, circuit: str) -> dict:
+    """Spawn TP_WORLD gloo processes on cuda:0 (tcp://localhost, a free
+    port) running _tp_rank on ``circuit``; returns rank 0's record.  The
+    tp phase runs it on adder_2bit; adder_32bit's walls on the (1, 2) mesh
+    (PERF.md §5) come from ``python3 -c 'import json, chip_smoke as s;
+    s.phase_build(); print(json.dumps(s.tp_mesh_run("tp-adder32",
+    s.ADDER)))'``."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    tp_keys()  # generated once here, read by every process
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    out = os.path.join(REPO, "build", f"chip_smoke_{phase}.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    ts = time.time()
+    try:
+        mp.spawn(_tp_rank, args=(port, circuit, out), nprocs=TP_WORLD, join=True)
+    except Exception as e:  # a rank's exception, re-raised by spawn with its traceback
+        fail(f"{phase}: a process of the gloo mesh failed: {e}")
+    with open(out) as f:
+        res = json.load(f)
+    log(phase, ts, f"the {TP_WORLD} processes ran {time.time() - ts:.1f}s: rank 0's stages end at "
+        + ", ".join(f"{k} {v:.1f}s" for k, v in res["stages"].items()))
+    return res
+
+
+def phase_tp():
+    """Tensor parallelism on the card (std.blind_rotate_std_tp on host GINX
+    keys, STD128_OPT seed 0): #1, #3, #5 against their plain twins at R =
+    1, 2 and 4 key rows (B = 4, 8, 64) and #6 at B = 4 and 64; for tp = 2
+    and 4 at B = 4 and 64 each rank's raw limb sums of one step through #5
+    and through #1 then #3, summed over the ranks, == the unsharded step's
+    raw sums, and after the combine and #6 == std.std_step_plain; device
+    times of the two products per rank at R = 2 and 1 (B = 8, 64), beside
+    their bounds; then two gloo processes on cuda:0: adder_2bit verify T=4
+    through Circuit(mesh=...) on a (1, 2) mesh and unsharded (right sums,
+    no repair, the same ciphertexts), a gate batch of 64 on that mesh (and
+    on a (2, 1) one) == the unsharded batch, its step split into device
+    time by kernel, the all-reduce and the rest; the route's kernels
+    only."""
+    import torch
+    from oece_tpu_torch.fhe import negacyclic as ng
+    from oece_tpu_torch.fhe import std
+    from oece_tpu_torch.fhe.keys import rev_index
+    from oece_tpu_torch.fhe.rot import amount_pairs, combine_planes, tile_digits
+
+    t0 = time.time()
+    _, keys = tp_keys()
+    p = keys.params
+    N, R, Q, nt, T = p.N, 2 * p.d_g_used, p.Q, p.N // 128, 128
+    ext_all = keys.ginx_ext
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1400)
+    rand8 = lambda *shape: torch.randint(-128, 128, shape, generator=g, device="cuda", dtype=torch.int8)  # noqa: E731
+    rand32 = lambda hi, *shape: torch.randint(0, hi, shape, generator=g, device="cuda", dtype=torch.int32)  # noqa: E731
+    plain0 = dict(ng.PLAIN_LAUNCHES)
+    err, digs = 0, {}
+    for r in TP_ROWS:
+        ext = ext_all[11, :r].contiguous()
+        block = ng.build_diagonals(ext)
+        err = max(err, _check_same("tp", f"#1 R={r}", block, ng.build_diagonals_plain(ext), t0))
+        for B in (4, 8, 64):
+            dig = digs[r, B] = rand8(B, nt * r * T)
+            err = max(err, _check_same("tp", f"#3 R={r} B={B}", ng.diag_matmul(dig, block, r),
+                                       ng.diag_matmul_plain(dig, block), t0))
+            err = max(err, _check_same("tp", f"#5 R={r} B={B}", ng.negacyclic_matmul(dig, ext),
+                                       ng.negacyclic_matmul_plain(dig, ext), t0))
+    for B in TP_BATCHES:
+        P, acc, amt = rand32(Q, B, 2, 2, N), rand32(Q, B, 2, N), rand32(2 * N, B, 2)
+        err = max(err, _check_same("tp", f"#6 B={B}", ng.cmux_epilogue(P, acc, amt, Q),
+                                   ng.cmux_epilogue_plain(P, acc, amt, Q), t0))
+    idx = rev_index(N, "cuda")
+    scale = 2 * N // p.q
+    for tp in (2, 4):
+        r = R // tp
+        for B in TP_BATCHES:
+            i = (100 + B + tp) % p.n
+            acc, a_col = rand32(Q, B, 2, N), scale * rand32(p.q, B)
+            dig = tile_digits(acc, p).view(B, nt, R, T)
+            whole = ng.negacyclic_matmul_plain(dig.reshape(B, -1).contiguous(), ext_all[i])
+            sums = {"#5": 0, "#1 then #3": 0}
+            for t in range(tp):
+                ext_t = ext_all[i, t * r:(t + 1) * r].contiguous()
+                dig_t = dig[:, :, t * r:(t + 1) * r].contiguous().view(B, -1)
+                sums["#5"] = sums["#5"] + ng.negacyclic_matmul(dig_t, ext_t)
+                sums["#1 then #3"] = sums["#1 then #3"] + ng.diag_matmul(dig_t, ng.build_diagonals(ext_t), r)
+            for route, got in sums.items():
+                err = max(err, _check_same("tp", f"tp={tp} B={B} step {i}: ranks' raw sums by {route} "
+                                           "== the unsharded step's", got, whole, t0))
+            P = combine_planes(sums["#5"], Q).reshape(B, 2, 2, N).contiguous()
+            err = max(err, _check_same(
+                "tp", f"tp={tp} B={B} step {i}: combined, then #6 == std.std_step_plain",
+                ng.cmux_epilogue(P, acc, amount_pairs(a_col, N), Q),
+                std.std_step_plain(acc, a_col, ext_all[i], idx, p), t0))
+    if ng.PLAIN_LAUNCHES != plain0:
+        fail(f"tp: plain twins ran on the card: {ng.PLAIN_LAUNCHES} (before {plain0})")
+
+    # device time per rank of the two products and of #6 at R = 2 and 1
+    for r in (2, 1):
+        ext = ext_all[11, :r].contiguous()
+        block = ng.build_diagonals(ext)
+        for B in (8, 64):
+            dig = digs[r, B]
+            ops = 2.0 * B * nt * (nt * r * T) * 16 * T
+            raw = B * 16 * N * 4
+            five = device_ms(lambda: ng.negacyclic_matmul(dig, ext), 20, "phase_expand_kernel", "raw_gemm_kernel")
+            build, *three = device_ms(lambda: ng.diag_matmul(dig, ng.build_diagonals(ext), r), 20,
+                                      "rev_build_kernel", "transpose_kernel", "raw_gemm_kernel")
+            for name, parts, bnd in (
+                ("#5", five, bound(ops, dig.numel() + ext.numel() + raw)),
+                ("#1", [build], bound(0.0, ext.numel() + block.numel())),
+                ("#3", three, bound(ops, dig.numel() + block.numel() + raw)),
+            ):
+                log("tp", t0, f"R={r} B={B} {name}: {1e3 * sum(parts):.1f} us on the device "
+                    f"({' + '.join(f'{1e3 * x:.1f}' for x in parts)}), bound {1e3 * bnd[0]:.2f} us ({bnd[1]})")
+            split = build + sum(three)
+            log("tp", t0, f"R={r} B={B}: #1 then #3 {1e3 * split:.1f} us against #5 {1e3 * sum(five):.1f} us: "
+                f"{'#5' if sum(five) < split else '#1 then #3'} is faster")
+    for B in TP_BATCHES:
+        P, acc, amt = rand32(Q, B, 2, 2, N), rand32(Q, B, 2, N), rand32(2 * N, B, 2)
+        (ms,) = device_ms(lambda: ng.cmux_epilogue(P, acc, amt, Q), 20, "std_cmux_kernel")
+        bnd = bound(0.0, P.numel() * 4 + 2 * acc.numel() * 4 + amt.numel() * 4)
+        log("tp", t0, f"B={B} #6: {1e3 * ms:.1f} us on the device, bound {1e3 * bnd[0]:.2f} us ({bnd[1]})")
+    torch.cuda.empty_cache()
+
+    res = tp_mesh_run("tp", ADDER_2BIT)
+    steps = p.n
+    wall_us = 1e6 * res["gate_s"] / steps
+    dev = res["device_us"]
+    busy = sum(dev.values())
+    ar = res["all_reduce_ms"]
+    log("tp", t0, f"two gloo processes on cuda:0, mesh {res['shape']} ({res['rows']} key rows each): a "
+        f"batch of 64 gates == unsharded, bit for bit; the (2, 1) mesh's too; launches {res['gate_counts']}")
+    log("tp", t0, f"B=64 step split (rank 0): wall {wall_us:.1f} us per step (the gate batch); device "
+        f"{busy:.1f} us (16 steps under the profiler: "
+        f"{', '.join(f'{k} {v:.1f}' for k, v in sorted(dev.items()))}); the all-reduce of "
+        f"{64 * 16 * N * 4 / 2**20:.0f} MiB alone {1e3 * ar['B=64 cuda']:.1f} us; the rest "
+        f"{wall_us - busy - 1e3 * ar['B=64 cuda']:.1f} us (host ops and gaps)")
+    log("tp", t0, "the all-reduce alone, ms per call: " + ", ".join(f"{k} {v:.3f}" for k, v in ar.items()))
+    w = res["walls"]
+    log("tp", t0, f"adder_2bit verify T=4 ({res['levels']} levels, {res['bootstraps']} bootstraps): sums "
+        f"right, no repair, ciphertexts == unsharded; wall on the (1, 2) mesh {w['sharded']:.2f}s, "
+        f"unsharded {w['unsharded']:.2f}s (both on the host branch); launches {res['circuit_counts']}")
+    return {k: res["gate_counts"][k] + res["circuit_counts"][k] for k in TP_KERNELS}
+
+
+TPU_SIGMA = {"rev2": 14.46, "rev": 16.84}  # NOISE.md §3, the JAX package on the TPU
+TPU_PREP_SIGMA = {"XOR": 40.71, "AND": 20.5}
+NOISE_SEEDS = (1, 2, 3, 4)  # the sweep's other rev2 key draws
+NOISE_KEYS = 1024  # device keygen seeds whose key-switch errors are averaged
+
+
+def without_host_wait(fn):
+    """fn with CUDA's sync debug mode at "error" while it runs: an
+    operation that makes the host wait for the card raises."""
+    import torch
+
+    def wrapped(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    return wrapped
+
+
+def phase_noise():
+    """The port's noise tools at STD128_OPT through their functions: 20
+    chained batches of 1024 mixed gates on rev2 and rev device keys and on
+    golden host keys (measure_noise.run), 10 such batches on the rev2 keys
+    of each of NOISE_SEEDS (the noise mean across key draws), and 10
+    chained batches of 2048 per gate type on rev2 (measure_xor_noise.run);
+    every chunk runs with the card's sync debug mode at "error", so a host
+    wait between two progress lines fails, as does any failure (|e| >=
+    q/8).  Logs sigma, max |e| and margin/sigma beside NOISE.md's TPU
+    sigma, each key's mean beside key_switch_mean's prediction, and the
+    mean of device keygen's key-switch errors over NOISE_KEYS seeds."""
+    import torch
+    from oece_tpu_torch.tools import measure_noise as mn
+    from oece_tpu_torch.tools import measure_xor_noise as mx
+
+    t0 = time.time()
+    say = lambda msg: log("noise", t0, msg)  # noqa: E731
+    chunks = mn.noise_chunk, mx.xor_chunk
+    mn.noise_chunk, mx.xor_chunk = map(without_host_wait, chunks)
+    try:
+        out, x = noise_runs(mn, mx, say)
+    finally:
+        mn.noise_chunk, mx.xor_chunk = chunks
+    bad = {k: r["failures"] for k, r in out.items() if r["failures"]}
+    bad.update({k: r["failures"] for k, r in x["per_gate"].items() if r["failures"]})
+    if bad:
+        fail(f"noise: failures (|e| >= q/8) {bad}")
+    return {"noise": out, "xor": x}
+
+
+def key_switch_mean(sk, keys) -> tuple[float, float]:
+    """The output-noise mean that a key's key-switch key sets, in q units,
+    and the mean of its errors: -sum_k E[d_k] * sum_j e_jk * q / Q_ks,
+    with e_jk = b - <a, s> - z_j B_ks^k of row (j, k) (z_j read off row k =
+    d_ks - 2, where |e| << B_ks^k) and E[d_k] the mean of digit k of
+    boot.signed_digits_dev over [0, Q_ks) (-1/2 below the top digit), as
+    the key switch subtracts sum d_jk * ksk_jk."""
+    import torch
+    from oece_tpu_torch.fhe import boot
+
+    p = keys.params
+    Qks, N, n, d = p.Q_ks, p.N, p.n, p.d_ks
+    limbs = keys.ksk.to(torch.int64)
+    ksk = (limbs[..., 0] + 256 * limbs[..., 1]) % Qks
+    s = torch.as_tensor(np.asarray(sk.s), dtype=torch.int64, device=ksk.device)
+    centre = lambda x: (x + Qks // 2) % Qks - Qks // 2  # noqa: E731
+    v = centre(ksk[:, n] - (ksk[:, :n] * s).sum(1)).reshape(N, d)
+    g = torch.tensor([p.B_ks ** k for k in range(d)], device=ksk.device)
+    z = torch.round(v[:, d - 2].double() / g[d - 2]).long()
+    e = centre(v - z[:, None] * g[None, :])
+    digit_means = boot.signed_digits_dev(torch.arange(Qks, device=ksk.device), p.B_ks, d).double().mean(0)
+    return float(-(digit_means * e.double().sum(0)).sum() * p.q / Qks), float(e.double().mean())
+
+
+def noise_runs(mn, mx, say):
+    """phase_noise's runs of the two tools: ({form: summary}, the XOR
+    tool's summary).  Beside each form's mean, the mean its key-switch key
+    predicts (key_switch_mean, keys made again from the same seed)."""
+    import torch
+    from oece_tpu_torch.fhe import devkeygen
+    from oece_tpu_torch.fhe.params import STD128_OPT
+
+    def predicted(layout, seed=0):
+        ks, e_mean = key_switch_mean(*mn.make_keys(STD128_OPT, layout, "cuda", seed))
+        torch.cuda.empty_cache()
+        return f"the key-switch key predicts {ks:.2f} (its errors' mean {e_mean:.4f})"
+
+    out = {}
+    for layout in ("rev2", "rev", "host"):
+        r = out[layout] = mn.run("STD128_OPT", 20, 1024, layout, "cuda", log=say)
+        torch.cuda.empty_cache()
+        tpu = TPU_SIGMA.get(layout)
+        say(f"{layout}: {r['bootstraps']} bootstraps, {r['failures']} failures, sigma {r['noise_std']:.2f} "
+            f"(mean {r['noise_mean']:.2f}; {predicted(layout)}), max |e| {r['noise_max_abs']}, margin q/8 = "
+            f"{r['margin_sigmas']:.1f} sigma, {r['boots_per_sec']:.0f} bootstraps/s"
+            + (f"; the TPU's sigma (NOISE.md) {tpu}" if tpu else ""))
+    for seed in NOISE_SEEDS:
+        r = out[f"rev2 seed {seed}"] = mn.run("STD128_OPT", 10, 1024, "rev2", "cuda", seed=seed, log=lambda m: None)
+        torch.cuda.empty_cache()
+        say(f"rev2 keys of seed {seed}: {r['bootstraps']} bootstraps, {r['failures']} failures, mean "
+            f"{r['noise_mean']:.2f} ({predicted('rev2', seed)}), sigma {r['noise_std']:.2f}, max |e| "
+            f"{r['noise_max_abs']}")
+    means = [out["rev2"]["noise_mean"]] + [out[f"rev2 seed {k}"]["noise_mean"] for k in NOISE_SEEDS]
+    say(f"rev2 noise mean over key seeds 0-{NOISE_SEEDS[-1]}: {', '.join(f'{m:.2f}' for m in means)}; "
+        f"their standard deviation {np.std(means, ddof=1):.2f}")
+    # the key-switch errors of device keygen on the card over NOISE_KEYS
+    # seeds, and one long draw of its sampler: a bias in it would shift
+    # every key's noise mean alike
+    e_means = []
+    for seed in range(NOISE_KEYS):
+        words = np.zeros(8, np.uint32)
+        words[0] = seed
+        eks = devkeygen.sample(STD128_OPT, devkeygen.seed_generators(words, "cuda"))[-1]
+        e_means.append(float(eks.double().mean()))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1401)
+    draw = torch.cat([torch.round(STD128_OPT.sigma * torch.randn(2**26, generator=gen, device="cuda"))
+                      for _ in range(4)])
+    say(f"device keygen's key-switch errors, seeds 0-{NOISE_KEYS - 1}: mean {np.mean(e_means):.5f} "
+        f"(standard error {np.std(e_means, ddof=1) / np.sqrt(NOISE_KEYS):.5f}), "
+        f"{sum(m < 0 for m in e_means)} of {NOISE_KEYS} keys' means negative; the sampler's "
+        f"round(sigma * randn) over 2^28 draws: mean {float(draw.double().mean()):.6f} (standard error "
+        f"{float(draw.double().std()) / 2**14:.6f})")
+    x = mx.run("STD128_OPT", 10, 2048, "rev2", "cuda", log=say)
+    for name, r in x["per_gate"].items():
+        tpu = TPU_PREP_SIGMA.get(name)
+        say(f"xor-noise {name}: {r['bootstraps']} bootstraps, {r['failures']} failures, out sigma "
+            f"{r['out_noise_std']}, prep sigma {r['prep_err_std']} (max {r['prep_err_max_abs']}, margin "
+            f"{r['prep_margin_q']} = {r['prep_margin_sigmas']} sigma)"
+            + (f"; the TPU's prep sigma (NOISE.md) {tpu}" if tpu else ""))
+    torch.cuda.empty_cache()
+    return out, x
+
+
 def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms=None) -> dict:
     """One kernel's record in the kernels JSON line."""
     return {
@@ -2190,6 +2706,8 @@ PHASES = {
     "rot-steps-circuit": lambda: phase_circuit("rot-steps-circuit", rot_mega=False),
     "neg-kernel": phase_neg_kernel,
     "profile-boot": phase_profile_boot,
+    "tp": phase_tp,
+    "noise": phase_noise,
     "tb": phase_tb,
     "recover-circuit": phase_recover_circuit,
     "compound-circuit": phase_compound_circuit,
@@ -2227,7 +2745,9 @@ def main() -> None:
         return
 
     std_res, rev_res = res["std-kernel"], res["rev-kernel"]
-    neg_res, neg_launches = res["neg-kernel"], res["profile-boot"]
+    neg_res = res["neg-kernel"]
+    # the step profiler's launches and the tp route's (two gloo ranks, rank 0's)
+    neg_launches = {k: v + res["tp"].get(k, 0) for k, v in res["profile-boot"].items()}
     std_launches = res["context"] + res["std-circuit"]
     fields = lambda r: (r["max_abs_err"], r["ms"], r["plain_ms"], (r["bound_ms"], r["bound_by"]))  # noqa: E731
     print(json.dumps({"kernels": [

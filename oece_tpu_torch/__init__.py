@@ -82,6 +82,11 @@ reference's test benches:
                      (the JAX package's tools/run_circuit_std128.py)
   tools/circuit_walls.py adder_32bit's Clock() and per-level walls by key
                      layout and check branch, on this tree or another
+  tools/measure_noise.py, tools/measure_xor_noise.py  the bootstrap noise
+                     histogram and failure rate per key form, and per gate
+                     type with the prepared input's margin and the corpus's
+                     shared-root scan (the JAX package's tools of the same
+                     names; JSON under build/noise/)
   fhe/boot.py        batched gate bootstrapping; the key layout selects the
                      rotation
   fhe/context.py     ``BinFHEContext``, the OpenFHE binfhe surface
@@ -97,8 +102,11 @@ reference's test benches:
                      (Clock(checkpoint_path=..., checkpoint_every=...)),
                      the device branch's state included
   parallel/mesh.py   (dp, tp) meshes of torch.distributed process groups
-                     for Circuit(mesh=...) / setMesh, and mesh.dryrun(n),
-                     n CPU processes on gloo
+                     for Circuit(mesh=...) / setMesh, on the card by
+                     default; tp shards host GINX keys' rows and runs each
+                     step through fhe/negacyclic.py's kernels #5 and #6
+                     around an all_reduce (fhe/std.py); mesh.dryrun(n), n
+                     CPU processes on gloo
   harness/testlib.py, harness/tb.py   the TB harness and command line
                      (python -m oece_tpu_torch.harness.tb) on the port's
                      Circuit, with an explicit device

@@ -155,8 +155,10 @@ def bootstrap_batch(prep: torch.Tensor, gate_ids: torch.Tensor, keys: BootKeys, 
 
 
 def prepare_gates(ct1: torch.Tensor, ct2: torch.Tensor, gate_ids: torch.Tensor, q: int) -> torch.Tensor:
-    """Per-gate linear combination w1*c1 + w2*c2 mod q (golden.gate_prepare)."""
-    w = torch.from_numpy(PREP_WEIGHTS).to(ct1.device)[gate_ids.long()]
+    """Per-gate linear combination w1*c1 + w2*c2 mod q (golden.gate_prepare).
+    The weights' upload does not wait for the card: a blocking copy would
+    make the host wait for every earlier launch at each gate batch."""
+    w = torch.from_numpy(PREP_WEIGHTS).to(ct1.device, non_blocking=True)[gate_ids.long()]
     y = w[:, :1] * ct1 + w[:, 1:] * ct2
     return (y + 4 * q) & (q - 1)
 

@@ -33,11 +33,18 @@ step); a prebuilt block per step is ``OECE_LAYOUT=rev``.
 ``tp_axis``): each rank holds R/tp rows of every step key, takes the
 digits of its rows, sums its rows' raw limb products with the other
 ranks' (``all_reduce``), then combines the limbs mod Q and applies the
-CMUX.  It is the plain version in torch ops, for CPU ranks on gloo only:
-NCCL takes one rank per GPU, so tp > 1 has no card here, and a CUDA
-tensor raises rather than run the plain version on the card (the fused
-step loop cannot take its place: its digits kernel adds the accumulator,
-which would then be added tp times).
+CMUX.  Per step it calls fhe/negacyclic.py's wrappers: #5
+(``negacyclic_matmul``, the raw limb sums gathered from the rank's
+compact key rows with no block built) and #6 (``cmux_epilogue``, #10's
+kernel), with the digits and the combine as torch ops, as the JAX
+package computes them outside Pallas.  #5 rather than #1 then #3: per
+rank at two key rows it took 15.7-16.3 µs against 20.5-21.0 at 8 and 64
+gates (chip_smoke.py tp; NVIDIA H100 80GB HBM3, 700.00 W).  CPU tensors
+run the wrappers' plain twins, CUDA tensors their kernels, on any
+process group whose backend reduces CUDA tensors (NCCL, one rank per
+card; gloo, which stages them through the host, also several ranks on
+one card).  The fused step loop cannot take its place: its digits kernel adds the
+accumulator, which would then be added tp times.
 
 ``blind_rotate_std`` and ``build_diagonals_kmajor`` run the plain version
 for CPU tensors and launch their kernels for CUDA tensors, or raise.
@@ -53,11 +60,11 @@ import math
 
 import torch
 
-from . import _build, rev
+from . import _build, negacyclic, rev
 from .keys import TILE, rev_block, rev_block_kmajor, rev_index
 from .params import BinFHEParams
 from .rev import cmux_epilogue_true_plain, rev_step_plain
-from .rot import amount_pairs, check_operands, combine_planes, tile_digits, tile_products, tile_products_raw
+from .rot import amount_pairs, check_operands, combine_planes, tile_digits, tile_products
 
 LAUNCHES = 0  # wrapper calls that launched CUDA kernels
 PLAIN_LAUNCHES = 0  # wrapper calls that ran the plain version
@@ -129,28 +136,26 @@ def blind_rotate_std_tp(
 ) -> torch.Tensor:
     """All n steps with this rank's key rows: ginx_ext int8 [n, R/tp, 16,
     2N] holds rows [t*R/tp, (t+1)*R/tp) (t = tp.tp_rank); the raw limb sums
-    of those rows are summed over tp.tp_group before the combine mod Q and
-    the CMUX, so every rank returns the whole rotation's result.  CPU
-    tensors only (counted in PLAIN_LAUNCHES); any other device raises."""
+    of those rows (#5) are summed over tp.tp_group before the combine mod
+    Q and the CMUX (#6), so every rank returns the whole rotation's result.
+    CPU tensors run the wrappers' plain twins, CUDA tensors their kernels;
+    any other device raises."""
     import torch.distributed as dist
 
-    global PLAIN_LAUNCHES
-    if acc.device.type != "cpu":
-        raise RuntimeError(
-            f"blind_rotate_std_tp: tensor parallelism runs on CPU ranks (gloo) only, got {acc.device}; "
-            "on the card build the mesh with tp=1"
-        )
-    PLAIN_LAUNCHES += 1
+    if acc.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"blind_rotate_std_tp: no kernel for device {acc.device}")
     B, _, N = acc.shape
-    r = ginx_ext.shape[1]
+    R, r = 2 * p.d_g_used, ginx_ext.shape[1]
+    if r * tp.tp != R:
+        raise ValueError(f"blind_rotate_std_tp: {r} key rows on each of {tp.tp} ranks, want {R} in all")
     r0 = tp.tp_rank * r
     nt = N // TILE
-    idx = rev_index(N, acc.device)
     for i in range(ginx_ext.shape[0]):
-        dig = tile_digits(acc, p).view(B, nt, 2 * p.d_g_used, TILE)[:, :, r0:r0 + r]
-        raw = tile_products_raw(dig.reshape(B, -1), build_diagonals_plain(ginx_ext[i], idx))
+        dig = tile_digits(acc, p).view(B, nt, R, TILE)[:, :, r0:r0 + r].contiguous().view(B, -1)
+        raw = negacyclic.negacyclic_matmul(dig, ginx_ext[i])
         dist.all_reduce(raw, group=tp.tp_group)
-        acc = cmux_epilogue_plain(acc, combine_planes(raw, p.Q), a2N[:, i], p.Q)
+        P = combine_planes(raw, p.Q).reshape(B, 2, 2, N).contiguous()
+        acc = negacyclic.cmux_epilogue(P, acc, amount_pairs(a2N[:, i], N), p.Q)
     return acc
 
 

@@ -16,22 +16,28 @@ seeds, so each holds the same keys and ciphertext arena):
   * ``tp`` (tensor parallel), on host GINX keys (ginx_ext) only, as in the
     JAX package: each rank keeps R/tp rows of every step key and 1/tp of
     the key-switch key's contraction rows.  Per step it computes the
-    digits of its rows times its key rows as raw limb sums, an
-    ``all_reduce`` sums them over the tp group, then the limb combine mod
-    Q and the CMUX follow (``std.blind_rotate_std_tp``, torch ops); the
-    key switch sums its partial products the same way
-    (``boot.key_switch_dev``).  tp > 1 runs on CPU ranks (gloo) only: the
-    tp rotation is the plain version and raises on a CUDA tensor.
+    digits of its rows times its key rows as raw limb sums (kernel #5 on
+    the card), an ``all_reduce`` sums them over the tp group, then the
+    limb combine mod Q and the CMUX (#6) follow
+    (``std.blind_rotate_std_tp``); the key switch sums its partial
+    products the same way (``boot.key_switch_dev``).  On CPU ranks the
+    wrappers run their plain twins, on the card their kernels.
 
-``make_mesh`` builds the groups (every rank calls it, in the same order);
+``make_mesh`` builds the groups (every rank calls it, in the same order)
+on the current CUDA device unless ``device`` says otherwise (the CPU
+ranks of the tests and ``dryrun`` pass ``device="cpu"``);
 ``shard_bootstrap_keys`` cuts a rank's keys to its tp shard;
 ``eval_bin_gate_sharded`` and ``bootstrap_sharded`` run one batch.
 ``dryrun(n)`` spawns n CPU processes on gloo and checks the sharded gate
 batch and a dp x tp Circuit against unsharded runs (the counterpart of
 ``__graft_entry__.dryrun_multichip``).
 
-NCCL takes one rank per GPU: on one card the mesh is a one-rank group
-(dp = tp = 1).
+NCCL takes one rank per GPU and is the route over several cards.  gloo
+takes CUDA tensors too, staged through the host: its ``all_reduce`` takes
+them as they are, its ``all_gather`` does not, so the dp gather copies
+the shard to the host and back under gloo, and skips the gather at dp =
+1.  So several gloo processes can share one card, as chip_smoke.py's
+``tp`` phase runs a (1, 2) mesh of two processes on ``cuda:0``.
 """
 
 from __future__ import annotations
@@ -71,8 +77,8 @@ def make_mesh(n_devices: Optional[int] = None, tp: int = 1, device=None) -> Mesh
     """The (dp, tp) mesh over all ranks of the default process group
     (``n_devices``, if given, must equal the world size).  Every rank must
     call it: it creates each dp and each tp group in the same order on all
-    ranks.  ``device`` defaults to the current CUDA device under NCCL and
-    to the CPU otherwise."""
+    ranks.  ``device`` defaults to the current CUDA device, whatever the
+    backend; CPU ranks pass ``device="cpu"``."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs torch.distributed.init_process_group first")
     world, rank = dist.get_world_size(), dist.get_rank()
@@ -81,13 +87,14 @@ def make_mesh(n_devices: Optional[int] = None, tp: int = 1, device=None) -> Mesh
         raise ValueError(f"make_mesh: {n} devices asked for, the process group has {world} ranks")
     if tp < 1 or n % tp:
         raise ValueError(f"make_mesh: tp={tp} does not divide {n} ranks")
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_mesh: CUDA is not available; CPU ranks pass device='cpu'")
+        device = torch.device("cuda", torch.cuda.current_device())
     grid = np.arange(n).reshape(n // tp, tp)
     dp_groups = [dist.new_group([int(r) for r in grid[:, t]]) for t in range(tp)]
     tp_groups = [dist.new_group([int(r) for r in grid[d, :]]) for d in range(n // tp)]
     d, t = divmod(rank, tp)
-    if device is None:
-        device = (torch.device("cuda", torch.cuda.current_device())
-                  if dist.get_backend() == "nccl" else torch.device("cpu"))
     return Mesh(dp=n // tp, tp=tp, dp_rank=d, tp_rank=t, dp_group=dp_groups[t],
                 tp_group=tp_groups[d], device=torch.device(device))
 
@@ -135,9 +142,14 @@ def bootstrap_sharded(prep: torch.Tensor, gate_ids: torch.Tensor, keys: BootKeys
     lo = mesh.dp_rank * shard
     out = boot.bootstrap_batch(prep[lo:lo + shard], gate_ids[lo:lo + shard], keys,
                                tp=mesh if mesh.tp > 1 else None)
-    parts = [torch.empty_like(out) for _ in range(mesh.dp)]
-    dist.all_gather(parts, out.contiguous(), group=mesh.dp_group)
-    return torch.cat(parts)[:B]
+    if mesh.dp == 1:
+        return out
+    # gloo gathers host tensors only: a CUDA shard goes through the host
+    staged = out.is_cuda and dist.get_backend(mesh.dp_group) == "gloo"
+    local = out.cpu() if staged else out.contiguous()
+    parts = [torch.empty_like(local) for _ in range(mesh.dp)]
+    dist.all_gather(parts, local, group=mesh.dp_group)
+    return torch.cat(parts)[:B].to(out.device)
 
 
 def eval_bin_gate_sharded(keys: BootKeys, gate_ids, ct1, ct2, mesh: Mesh) -> torch.Tensor:
@@ -169,7 +181,7 @@ def _dryrun_rank(rank: int, world: int, port: int, tp: int) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
     try:
-        mesh = make_mesh(world, tp=tp)
+        mesh = make_mesh(world, tp=tp, device="cpu")
         rng = np.random.default_rng(0)
         sk = golden.lwe_keygen(MICRO, rng)
         keys = hostkeygen.bootstrap_keygen(MICRO, sk, rng, BinFHEMethod.GINX, "cpu")

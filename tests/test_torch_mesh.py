@@ -30,7 +30,8 @@ from oece_tpu.fhe import boot as jboot
 from oece_tpu.fhe import golden as jgolden
 from oece_tpu.fhe import lwe as jlwe
 from oece_tpu.fhe.params import MICRO, BinFHEMethod
-from oece_tpu_torch.fhe import keys
+from oece_tpu_torch.fhe import keys, std
+from oece_tpu_torch.fhe import negacyclic as ng
 from oece_tpu_torch.parallel import mesh as mesh_mod
 from test_torch_copies import port_bootstrap_key
 
@@ -90,14 +91,22 @@ def _rank(rank, world, port, kt, cases, circuits):
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
     try:
         for tp, gids, c1, c2, want in cases:
-            mesh = mesh_mod.make_mesh(world, tp=tp)
+            mesh = mesh_mod.make_mesh(world, tp=tp, device="cpu")
+            before = dict(ng.PLAIN_LAUNCHES), std.PLAIN_LAUNCHES
             got = mesh_mod.eval_bin_gate_sharded(
                 mesh_mod.shard_bootstrap_keys(kt, mesh), torch.from_numpy(gids),
                 torch.from_numpy(c1), torch.from_numpy(c2), mesh)
             np.testing.assert_array_equal(got.numpy(), want, err_msg=f"rank {rank}, tp={tp}")
+            # tp > 1 runs each step through #5 and #6 (their plain twins on
+            # the CPU), never the unsharded std rotation; tp = 1 the reverse
+            steps = kt.params.n if tp > 1 else 0
+            used = {k: ng.PLAIN_LAUNCHES[k] - before[0][k] for k in ng.KERNELS}
+            assert used == {**dict.fromkeys(ng.KERNELS, 0), "negacyclic_matmul": steps,
+                            "cmux_epilogue": steps}, (tp, used)
+            assert std.PLAIN_LAUNCHES - before[1] == (tp == 1)
         ins = [np.array([[1, 0], [0, 1], [1, 1], [0, 0]]), np.array([[1, 1], [1, 0], [1, 1], [0, 1]])]
         for tp, env, method in circuits:
-            mesh = mesh_mod.make_mesh(world, tp=tp)
+            mesh = mesh_mod.make_mesh(world, tp=tp, device="cpu")
             a = _circuit_run(mesh, env, method, ins)
             b = _circuit_run(None, env, method, ins)
             assert not a._dev_branch, "a mesh runs the host branch by default"
@@ -129,8 +138,9 @@ def test_two_processes():
 
 
 def test_mesh_refusals():
-    """make_mesh needs a process group; tp > 1 needs host GINX keys and CPU
-    ranks; AP shards dp-only; a batch pads to a multiple of dp."""
+    """make_mesh needs a process group; tp > 1 needs host GINX keys; AP
+    shards dp-only; a batch pads to a multiple of dp; the tp rotation has
+    no kernel for a device other than the CPU and the card."""
     with pytest.raises(RuntimeError, match="init_process_group"):
         mesh_mod.make_mesh(1)
     m = mesh_mod.Mesh(dp=1, tp=2, dp_rank=0, tp_rank=0, dp_group=None, tp_group=None,
@@ -145,10 +155,68 @@ def test_mesh_refusals():
         Circuit(set="MICRO", method="AP", seed=1, device="cpu", mesh=m)
     assert mesh_mod.padded_batch(5, 6) == 6 and mesh_mod.padded_batch(100, 1) == 100
     assert mesh_mod.padded_batch(7, 2) == 8 and mesh_mod.padded_batch(8, 4) == 8
-    # the tp rotation is the plain version: it refuses any tensor off the CPU
-    from oece_tpu_torch.fhe import std
-
     acc = torch.zeros((1, 2, PM.N), dtype=torch.int32, device="meta")
     ext = torch.zeros((PM.n, PM.d_g_used, 16, 2 * PM.N), dtype=torch.int8, device="meta")
-    with pytest.raises(RuntimeError, match="CPU ranks"):
+    with pytest.raises(ValueError, match="no kernel for device meta"):
         std.blind_rotate_std_tp(acc, ext, torch.zeros((1, PM.n), dtype=torch.int32, device="meta"), PM, m)
+    with pytest.raises(ValueError, match="key rows"):  # unsharded keys on a tp = 2 rank
+        std.blind_rotate_std_tp(torch.zeros((1, 2, PM.N), dtype=torch.int32),
+                                torch.zeros((PM.n, 2 * PM.d_g_used, 16, 2 * PM.N), dtype=torch.int8),
+                                torch.zeros((1, PM.n), dtype=torch.int32), PM, m)
+
+
+class _FakeLib:
+    """The kernel library's entry points of #5 and #6, returning 0."""
+
+    def __init__(self):
+        self.calls = []
+
+    def oece_negacyclic_matmul(self, *args) -> int:
+        self.calls.append("negacyclic_matmul")
+        return 0
+
+    def oece_cmux_epilogue_true(self, *args) -> int:
+        self.calls.append("cmux_epilogue")
+        return 0
+
+
+def test_tp_rotation_launches_on_the_card(monkeypatch):
+    """A CUDA tensor no longer raises: with the device check, the kernel
+    library and the all-reduce stubbed, each step of the tp rotation
+    launches #5 then #6, counted in their own LAUNCHES and no plain twin
+    runs (the kernels themselves run on the card: chip_smoke.py tp)."""
+    from oece_tpu_torch.fhe import rev
+    from oece_tpu_torch.fhe.params import MICRO as PM
+
+    lib = _FakeLib()
+    monkeypatch.setattr(rev, "_on_card", lambda name, *ts: True)
+    monkeypatch.setattr(rev, "_aligned", lambda name, *ts: None)
+    monkeypatch.setattr(rev, "_stream", lambda t: 0)
+    monkeypatch.setattr(rev._build, "load", lambda: lib)
+    monkeypatch.setattr(dist, "all_reduce", lambda t, group=None: None)
+    m = mesh_mod.Mesh(dp=1, tp=2, dp_rank=0, tp_rank=1, dp_group=None, tp_group=None,
+                      device=torch.device("cpu"))
+    n = 3
+    acc = torch.zeros((2, 2, PM.N), dtype=torch.int32)
+    ext = torch.zeros((n, PM.d_g_used, 16, 2 * PM.N), dtype=torch.int8)
+    launches, plain = dict(ng.LAUNCHES), dict(ng.PLAIN_LAUNCHES)
+    std.blind_rotate_std_tp(acc, ext, torch.zeros((2, n), dtype=torch.int32), PM, m)
+    assert lib.calls == ["negacyclic_matmul", "cmux_epilogue"] * n
+    assert {k: ng.LAUNCHES[k] - launches[k] for k in ng.KERNELS} == {
+        **dict.fromkeys(ng.KERNELS, 0), "negacyclic_matmul": n, "cmux_epilogue": n}
+    assert ng.PLAIN_LAUNCHES == plain
+
+
+def test_make_mesh_defaults_to_the_card(monkeypatch):
+    """make_mesh() with no device takes the current CUDA device under any
+    backend: on a host without CUDA it raises, where it used to pick the
+    CPU under gloo; device="cpu" still gives a CPU mesh."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{_port()}", world_size=1, rank=0)
+    try:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            mesh_mod.make_mesh(1)
+        m = mesh_mod.make_mesh(1, device="cpu")
+        assert m.device == torch.device("cpu") and (m.dp, m.tp) == (1, 1)
+    finally:
+        dist.destroy_process_group()

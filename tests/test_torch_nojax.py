@@ -5,8 +5,9 @@ verify mode, runs gates through a MICRO ``BinFHEContext``, imports the
 harness, circuit generators and tools, and passes the adder_2bit test
 bench pure-encrypted with recovery (what chip_smoke.py needs on a machine
 that has no JAX), clocks the adder again with a checkpoint and the lane
-trace, builds the native parser and runs the NTT, the key cache and the
-MICRO generic-base AP rotation; no module of
+trace, builds the native parser and runs the NTT, the key cache, the
+MICRO generic-base AP rotation, a chunk of the noise tool and the
+XOR-noise tool's corpus scan; no module of
 ``oece_tpu`` is loaded on the way.  An AST scan finds no import of ``jax``
 or ``oece_tpu`` in the port's sources, chip_smoke.py or chip_profile.py."""
 
@@ -76,6 +77,11 @@ sk2, kt = keycache.load_or_generate(MICRO, BinFHEMethod.AP, seed=1, device="cpu"
 acc = torch.zeros((1, 2, MICRO.N), dtype=torch.int32)
 a2N = torch.ones((1, MICRO.n), dtype=torch.int32)
 assert ap.blind_rotate_ap_generic(acc, kt.ap_ext, a2N, MICRO).shape == acc.shape
+from oece_tpu_torch.tools import measure_noise, measure_xor_noise
+
+assert measure_noise.run("MICRO", 10, 4, "rev2", "cpu", log=lambda m: None)["bootstraps"] == 40
+fp_mul = "examples/new_bristol_ckts/fp/FP-mul.txt"
+assert measure_xor_noise.scan_corpus([fp_mul], log=lambda m: None) > 0
 loaded = sorted(m for m in sys.modules if m.split(".")[0] == "jax" and sys.modules[m] is not None)
 assert not loaded, loaded
 jaxpkg = sorted(m for m in sys.modules if m.split(".")[0] == "oece_tpu")
