@@ -41,6 +41,10 @@ gates by v, so each of at most B_r - 1 matrices is made once per step
 per gate; it is torch ops on both devices (``GENERIC_LAUNCHES`` counts
 its calls).  The select digits are public and come to the host once per
 rotation.
+
+Under a traced Clock (utils/trace.py) each rotation counts its live steps
+and live (gate, step) pairs, and the copy of the live counts to the host is
+span ``ap.live_count``, counted as a host wait.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import _build
 from .keys import TILE, rev_block, rev_index
 from .params import BinFHEParams
@@ -94,6 +99,9 @@ def blind_rotate_ap_plain(
     global PLAIN_LAUNCHES
     PLAIN_LAUNCHES += 1
     bits = ap_bits(a2N, p)
+    if trace.ACTIVE is not None:  # the live steps and pairs the card's loop would run
+        trace.count("steps", int(bits.any(0).sum()))
+        trace.count("live_pairs", int(bits.sum()))
     idx = rev_index(acc.shape[-1], acc.device)
     for s in range(ap_ext.shape[0]):
         acc = ap_step_plain(acc, bits[:, s], ap_ext[s], idx, p)
@@ -209,9 +217,14 @@ def _blind_rotate_ap_cuda(acc, ap_ext, a2N, p: BinFHEParams) -> torch.Tensor:
         return out
     mask, rank0, count = live_table(a2N, p)
     KERNEL_LAUNCHES += 1
-    counts = count.cpu()  # the rotation's one transfer (and wait)
+    with trace.span("ap.live_count"):
+        counts = count.cpu()  # the rotation's one transfer (and wait)
+        trace.count("host_waits")
     lib = _build.load()
     L_max, live = int(counts.max()), int((counts > 0).sum())
+    if trace.ACTIVE is not None:
+        trace.count("steps", live)
+        trace.count("live_pairs", int(counts.sum()))
     K = N // TILE * 2 * p.d_g_used * TILE
     dig = torch.empty((L_max, K), dtype=torch.int8, device=acc.device)
     res = torch.empty((L_max, 2, N), dtype=torch.int32, device=acc.device)
@@ -320,7 +333,12 @@ def blind_rotate_ap_generic(
     in_use = counts[:, 1:] > 0
     # the keys of every (step, value > 0) in use, in step order, on the device
     key_rows = (in_use.nonzero() * torch.tensor([V, 1], device=acc.device)).sum(1) + 1
-    counts = counts.cpu().numpy()  # the rotation's one transfer
+    with trace.span("ap.live_count"):
+        counts = counts.cpu().numpy()  # the rotation's one transfer
+        trace.count("host_waits")
+    if trace.ACTIVE is not None:
+        trace.count("steps", int((counts[:, 0] < B).sum()))
+        trace.count("live_pairs", int(B * S - counts[:, 0].sum()))
     first = 0
     for s in range(S):
         if counts[s, 0] == B:

@@ -28,6 +28,7 @@ import os
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import modmath
 from .ap import blind_rotate_ap, blind_rotate_ap_generic
 from .keys import BootKeys
@@ -135,23 +136,33 @@ def bootstrap_batch(prep: torch.Tensor, gate_ids: torch.Tensor, keys: BootKeys, 
     """Bootstrap prepared LWE cts [B, n+1] mod q -> fresh cts [B, n+1].
     With ``tp`` (a parallel.mesh.Mesh with tp > 1) ``keys`` is this rank's
     tp shard of host GINX keys, and the rotation and the key switch sum
-    their partial products over the tp group."""
+    their partial products over the tp group.  Under a traced Clock it is
+    span ``boot`` with ``boot.pre``, ``boot.rotation`` and ``boot.post``,
+    and counts the rotation, its lanes and (GINX: all n) its steps."""
     p = keys.params
     Q, N, q, Qks = p.Q, p.N, p.q, p.Q_ks
     log_q, log_qks = int(math.log2(q)), int(math.log2(Qks))
-    ct2N = mod_switch_pow2(prep, log_q, int(math.log2(2 * N)))
-    a2N = ct2N[:, :-1].contiguous()
-    acc = acc_init(keys.tv_table[gate_ids.long()], ct2N[:, -1], N, Q)
-    if tp is None:
-        acc = blind_rotation(acc, a2N, keys)
-    else:
-        if keys.ginx_ext is None:
-            raise ValueError("tensor parallelism runs on host GINX keys (ginx_ext) only")
-        acc = blind_rotate_std_tp(acc, keys.ginx_ext, a2N, p, tp)
-    ct_N = sample_extract(acc, Q)
-    ct_N[:, -1] = (ct_N[:, -1] + Q // 8) % Q
-    ct_ks = modmath.mod_switch_from_q27(ct_N, log_qks, Q)
-    return mod_switch_pow2(key_switch_dev(ct_ks, keys, tp), log_qks, log_q)
+    with trace.span("boot", device=True):
+        with trace.span("boot.pre", device=True):
+            ct2N = mod_switch_pow2(prep, log_q, int(math.log2(2 * N)))
+            a2N = ct2N[:, :-1].contiguous()
+            acc = acc_init(keys.tv_table[gate_ids.long()], ct2N[:, -1], N, Q)
+        with trace.span("boot.rotation", device=True):
+            trace.count("rotations")
+            trace.count("lanes", prep.shape[0])
+            if keys.ap_ext is None:
+                trace.count("steps", p.n)  # AP counts its live steps
+            if tp is None:
+                acc = blind_rotation(acc, a2N, keys)
+            else:
+                if keys.ginx_ext is None:
+                    raise ValueError("tensor parallelism runs on host GINX keys (ginx_ext) only")
+                acc = blind_rotate_std_tp(acc, keys.ginx_ext, a2N, p, tp)
+        with trace.span("boot.post", device=True):
+            ct_N = sample_extract(acc, Q)
+            ct_N[:, -1] = (ct_N[:, -1] + Q // 8) % Q
+            ct_ks = modmath.mod_switch_from_q27(ct_N, log_qks, Q)
+            return mod_switch_pow2(key_switch_dev(ct_ks, keys, tp), log_qks, log_q)
 
 
 def prepare_gates(ct1: torch.Tensor, ct2: torch.Tensor, gate_ids: torch.Tensor, q: int) -> torch.Tensor:

@@ -68,7 +68,12 @@ uninterrupted one bit for bit on both branches, repairs included.
 ``OECE_BAD_TRACE=1`` in verify mode records every repaired lane in
 ``bad_gate_lanes`` ({level, lane, case, op, wire, cycle}; ``lane`` is the
 gate's place in the level's bootstrap order, also under compound XOR,
-``cycle`` the Clock() since Reset).
+``cycle`` the Clock() since Reset).  ``setTrace(True)`` records spans and
+counters in each request's ``trace`` (utils/trace.py): ``set_input``, then
+under ``clock`` each ``level`` (``level.host``, per gate group
+``group.gather``, the gate batches' ``boot`` spans, ``group.check``,
+``group.scatter``, then ``level.linear`` and ``level.sync``) and
+``collect``, with the host waits counted where they happen.
 """
 
 from __future__ import annotations
@@ -87,7 +92,8 @@ from ..circuits.netlist import Netlist, Op, assign_ct_slots, levelize
 from ..fhe import _build, boot, devkeygen, golden, hostkeygen, lwe
 from ..fhe.keys import GATE_INDEX, BootKeys
 from ..fhe.params import BinFHEMethod, BinGate, get_params
-from ..utils.trace import LevelRecord, Trace
+from ..utils import trace as trace_mod
+from ..utils.trace import LevelRecord, Trace, count, span
 from ..parallel import mesh as mesh_mod
 from . import checkpoint as ckpt_mod
 
@@ -226,6 +232,9 @@ class Circuit:
         self._batch = 1
         self._dev_branch = False
         self._index = None
+        self._trace_on = False
+        self._requests = 0  # Clock() calls of this circuit, never reset
+        self._trace_events: list = []  # the traces' CUDA events, reused
         self.Reset()
 
     # -- file loading -------------------------------------------------------
@@ -281,6 +290,12 @@ class Circuit:
             self.encrypted_flag = True
         self.recover_threshold = int(threshold) if threshold is not None else self.params.q // 16
 
+    def setTrace(self, flag: bool) -> None:
+        """Record spans and counters (utils/trace.py) in each request's
+        ``trace``: SetInput's, and every level's phases, gate batches and
+        rotations in Clock, with the host waits counted per level."""
+        self._trace_on = bool(flag)
+
     def setMesh(self, mesh) -> None:
         """Attach a parallel.mesh.Mesh (None detaches it): every level's
         bootstrap batch is sharded over its ``dp`` ranks, keys replicated;
@@ -298,13 +313,12 @@ class Circuit:
         self.gate_counts: Dict[str, int] = {}
         self.bad_gate_counts: Dict[str, int] = {}
         self.bad_gate_levels: Dict[int, Dict[str, int]] = {}
-        self.manager_time = 0.0
-        self.exec_time = 0.0
         self._done = False
         self._cur_level = 0
         self._cycle = -1  # Clock() calls since Reset, less one
         self._bootstraps_run = 0
         self.trace: Optional[Trace] = None
+        self._next_trace: Optional[Trace] = None  # a traced request's, from SetInput
         # sequential state: values latched on wires dff_q, cleared to 0 here
         self._state_plain: Optional[np.ndarray] = None  # [T, n_dff]
         self._state_ct: Optional[torch.Tensor] = None  # [n_dff, T, n+1]
@@ -325,6 +339,20 @@ class Circuit:
     def SetInput(self, inputs: Sequence[np.ndarray]) -> None:
         """inputs: one bit array per declared input word, [bits] or
         [T, bits] (T = test-case batch)."""
+        if not self._trace_on:
+            return self._set_input(inputs)
+        self._next_trace = self._next_trace or self._new_trace()
+        with self._next_trace.span("set_input"):
+            self._set_input(inputs)
+
+    def _new_trace(self) -> Trace:
+        """The next Clock's trace (call before Clock counts its cycle)."""
+        self._requests += 1
+        return Trace(circuit="", mode="", recording=self._trace_on,
+                     cuda=self.device.type == "cuda", clock=(self._cycle + 1, self._requests),
+                     event_pool=self._trace_events)
+
+    def _set_input(self, inputs: Sequence[np.ndarray]) -> None:
         nl = self.netlist
         if nl is None:
             raise RuntimeError("ReadFile first")
@@ -396,19 +424,34 @@ class Circuit:
             raise RuntimeError("ReadFile first")
         if self._done:
             raise RuntimeError("Circuit already evaluated; call Reset")
-        t_start = time.time()
-        exec0 = self.exec_time
+        tr, self._next_trace = self._next_trace or self._new_trace(), None
         self._cycle += 1
         if (self.encrypted_flag and not self.verify_flag and not self._recover_explicit
                 and os.environ.get("OECE_AUTO_RECOVER", "1") == "1"):
             self.recover_flag = True  # pure-encrypted runs are margin-protected by default
         self._dev_branch = self.encrypted_flag and self._use_level_jit()
-        mode = (
+        tr.circuit = self.netlist.name
+        tr.mode = (
             "verify" if self.verify_flag
             else "encrypted" if self.encrypted_flag else "plaintext"
         )
-        self.trace = Trace(circuit=self.netlist.name, mode=mode)
-        self.trace.begin()
+        self.trace = tr
+        tr.begin()
+        trace_mod.ACTIVE = tr if tr.recording else None
+        try:
+            with span("clock"):
+                self._clock(verbose, checkpoint_path, checkpoint_every)
+        finally:
+            trace_mod.ACTIVE = None
+        tr.end()
+        tr.finish()
+        self._done = self.netlist.n_dff == 0
+        if self.verbose or verbose:
+            levels_s = sum(r.wall_s for r in tr.records)
+            eff = 100.0 * levels_s / tr.total_s if tr.total_s > 0 else 0.0
+            print(f"### Total time {tr.total_s * 1e3:.1f} msec, efficiency {eff:.1f}%")
+
+    def _clock(self, verbose: bool, checkpoint_path: Optional[str], checkpoint_every: int) -> None:
         self._level_index()
         dev_verify = self._dev_branch and self.verify_flag
         self._trace_lanes = (self.verify_flag and self.encrypted_flag
@@ -438,16 +481,15 @@ class Circuit:
         for lv, level in enumerate(self.plan.levels):
             if lv < start_lv:
                 continue
-            t0 = time.time()
+            t0 = time.perf_counter()
             self._cur_level = lv
             b0 = self._bootstraps_run
-            self._run_level(level)
-            dt = time.time() - t0
-            self.exec_time += dt
+            with span("level", level=lv):
+                self._run_level(level)
             self.trace.add(LevelRecord(
                 level=lv, boot_gates=len(level["boot_op"]),
                 linear_gates=len(level["lin_op"]), batch=self._batch,
-                wall_s=dt, bootstraps=self._bootstraps_run - b0,
+                wall_s=time.perf_counter() - t0, bootstraps=self._bootstraps_run - b0,
             ))
             if (checkpoint_path is not None and checkpoint_every > 0
                     and (lv + 1) % checkpoint_every == 0 and lv + 1 < depth):
@@ -465,35 +507,33 @@ class Circuit:
         self._flush_bad_dev()
         self._flush_rec_dev()
         self._plain_dev = None
-        self._collect_outputs()
+        with span("collect"):
+            self._collect_outputs()
         nl = self.netlist
         if nl.n_dff:  # latch D into the state; the circuit stays clockable
             if self.plaintext_flag:
                 self._state_plain = self._plain_arena[:, nl.dff_d].copy()
             if self.encrypted_flag:
                 self._state_ct = self._ct_arena[torch.from_numpy(self._slot[nl.dff_d]).to(self.device)]
-        self.trace.end()
-        total = time.time() - t_start
-        self.manager_time += total - (self.exec_time - exec0)
-        self._done = nl.n_dff == 0
-        if self.verbose or verbose:
-            eff = 100.0 * (self.exec_time - exec0) / total if total > 0 else 0.0
-            print(f"### Total time {total * 1e3:.1f} msec, efficiency {eff:.1f}%")
 
     def _run_level(self, level: dict) -> None:
         """Level ``self._cur_level``: gate counts, its plaintext pass
         (unless the device branch ran them all first), its bootstrap groups
         with their checks, and its linear runs."""
-        self._count_level(level)
-        if self.plaintext_flag and self._plain_dev is None:
-            self._plain_level(level)
+        with span("level.host"):
+            self._count_level(level)
+            if self.plaintext_flag and self._plain_dev is None:
+                self._plain_level(level)
         if self.encrypted_flag:
             groups, segments = self._index[self._cur_level]
             for grp in groups:
                 self._run_group(grp)
-            self._run_linear_encrypted(segments)
+            with span("level.linear"):
+                self._run_linear_encrypted(segments)
             if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+                with span("level.sync"):
+                    torch.cuda.synchronize(self.device)
+                    count("host_waits")
 
     def _lane_width(self) -> int:
         """The lane trace's width: the widest level's bootstrap gates."""
@@ -608,23 +648,30 @@ class Circuit:
         B = W * T
         q = self.params.q
         arena = self._ct_arena
-        c1 = arena[grp["s0"]].reshape(B, -1)
-        c2 = arena[grp["s1"]].reshape(B, -1)
         recover = self.recover_flag and not self.verify_flag
-        gen = self._next_gen() if self._dev_branch and (self.verify_flag or recover) else None
-        if grp["compound"]:
-            # t1 = AND(a, !b), t2 = AND(!a, b) in one batch, then OR(t1, t2);
-            # XNOR adds a linear NOT
-            and_ids = torch.full((2 * B,), GATE_INDEX[BinGate.AND], device=self.device)
-            both = self._bootstrap(
-                boot.prepare_gates(
+        with span("group.gather"):
+            c1 = arena[grp["s0"]].reshape(B, -1)
+            c2 = arena[grp["s1"]].reshape(B, -1)
+            gen = self._next_gen() if self._dev_branch and (self.verify_flag or recover) else None
+            if grp["compound"]:
+                # t1 = AND(a, !b), t2 = AND(!a, b) in one batch, then OR(t1, t2);
+                # XNOR adds a linear NOT
+                gids = torch.full((2 * B,), GATE_INDEX[BinGate.AND], device=self.device)
+                prep = boot.prepare_gates(
                     torch.cat([c1, lwe.eval_not_batch(c1, q)]),
-                    torch.cat([lwe.eval_not_batch(c2, q), c2]), and_ids, q,
-                ),
-                and_ids,
-            )
-            or_ids = torch.full((B,), GATE_INDEX[BinGate.OR], device=self.device)
-            out = self._bootstrap(boot.prepare_gates(both[:B], both[B:], or_ids, q), or_ids)
+                    torch.cat([lwe.eval_not_batch(c2, q), c2]), gids, q,
+                )
+            else:
+                gids = grp["gids"].repeat_interleave(T)
+                prep = boot.prepare_gates(c1, c2, gids, q)
+                if self._dev_branch and recover:
+                    prep = self._repair_prep_dev(grp, prep, gids, gen)
+        out = self._bootstrap(prep, gids)
+        if grp["compound"]:
+            with span("group.gather"):
+                or_ids = torch.full((B,), GATE_INDEX[BinGate.OR], device=self.device)
+                prep = boot.prepare_gates(out[:B], out[B:], or_ids, q)
+            out = self._bootstrap(prep, or_ids)
             self._bootstraps_run += 3 * B
             xnor = grp["xnor"].repeat_interleave(T).bool()[:, None]
             out = torch.where(xnor, lwe.eval_not_batch(out, q), out)
@@ -632,20 +679,17 @@ class Circuit:
                 self.gate_counts.get("XOR_BOOTSTRAPS", 0) + 3 * T * W
             )
         else:
-            gids = grp["gids"].repeat_interleave(T)
-            prep = boot.prepare_gates(c1, c2, gids, q)
-            if self._dev_branch and recover:
-                prep = self._repair_prep_dev(grp, prep, gids, gen)
-            out = self._bootstrap(prep, gids)
             self._bootstraps_run += B
         out = out.reshape(W, T, -1)
-        if self.verify_flag:
-            out = (self._verify_fix_dev(grp, out, gen) if self._dev_branch
-                   else self._verify_fix(grp["ops"], grp["outw"], out, grp["lane_np"]))
-        elif self.recover_flag:
-            out = (self._recover_fix_dev(grp, out, gen) if self._dev_branch
-                   else self._recover_fix(grp["ops"], out))
-        arena[grp["so"]] = out
+        with span("group.check"):
+            if self.verify_flag:
+                out = (self._verify_fix_dev(grp, out, gen) if self._dev_branch
+                       else self._verify_fix(grp["ops"], grp["outw"], out, grp["lane_np"]))
+            elif self.recover_flag:
+                out = (self._recover_fix_dev(grp, out, gen) if self._dev_branch
+                       else self._recover_fix(grp["ops"], out))
+        with span("group.scatter"):
+            arena[grp["so"]] = out
 
     # -- the host branch's checks (the parity anchor) -------------------------
     def _verify_fix(self, ops, outw, out: torch.Tensor, lanes) -> torch.Tensor:
@@ -655,6 +699,7 @@ class Circuit:
         T, W = self._batch, len(ops)
         want_np = self._plain_arena[:, outw].T.astype(np.int32)  # [W, T]
         got = lwe.decrypt_bits_dev(self._s_dev, out, self.params.q).cpu().numpy()
+        count("host_waits")
         bad = got != want_np
         if not np.any(bad):
             return out
@@ -684,6 +729,7 @@ class Circuit:
         bit_d, err_d = lwe.phase_margin_dev(self._s_dev, out.reshape(W * T, -1), q)
         bitn = bit_d.cpu().numpy().astype(np.int64)
         aerr = np.abs(err_d.cpu().numpy()).reshape(W, T)
+        count("host_waits", 2)
         self.max_phase_err = max(self.max_phase_err, int(aerr.max()) if aerr.size else 0)
         suspect = aerr >= self.recover_threshold
         nhard = int((aerr >= q // 8).sum())
@@ -765,6 +811,7 @@ class Circuit:
         trace's cube into bad_gate_lanes."""
         if self._bad_mask_dev is not None:
             cube = self._bad_mask_dev.cpu().numpy()
+            count("host_waits")
             self._bad_mask_dev = None
             for lv, lane, case in zip(*np.nonzero(cube)):
                 level = self.plan.levels[lv]
@@ -773,6 +820,7 @@ class Circuit:
                     int(level["boot_out"][lane])))
         if self._bad_lv_dev is not None:
             lv_counts = self._bad_lv_dev.cpu().numpy()
+            count("host_waits")
             self._bad_lv_dev = None
             for lv, o in zip(*np.nonzero(lv_counts)):
                 d = self.bad_gate_levels.setdefault(int(lv), {})
@@ -783,6 +831,7 @@ class Circuit:
         if self._bad_dev is None:
             return
         counts = self._bad_dev.cpu().numpy()
+        count("host_waits")
         self._bad_dev = None
         for o in np.nonzero(counts)[0]:
             name = Op(int(o)).name
@@ -796,6 +845,7 @@ class Circuit:
             return
         cnts = self._rec_dev.cpu().numpy()
         self.max_phase_err = max(self.max_phase_err, int(self._rec_max.cpu()))
+        count("host_waits", 2)
         self._rec_dev = self._rec_max = None
         for o in np.nonzero(cnts[0])[0]:
             name = Op(int(o)).name
@@ -833,6 +883,7 @@ class Circuit:
             if self.encrypted_flag:
                 cts = self._ct_arena[torch.from_numpy(self._slot[wires]).to(self.device)]
                 bits = lwe.decrypt_bits_dev(self._s_dev, cts, self.params.q).cpu().numpy()
+                count("host_waits")
                 outs.append(bits.T)  # [T, bits]
                 if self.verify_flag:
                     bad = int((bits.T != self._plain_arena[:, wires]).sum())

@@ -8,7 +8,10 @@ words) in the layout of ``OECE_LAYOUT`` (default "rev2"), or
 ``device_keygen_ap`` for ``--method AP``, made once and reused across the
 ``--repeat`` runs.  The document (the encrypted pass's per-level trace,
 the harness counts and the run's provenance) goes to ``--out``, by default
-build/run_circuit/<circuit>_<set>[_T<loops>][_pure].json.
+build/run_circuit/<circuit>_<set>[_T<loops>][_pure].json.  The circuit
+records spans (``Circuit.setTrace``): the document's ``program_trace``
+holds the last Clock's host self time per span name, in seconds, and its
+counters (utils/trace.py).
 
     python -m oece_tpu_torch.tools.run_circuit [bench] [--set STD128_OPT]
         [--method GINX] [--loops 4] [--no-verify] [--xor-mode native]
@@ -72,6 +75,7 @@ def main(argv=None) -> int:
         sk, keys = devkeygen.device_keygen(params, words, args.device, layout=layout)
     c = Circuit(set=args.set, method=method, seed=0, device=args.device, keys=keys, sk=sk,
                 xor_mode=args.xor_mode, verbose=True)
+    c.setTrace(True)
     print(f"# keys ready in {time.time() - t0:.1f}s", file=sys.stderr)
 
     fname, test_fn = CASES[args.bench]
@@ -131,6 +135,10 @@ def main(argv=None) -> int:
                  "wall_s": round(rec.wall_s, 5), "bootstraps": rec.bootstraps}
                 for rec in tr.records
             ],
+        },
+        "program_trace": {
+            "self_s": {k: round(v, 6) for k, v in tr.self_times().items()},
+            "counters": dict(tr.counters),
         },
     }
     path = args.out

@@ -7,17 +7,45 @@ module keeps those human-readable outputs (runtime/evaluator.py) and adds
 what the reference lacks: machine-readable per-level records with gate
 counts and bootstraps/sec, dumpable as JSON for regression tracking.
 
-The port's own copy of ``oece_tpu.utils.trace``, kept in step with it
-(tests/test_torch_copies.py): the port imports nothing of the JAX
-package.
+The port's own copy of ``oece_tpu.utils.trace``, kept in step with it for
+``LevelRecord``, ``summary()`` and ``dump_json()`` (tests/test_torch_copies.py):
+the port imports nothing of the JAX package.  The port's copy also carries
+spans and counters, which the JAX package's lacks.  They are recorded only
+for a Circuit with ``setTrace(True)``:
+
+  * a span is a named interval on the host's ``perf_counter_ns`` clock, with
+    its parent span, the Clock's id (cycle since Reset, request sequence of
+    the circuit) and integer attributes; while it is open under an active
+    profiler it is also a profiler range named ``oece.<name>``, which the
+    profiler records on the clock of its device records;
+  * a span opened with ``device=True`` runs work on the card: its range is
+    a ``torch.profiler.record_function`` (the profiler also makes a device
+    copy of it), and on a CUDA circuit it takes a pair of CUDA events on the
+    current stream, which ``Trace.finish`` reads once, after the Clock's
+    last host wait;
+  * ``count(name, k)`` adds k to the Clock's counter ``name`` and to the
+    attribute ``name`` of every open span, so a level span holds the counts
+    made inside it.
+
+Code without a Circuit (fhe/boot.py, fhe/ap.py) finds the Clock's trace
+through the module handle ``ACTIVE``, which is None unless a traced Clock
+is running: ``span`` and ``count`` then cost one None check and make no
+event, no profiler range and no record.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+# the Trace of the traced Clock in flight, else None
+ACTIVE: Optional["Trace"] = None
+_OFF = contextlib.nullcontext()
 
 
 @dataclasses.dataclass
@@ -35,6 +63,21 @@ class LevelRecord:
 
 
 @dataclasses.dataclass
+class Span:
+    name: str
+    start_ns: int                # host perf_counter_ns
+    parent: int                  # index of the enclosing span in Trace.spans, -1 at the top
+    clock: Tuple[int, int]       # (cycle since Reset, request sequence of the circuit)
+    attrs: Dict[str, int]
+    end_ns: int = 0
+    device_ms: Optional[float] = None  # CUDA-event time of a device span
+
+    @property
+    def seconds(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e9
+
+
+@dataclasses.dataclass
 class Trace:
     """One Clock() invocation's trace."""
 
@@ -43,15 +86,56 @@ class Trace:
     records: List[LevelRecord] = dataclasses.field(default_factory=list)
     t_start: float = 0.0
     total_s: float = 0.0
+    recording: bool = False  # spans and counters on (Circuit.setTrace)
+    cuda: bool = False       # device spans take CUDA events
+    clock: Tuple[int, int] = (0, 0)
+    spans: List[Span] = dataclasses.field(default_factory=list)
+    counters: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # CUDA timing events to reuse, shared by the traces of one circuit:
+    # finish() returns the ones it read
+    event_pool: list = dataclasses.field(default_factory=list)
+    _open: List[int] = dataclasses.field(default_factory=list)
+    _events: list = dataclasses.field(default_factory=list)
 
     def begin(self) -> None:
-        self.t_start = time.time()
+        self.t_start = time.perf_counter()
 
     def end(self) -> None:
-        self.total_s = time.time() - self.t_start
+        self.total_s = time.perf_counter() - self.t_start
 
     def add(self, rec: LevelRecord) -> None:
         self.records.append(rec)
+
+    def span(self, name: str, device: bool = False, **attrs: int) -> "_Open":
+        """Record the enclosed block as span ``name``."""
+        return _Open(self, Span(name, 0, self._open[-1] if self._open else -1, self.clock, attrs),
+                     device)
+
+    def count(self, name: str, k: int = 1) -> None:
+        self.counters[name] = self.counters.get(name, 0) + k
+        for i in self._open:
+            attrs = self.spans[i].attrs
+            attrs[name] = attrs.get(name, 0) + k
+
+    def finish(self) -> None:
+        """Read the device spans' events; the caller has waited for the
+        work they enclose."""
+        if self._events:
+            self._events[-1][2].synchronize()
+            for s, e0, e1 in self._events:
+                s.device_ms = e0.elapsed_time(e1)
+                self.event_pool += (e0, e1)
+            self._events = []
+
+    def self_times(self) -> Dict[str, float]:
+        """Host seconds per span name, less the time of its child spans."""
+        out: Dict[str, float] = {}
+        for s in self.spans:
+            out[s.name] = out.get(s.name, 0.0) + s.seconds
+            if s.parent >= 0:
+                parent = self.spans[s.parent].name
+                out[parent] = out.get(parent, 0.0) - s.seconds
+        return out
 
     @property
     def total_bootstraps(self) -> int:
@@ -84,3 +168,55 @@ class Trace:
             with open(path, "w") as f:
                 f.write(s)
         return s
+
+
+class _Open:
+    """A span while it is open: its start, its events, its profiler range
+    (opened only while a profiler runs: an idle one records nothing)."""
+
+    __slots__ = ("trace", "span", "device", "events", "range")
+
+    def __init__(self, trace: Trace, span: Span, device: bool):
+        self.trace, self.span, self.device, self.events, self.range = trace, span, device, None, None
+
+    def __enter__(self) -> Span:
+        tr, s = self.trace, self.span
+        tr._open.append(len(tr.spans))
+        tr.spans.append(s)
+        if self.device and tr.cuda:
+            pool = tr.event_pool
+            self.events = tuple(pool.pop() if pool else torch.cuda.Event(enable_timing=True)
+                                for _ in range(2))
+            self.events[0].record()
+        if torch.autograd._profiler_enabled():
+            # a device span is a user range, of which the profiler also makes a
+            # device copy over the kernels it launches; the others take the
+            # cheaper range, one host record each
+            rf = torch.profiler.record_function if self.device else torch._C._profiler._RecordFunctionFast
+            self.range = rf("oece." + s.name)
+            self.range.__enter__()
+        s.start_ns = time.perf_counter_ns()
+        return s
+
+    def __exit__(self, *exc) -> None:
+        tr, s = self.trace, self.span
+        s.end_ns = time.perf_counter_ns()
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        if self.events is not None:
+            self.events[1].record()
+            tr._events.append((s, *self.events))
+        tr._open.pop()
+
+
+def span(name: str, device: bool = False, **attrs: int):
+    """``ACTIVE.span(...)``, or a no-op context when no traced Clock runs."""
+    tr = ACTIVE
+    return _OFF if tr is None else tr.span(name, device, **attrs)
+
+
+def count(name: str, k: int = 1) -> None:
+    """``ACTIVE.count(...)`` when a traced Clock runs."""
+    tr = ACTIVE
+    if tr is not None:
+        tr.count(name, k)

@@ -146,8 +146,11 @@ def test_run_circuit_document_matches_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-2000:]
     got = json.loads(out.read_text())
     want = json.loads((tmp_path / "artifacts" / "adder_32bit_micro_T1.json").read_text())
+    spans = got.pop("program_trace")  # the port's spans, which the JAX tool lacks
     assert _keys(got) == _keys(want) | {"provenance.device"}
     assert got["provenance"]["device"] == "cpu"
+    assert {"clock", "level", "boot.rotation"} <= set(spans["self_s"])
+    assert spans["counters"]["lanes"] == got["encrypted_trace"]["summary"]["total_bootstraps"]
     for k in ("bench", "set", "method", "xor_mode", "loops", "verify"):
         assert got[k] == want[k], k
     for k in ("n_cases", "plain_passed", "enc_passed"):

@@ -1,0 +1,213 @@
+"""The port's spans and counters (utils/trace.py, ``Circuit.setTrace``) on
+the CPU at MICRO, GINX and binary-base AP: spans nest under their parents
+with the Clock's id, every level has its phase spans, the rotation counts
+match the gates and, for AP, the select bits of each rotation's own a2N
+(``fhe_bench.spans.ap_live``); with tracing off a Clock makes no span, no
+CUDA event and no profiler range."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from fhe_bench.spans import ap_live
+from oece_tpu_torch.circuits.gen import gen_adder
+from oece_tpu_torch.fhe import boot
+from oece_tpu_torch.fhe.params import MICRO, MICRO_A
+from oece_tpu_torch.runtime.evaluator import Circuit
+from oece_tpu_torch.utils import trace
+from test_torch_std import one_torch_thread  # noqa: F401
+
+MICRO_AP2 = dataclasses.replace(MICRO_A, name="MICRO_AP2", B_r=2)
+T = 3
+SETS = {"GINX": MICRO, "AP": MICRO_AP2}
+
+
+@pytest.fixture(scope="module", params=["GINX", "AP"])
+def traced(request):
+    """A MICRO adder circuit of each method with tracing on, clocked twice
+    (a Reset between), and its rotations' a2N recorded."""
+    method = request.param
+    c = Circuit(set=SETS[method], method=method, seed=7, device="cpu")
+    c.LoadNetlist(gen_adder(4))
+    c.setEncrypted(True)
+    c.setPlaintext(False)
+    c.setTrace(True)
+    a2Ns = []
+    orig = boot.blind_rotation
+
+    def recording(acc, a2N, keys):
+        a2Ns.append(a2N.clone())
+        return orig(acc, a2N, keys)
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(boot, "blind_rotation", recording)
+    rng = np.random.default_rng(3)
+    traces = []
+    for _ in range(2):
+        c.Reset()
+        c.SetInput([rng.integers(0, 2, (T, 4)), rng.integers(0, 2, (T, 4))])
+        c.Clock()
+        traces.append(c.trace)
+    mp.undo()
+    yield method, c, traces, a2Ns
+
+
+def _children(tr, k):
+    return [s for s in tr.spans if s.parent == k]
+
+
+def test_spans_nest_with_parent_and_clock_id(traced):
+    _, c, traces, _ = traced
+    for request, tr in enumerate(traces, start=1):
+        assert tr.recording and tr.clock == (0, request)
+        assert [s.name for s in tr.spans if s.parent < 0] == ["set_input", "clock"]
+        for k, s in enumerate(tr.spans):
+            assert s.clock == (0, request) and s.start_ns <= s.end_ns
+            if s.parent >= 0:
+                up = tr.spans[s.parent]
+                assert s.parent < k and up.start_ns <= s.start_ns and s.end_ns <= up.end_ns
+    assert trace.ACTIVE is None
+
+
+def test_each_level_has_its_phase_spans(traced):
+    method, c, traces, _ = traced
+    tr = traces[-1]
+    (clock,) = [k for k, s in enumerate(tr.spans) if s.name == "clock"]
+    levels = [k for k in range(len(tr.spans)) if tr.spans[k].name == "level"]
+    assert [tr.spans[k].parent for k in levels] == [clock] * c.plan.depth
+    assert [tr.spans[k].attrs["level"] for k in levels] == list(range(c.plan.depth))
+    assert [s.name for s in _children(tr, clock)][-1] == "collect"
+    for k, level in zip(levels, c.plan.levels):
+        names = [s.name for s in _children(tr, k)]
+        if len(level["boot_op"]):
+            assert names == ["level.host", "group.gather", "boot", "group.check",
+                             "group.scatter", "level.linear"], names
+            (b,) = [j for j in range(len(tr.spans)) if tr.spans[j].parent == k
+                    and tr.spans[j].name == "boot"]
+            assert [s.name for s in _children(tr, b)] == ["boot.pre", "boot.rotation", "boot.post"]
+        else:
+            assert names == ["level.host", "level.linear"]
+    live = [s for s in tr.spans if s.name == "ap.live_count"]
+    assert live == []  # the CPU runs the plain rotation, which copies nothing to the host
+    assert all(s.device_ms is None for s in tr.spans)  # no CUDA events on the CPU
+
+
+def test_rotation_counts_match_the_gates(traced):
+    method, c, traces, _ = traced
+    tr = traces[-1]
+    gates = sum(len(level["boot_op"]) for level in c.plan.levels)
+    rotating = sum(1 for level in c.plan.levels if len(level["boot_op"]))
+    assert tr.counters["lanes"] == gates * T == tr.total_bootstraps
+    assert tr.counters["rotations"] == rotating
+    for s in tr.spans:
+        if s.name == "level":
+            rec = tr.records[s.attrs["level"]]
+            assert s.attrs.get("lanes", 0) == rec.boot_gates * T == rec.bootstraps
+    if method == "GINX":
+        assert tr.counters["steps"] == rotating * c.params.n
+    # recovery's host-branch check copies bits and errors once each per group,
+    # the output collection once per word
+    assert tr.counters["host_waits"] == 2 * rotating + len(c.netlist.outputs)
+
+
+@pytest.mark.parametrize("traced", ["AP"], indirect=True)
+def test_ap_live_counts_match_the_select_bits(traced):
+    _, c, traces, a2Ns = traced
+    p = {"N": c.params.N, "B_r": c.params.B_r}
+    rots = [s for tr in traces for s in tr.spans if s.name == "boot.rotation"]
+    assert len(rots) == len(a2Ns)
+    for s, a2N in zip(rots, a2Ns):
+        pairs, steps = ap_live(a2N, p)
+        assert (s.attrs["live_pairs"], s.attrs["steps"]) == (pairs, steps)
+        assert 0 < steps <= c.params.n * c.params.d_r
+    tr = traces[-1]
+    assert tr.counters["live_pairs"] == sum(s.attrs["live_pairs"] for s in tr.spans
+                                            if s.name == "boot.rotation")
+
+
+def test_self_times_subtract_children():
+    tr = trace.Trace(circuit="c", mode="encrypted", recording=True)
+    with tr.span("clock"):
+        with tr.span("level", level=0):
+            with tr.span("level.host"):
+                pass
+            tr.count("host_waits")
+        tr.count("host_waits", 2)
+    clock, level, host = tr.spans
+    assert (clock.attrs, level.attrs, host.attrs) == ({"host_waits": 3}, {"level": 0, "host_waits": 1}, {})
+    own = tr.self_times()
+    assert own["level.host"] == pytest.approx(host.seconds)
+    assert own["level"] == pytest.approx(level.seconds - host.seconds)
+    assert own["clock"] == pytest.approx(clock.seconds - level.seconds)
+
+
+def _refuse(*args, **kwargs):
+    raise AssertionError("made while tracing is off")
+
+
+@pytest.mark.parametrize("method", ["GINX", "AP"])
+def test_tracing_off_makes_no_span_event_or_range(method, monkeypatch):
+    c = Circuit(set=SETS[method], method=method, seed=9, device="cpu")
+    c.LoadNetlist(gen_adder(2))
+    c.setVerify(True)
+    monkeypatch.setattr(torch.cuda, "Event", _refuse)
+    monkeypatch.setattr(torch.profiler, "record_function", _refuse)
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", _refuse)
+    rng = np.random.default_rng(4)
+    for _ in range(2):
+        c.Reset()
+        c.SetInput([rng.integers(0, 2, (2, 2)), rng.integers(0, 2, (2, 2))])
+        c.Clock()
+        assert not c.trace.recording and c.trace.spans == [] and c.trace.counters == {}
+        assert len(c.trace.records) == c.plan.depth
+    assert trace.ACTIVE is None
+    assert c.bad_gate_counts == {}
+
+
+def test_verify_counts_one_host_wait_per_group_and_compound_spans():
+    """Verify mode on the host branch copies each group's bits once; a
+    compound XOR group gathers and bootstraps twice (AND pair, then OR)."""
+    c = Circuit(set="MICRO", method="GINX", seed=11, device="cpu", xor_mode="compound")
+    c.LoadNetlist(gen_adder(2))
+    c.setVerify(True)
+    c.setTrace(True)
+    rng = np.random.default_rng(5)
+    c.SetInput([rng.integers(0, 2, (2, 2)), rng.integers(0, 2, (2, 2))])
+    c.Clock()
+    tr = c.trace
+    groups = sum(1 for s in tr.spans if s.name == "group.check")
+    assert tr.counters["host_waits"] == groups + len(c.netlist.outputs)
+    assert tr.counters["lanes"] == tr.total_bootstraps
+    gathers = sum(1 for s in tr.spans if s.name == "group.gather")
+    boots = sum(1 for s in tr.spans if s.name == "boot")
+    assert gathers == boots > groups  # compound groups run two batches
+    assert c.bad_gate_counts.get("OUTPUT", 0) == 0
+
+
+def test_spans_are_profiler_ranges_only_under_a_profiler(monkeypatch):
+    """Under torch.profiler a traced Clock's spans are ``oece.<name>``
+    ranges, the device spans' user ranges; without a profiler it opens
+    none."""
+    c = Circuit(set="MICRO", method="GINX", seed=13, device="cpu")
+    c.LoadNetlist(gen_adder(2))
+    c.setEncrypted(True)
+    c.setPlaintext(False)
+    c.setTrace(True)
+    rng = np.random.default_rng(6)
+    words = [rng.integers(0, 2, (2, 2)), rng.integers(0, 2, (2, 2))]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        c.SetInput(words)
+        c.Clock()
+    evs = [e for e in prof.events() if e.name.startswith("oece.")]
+    ranges = [e.name for e in evs]
+    assert ranges == ["oece." + s.name for s in sorted(c.trace.spans, key=lambda s: s.start_ns)]
+    assert {e.name for e in evs if e.is_user_annotation} == {
+        "oece.boot", "oece.boot.pre", "oece.boot.rotation", "oece.boot.post"}
+    monkeypatch.setattr(torch.profiler, "record_function", _refuse)
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", _refuse)
+    c.Reset()
+    c.SetInput(words)
+    c.Clock()
+    assert len(c.trace.spans) == len(ranges)
