@@ -16,9 +16,10 @@ before the result lines):
              against its plain torch version on the row-major key, on the
              card, bit-exact: STD128_OPT (n=8), MICRO_A and TOY (exact
              gadget, N=512; n=4) at B = 1, 4, 8, 13, 37, 64, 65, 256,
-             2048; lanes with a=0; a row-major key on the card must be
-             refused.  Times one STD128_OPT step at B=2048 for both
-             versions.
+             2048, STD128 (exact gadget, d = 4; n=2) at B = 17, 132, 256,
+             257, 4096 (the tiled GEMM's padded digit scratch); lanes with
+             a=0; a row-major key on the card must be refused.  Times one
+             STD128_OPT step at B=2048 for both versions.
   3. gates   device keygen at full STD128_OPT (seed 0), then chained
              batches of 2048 random gates over all six types; every output
              is decrypted and checked against the plaintext chain.
@@ -79,9 +80,10 @@ before the result lines):
              plain version on the row-major key, bit-exact:
              blind_rotate_rev at STD128_OPT (n=8) B = 1, 4, 8, 13, 16, 17,
              37, 64, 256, 2048, STD128 (R=8, n=2), MICRO (n=4) and TOY
-             (n=3) at B = 4, 13, 37, random int8 blocks, a=0 lanes
-             unchanged; #8 and #9 alone on K-major blocks of 16 and 8
-             planes and #10 (any amount pairs) at B = 4, 13, 37, 2048; a
+             (n=3) at B = 4, 13, 37, STD128 (n=2) at B = 17, 132, 256, 257,
+             4096, random int8 blocks, a=0 lanes unchanged; #8 and #9
+             alone on K-major blocks of 16 and 8 planes and #10 (any
+             amount pairs) at B = 4, 13, 37, 2048; a
              row-major key or block on the card is refused, and the
              rotation at B = 4 and 2048 launches no kernel of
              csrc/std_step.cu (profiler names).  Times a STD128_OPT step
@@ -101,14 +103,16 @@ before the result lines):
              blocks, 251 MB, so each step reads its block from HBM; CUDA
              events) against its bound, and at B = 4 and 2048 the step
              split into the digits, the GEMM and the launch gaps
-             (torch.profiler's kernel timeline).  It also runs on a
-             package whose kernel reads the row-major key, to compare
+             (torch.profiler's kernel timeline); the same for STD128 (d =
+             4) at B = 17, 132, 256, 257, 4096, each split.  It also runs
+             on a package whose kernel reads the row-major key, to compare
              trees in one call.  It runs after the long phases: in runs
              where its profiler windows came before the AP phases'
              million launches, later windows lost records.
      rev-sweep  the same for the rev step (#9/#8, csrc/rev_step.cu): 16
-             distinct random blocks, B = 1 ... 2048, against the bound; at
-             B = 4 and 2048 its digits kernel, GEMM and gaps per step.
+             distinct random blocks, B = 1 ... 2048 and STD128's, against
+             the bound; split into its digits kernel, GEMM and gaps per
+             step where rot-sweep splits.
              Both rev phases also run on a package whose rev kernels read
              the row-major key, to compare trees in one call.
      std-sweep  the same for the standard-form step on ginx_ext: 16
@@ -537,6 +541,7 @@ def rotation_inputs(p, B, n, layout, seed):
 
 
 ROT_BATCHES = (1, 4, 8, 13, 37, 64, 65, 256, 2048)
+WIDE_BATCHES = (17, 132, 256, 257, 4096)  # STD128's tiled GEMMs around the 256-gate tile
 
 
 def _rot_sets():
@@ -571,11 +576,13 @@ def card_rev(rev):
 def phase_kernel():
     import torch
     from oece_tpu_torch.fhe import rot
-    from oece_tpu_torch.fhe.params import STD128_OPT
+    from oece_tpu_torch.fhe.params import STD128, STD128_OPT
 
     t0 = time.time()
     max_err = 0
-    for i, (p, B) in enumerate((p, B) for p in _rot_sets() for B in ROT_BATCHES):
+    cases = [(p, B) for p in _rot_sets() for B in ROT_BATCHES]
+    cases += [(dataclasses.replace(STD128, n=2), B) for B in WIDE_BATCHES]
+    for i, (p, B) in enumerate(cases):
         acc, rev2, a2N = rotation_inputs(p, B, p.n, "rev2", seed=100 + i)
         keyT = card_key(rev2)
         got = rot.blind_rotate_rot(acc, keyT, a2N, p)
@@ -607,31 +614,39 @@ def _rot_step_bound(p, B):
     return bound(2.0 * B * nt * K * 8 * 128, block + 2 * B * 2 * p.N * 4 + B * 4)
 
 
+def sweep_cases(std_opt, std128):
+    """The sweeps' (params, B, split into kernels): STD128_OPT at B = 1
+    ... 2048, split at B = 4 and 2048; STD128 (exact gadget, d = 4) at
+    WIDE_BATCHES, each split."""
+    cases = [(std_opt, B, B in (4, 2048)) for B in (1, 4, 8, 16, 64, 256, 1024, 2048)]
+    return cases + [(std128, B, True) for B in WIDE_BATCHES]
+
+
 def phase_rot_sweep():
-    """#12's step time by batch size against its bound; the B=4 and
-    B=2048 splits."""
+    """#12's step time by batch size against its bound (sweep_cases); the
+    splits into the digits, the GEMM and the launch gaps."""
     from oece_tpu_torch.fhe import rot
-    from oece_tpu_torch.fhe.params import STD128_OPT
+    from oece_tpu_torch.fhe.params import STD128, STD128_OPT
 
     t0 = time.time()
-    p = dataclasses.replace(STD128_OPT, n=16)
     res = {}
-    for B in (1, 4, 8, 16, 64, 256, 1024, 2048):
-        acc, rev2, a2N = rotation_inputs(p, B, p.n, "rev2", seed=900 + B)
+    for p, B, split in sweep_cases(dataclasses.replace(STD128_OPT, n=16), dataclasses.replace(STD128, n=16)):
+        acc, rev2, a2N = rotation_inputs(p, B, p.n, "rev2", seed=900 + B + 10000 * (p.d_g_used == 4))
         keyT = card_key(rev2)
         del rev2
         rotate = lambda: rot.blind_rotate_rot(acc, keyT, a2N, p)  # noqa: E731
         ms = cuda_time_ms(rotate, reps=10 if B < 1024 else 3) / p.n
         bnd = _rot_step_bound(p, B)
-        res[B] = {"ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1]}
-        log("rot-sweep", t0, f"STD128_OPT step B={B}: {1e3 * ms:.1f} us, bound {1e3 * bnd[0]:.1f} us "
+        r = res[B if p.name == "STD128_OPT" else f"{p.name} B={B}"] = {
+            "ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1]}
+        log("rot-sweep", t0, f"{p.name} step B={B}: {1e3 * ms:.1f} us, bound {1e3 * bnd[0]:.1f} us "
             f"({bnd[1]}), {bnd[0] / ms:.1%} of the bound")
-        if B in (4, 2048):
+        if split:
             gemm = "rot_gemm" if hasattr(rot, "gemm_config") else "int8_mm_kernel"
             per, _, idle = kernel_timeline(rotate, ("rot_diff_decompose_kernel", gemm), p.n, want=2 * p.n)
             digits, mm = per["rot_diff_decompose_kernel"], per[gemm]
-            res[B].update(digits_ms=digits, gemm_ms=mm, gap_ms=idle)
-            log("rot-sweep", t0, f"B={B} per step (profiler timeline): digits {1e3 * digits:.2f} us, "
+            r.update(digits_ms=digits, gemm_ms=mm, gap_ms=idle)
+            log("rot-sweep", t0, f"{p.name} B={B} per step (profiler timeline): digits {1e3 * digits:.2f} us, "
                 f"GEMM ({gemm}) {1e3 * mm:.2f} us, of which no kernel running {1e3 * idle:.2f} us; "
                 f"events {1e3 * ms:.2f} us")
         del keyT
@@ -1185,6 +1200,7 @@ def phase_rev_kernel():
     cases = [(std8, B) for B in REV_BATCHES]
     cases += [(dataclasses.replace(q, n=n), B) for q, n in ((STD128, 2), (MICRO, 4), (TOY, 3))
               for B in (4, 13, 37)]
+    cases += [(dataclasses.replace(STD128, n=2), B) for B in WIDE_BATCHES]
     err = 0
     for i, (p, B) in enumerate(cases):
         acc, rev_all, a2N = rotation_inputs(p, B, p.n, "rev", seed=400 + i)
@@ -1282,33 +1298,34 @@ def phase_rev_kernel():
 
 
 def phase_rev_sweep():
-    """The rev step by batch size against its bound (a rotation over 16
-    distinct random blocks, 251 MB, so each step reads its block from HBM;
-    CUDA events), and at B = 4 and 2048 the step split into its kernels and
-    the launch gaps (torch.profiler's kernel timeline).  On a package whose
-    rev kernels read the row-major key (the parent's) it times that route."""
+    """The rev step by batch size against its bound (sweep_cases; a
+    rotation over 16 distinct random blocks, so each step reads its block
+    from HBM; CUDA events), and where the case says so the step split into
+    its kernels and the launch gaps (torch.profiler's kernel timeline).  On
+    a package whose rev kernels read the row-major key (the parent's) it
+    times that route."""
     from oece_tpu_torch.fhe import rev
-    from oece_tpu_torch.fhe.params import STD128_OPT
+    from oece_tpu_torch.fhe.params import STD128, STD128_OPT
 
     t0 = time.time()
-    p = dataclasses.replace(STD128_OPT, n=16)
     new = hasattr(rev, "gemm_config")
     names = ("rev_digits_kernel", "rev_gemm") if new else ("decompose_kernel", "int8_mm_kernel", "std_cmux_kernel")
     res = {}
-    for B in (1, 4, 8, 16, 64, 256, 1024, 2048):
-        acc, rev_all, a2N = rotation_inputs(p, B, p.n, "rev", seed=800 + B)
+    for p, B, split in sweep_cases(dataclasses.replace(STD128_OPT, n=16), dataclasses.replace(STD128, n=16)):
+        acc, rev_all, a2N = rotation_inputs(p, B, p.n, "rev", seed=800 + B + 10000 * (p.d_g_used == 4))
         key = card_rev(rev_all)
         del rev_all
         rotate = lambda: rev.blind_rotate_rev(acc, key, a2N, p)  # noqa: E731
         ms = cuda_time_ms(rotate, reps=10 if B < 1024 else 3) / p.n
         bnd = _rev_step_bound(p, B)
-        res[B] = {"ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1]}
-        log("rev-sweep", t0, f"STD128_OPT step B={B}: {1e3 * ms:.1f} us, bound {1e3 * bnd[0]:.1f} us "
+        r = res[B if p.name == "STD128_OPT" else f"{p.name} B={B}"] = {
+            "ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1]}
+        log("rev-sweep", t0, f"{p.name} step B={B}: {1e3 * ms:.1f} us, bound {1e3 * bnd[0]:.1f} us "
             f"({bnd[1]}), {bnd[0] / ms:.1%} of the bound")
-        if B in (4, 2048):
+        if split:
             per, counts, idle = kernel_timeline(rotate, names, p.n, want=(2 if new else 3) * p.n + new)
-            res[B].update(kernels_ms=per, launches=counts, gap_ms=idle)
-            log("rev-sweep", t0, f"B={B} per step (profiler timeline): "
+            r.update(kernels_ms=per, launches=counts, gap_ms=idle)
+            log("rev-sweep", t0, f"{p.name} B={B} per step (profiler timeline): "
                 + ", ".join(f"{k} {1e3 * v:.2f} us ({counts[k]} launches)" for k, v in per.items())
                 + f"; no kernel running {1e3 * idle:.2f} us; events {1e3 * ms:.2f} us")
         del key

@@ -83,8 +83,9 @@
 //       one at rotated positions while it zeroes the other.
 //     rev_gemm_kernel<NB, MW>  (B > 16, NB = 32 .. 256, two math
 //       warpgroups above 256 gates) persistent blocks walk tiles of
-//       (output tile k, MW column chunks, NB gates) and write P in
-//       [0, Q) with the limb combine in the epilogue.
+//       (output tile k, MW column chunks, NB gates), from digits padded
+//       with zero rows to the gate tile, as in rot_step.cu, and write P
+//       in [0, Q) with the limb combine in the epilogue.
 //
 // #8 alone runs the GEMM on the given digits, #9 alone the digits kernel
 // (without a CMUX) and the GEMM; with the split GEMM the sums land in the
@@ -285,6 +286,7 @@ struct Run {
   int B, n, N, R, log_bg, shift, Q;
   cudaStream_t st;
   const int8_t* ext;
+  int dig_rows;  // rows of dig (>= B); from B on zero
 };
 
 // (diagonals per group) of the split GEMM: the 2nt-1 diagonals in at most
@@ -317,8 +319,8 @@ int run(const Run& A, int dpg) {
   const Shape g = rotg::step_shape(A.B, A.N, A.Q, A.R * T, A.polys, NB, MW);
   CUtensorMap dig_map, key_map;
   const bool ring = A.ext != nullptr;
-  if (!rotg::make_maps(A.keyT, ring ? 2 : A.n, 4 * A.polys, A.dig, g, NB, kSplit ? dpg : 0, &dig_map,
-                       &key_map))
+  if (!rotg::make_maps(A.keyT, ring ? 2 : A.n, 4 * A.polys, A.dig, A.dig_rows, g, NB,
+                       kSplit ? dpg : 0, &dig_map, &key_map))
     return (int)cudaErrorInvalidValue;
   static bool smem_set = false;
   cudaError_t e;
@@ -388,14 +390,15 @@ int dispatch(const Run& A) {
 // The whole rotation: n steps of (digits with the previous CMUX, GEMM),
 // then the last CMUX, on acc int32 [B, 2, N] in place.  prod is int32
 // scratch [B, 4, N] (tiled GEMM, B > 16) or [2, B, 4, N] (split GEMM),
-// dig int8 scratch [B, nt*RT], keyT the K-major rev key [n, 16, T,
-// (2nt-1)*RT], a2N int32 [B, n].  Returns 0 or the first cudaError_t of a
-// launch.
+// dig int8 scratch [dig_rows, nt*RT], its rows from B on zero, for the
+// tiled GEMM B rounded up to its gate tile (rev.py: step_digits), keyT
+// the K-major rev key [n, 16, T, (2nt-1)*RT], a2N int32 [B, n].  Returns
+// 0 or the first cudaError_t of a launch.
 extern "C" int oece_blind_rotate_rev(void* acc, void* prod, void* dig, const void* keyT,
-                                     const void* a2N, int B, int n, int N, int d_used, int log_bg,
-                                     int shift, int Q, void* stream) {
+                                     const void* a2N, int B, int dig_rows, int n, int N, int d_used,
+                                     int log_bg, int shift, int Q, void* stream) {
   const revg::Run A{revg::ROTATE, (int*)acc, (int*)prod, (int8_t*)dig, keyT, 4, (const int*)a2N,
-                    B, n, N, 2 * d_used, log_bg, shift, Q, (cudaStream_t)stream, nullptr};
+                    B, n, N, 2 * d_used, log_bg, shift, Q, (cudaStream_t)stream, nullptr, dig_rows};
   return revg::dispatch(A);
 }
 
@@ -404,11 +407,12 @@ extern "C" int oece_blind_rotate_rev(void* acc, void* prod, void* dig, const voi
 // last CMUX, on acc in place; ring int8 scratch [2, 16, T, (2nt-1)*RT],
 // the rest as oece_blind_rotate_rev's.
 extern "C" int oece_blind_rotate_std(void* acc, void* prod, void* dig, void* ring,
-                                     const void* ginx_ext, const void* a2N, int B, int n, int N,
-                                     int d_used, int log_bg, int shift, int Q, void* stream) {
+                                     const void* ginx_ext, const void* a2N, int B, int dig_rows,
+                                     int n, int N, int d_used, int log_bg, int shift, int Q,
+                                     void* stream) {
   const revg::Run A{revg::ROTATE, (int*)acc, (int*)prod, (int8_t*)dig, ring, 4, (const int*)a2N,
                     B, n, N, 2 * d_used, log_bg, shift, Q, (cudaStream_t)stream,
-                    (const int8_t*)ginx_ext};
+                    (const int8_t*)ginx_ext, dig_rows};
   return revg::dispatch(A);
 }
 
@@ -427,16 +431,17 @@ extern "C" int oece_std_build(const void* ext, void* out, int N, int R, void* st
 extern "C" int oece_rev_window_matmul(const void* dig, const void* blockT, void* out, int B, int N,
                                       int R, int polys, int Q, void* stream) {
   const revg::Run A{revg::MATMUL, nullptr, (int*)out, (int8_t*)dig, blockT, polys, nullptr,
-                    B, 1, N, R, 0, 0, Q, (cudaStream_t)stream, nullptr};
+                    B, 1, N, R, 0, 0, Q, (cudaStream_t)stream, nullptr, B};
   return revg::dispatch(A);
 }
 
 // #9 alone: the gadget digits of acc int32 [B, 2, N] into scratch dig
-// [B, nt*RT], then #8 against blockT into out.
+// [dig_rows, nt*RT] (as oece_blind_rotate_rev's), then #8 against blockT
+// into out.
 extern "C" int oece_rev_matmul_dec(const void* acc, void* dig, const void* blockT, void* out,
-                                   int B, int N, int d_used, int log_bg, int shift, int polys,
-                                   int Q, void* stream) {
+                                   int B, int dig_rows, int N, int d_used, int log_bg, int shift,
+                                   int polys, int Q, void* stream) {
   const revg::Run A{revg::MATMUL_DEC, (int*)acc, (int*)out, (int8_t*)dig, blockT, polys, nullptr,
-                    B, 1, N, 2 * d_used, log_bg, shift, Q, (cudaStream_t)stream, nullptr};
+                    B, 1, N, 2 * d_used, log_bg, shift, Q, (cudaStream_t)stream, nullptr, dig_rows};
   return revg::dispatch(A);
 }

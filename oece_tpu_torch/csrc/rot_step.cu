@@ -30,8 +30,12 @@
 //   rot_gemm_kernel<NB, MW>    (B > 16) persistent blocks walk tiles of
 //       (output tile k, MW column chunks, NB gates), NB = 32 .. 256 from B;
 //       at B = 2048 two math warpgroups share each 256-gate digit tile, the
-//       shape of wgmma_mm.cuh's GEMM for #3.  One thread of warpgroup 0
-//       issues the boxes into a ring of mbarrier stages; the math
+//       shape of wgmma_mm.cuh's GEMM for #3.  The digits are read from
+//       scratch whose rows run to the last gate tile's end, zeros from B
+//       on: where the TMA unit filled rows past the end of the map with
+//       zeros itself, at ~3.4 ns a row and block, a 132-gate STD128 step's
+//       GEMM took twice the 256-gate one's (PERF.md §5).  One thread of
+//       warpgroup 0 issues the boxes into a ring of mbarrier stages; the math
 //       warpgroups run wgmma.m64nNBk32.s32.s8.s8, 4 per stage, stage the
 //       [64 columns x NB gates] sums through shared memory and write acc_out
 //       = red31(acc_in + comb), the Horner combine of the 4 limbs mod Q,
@@ -66,11 +70,19 @@
 // bound).  The contraction is exact in int32: |sum| <= K * 128 * 128 =
 // 2**27.
 //
-// Left on the table: fusing the digits into the GEMM (one launch per
-// step), a CUDA graph of the step loop, keeping the accumulator resident
-// across steps in a persistent kernel, overlapping the tiled GEMM's
-// epilogue with the next tile's MMAs, and gathering the key tiles from
-// the compact key instead of the 7.9 GB prebuilt one.
+// Left on the table: fitting the tiled GEMM's NB to B in steps of 32 (132
+// gates pay for 256 in the MMAs: a 128-tile STD128 step of 256 gates reads
+// ~50 us against 36 us of MMAs at the int8 peak), reusing key tiles across
+// output tiles (tile k at chunk c reads what tile k+1 reads at chunk c +
+// 2RT/128), thread-block clusters that multicast each stage's digit tile
+// to blocks of one gate tile (with the padded scratch they paid only where
+// two warpgroups stream a 4,096-gate step through several rounds, 687
+// against 825 us, ~1% of the multiplier; one warpgroup stalled on its
+// peers' stages, 63 against 50 us), fusing the digits into the GEMM (one
+// launch per step), a CUDA graph of the step loop, keeping the
+// accumulator resident across steps in a persistent kernel, overlapping
+// the tiled GEMM's epilogue with the next tile's MMAs, and gathering the
+// key tiles from the compact key instead of the 7.9 GB prebuilt one.
 
 #include <algorithm>
 
@@ -154,7 +166,7 @@ __global__ void rot_finalize_kernel(const int* __restrict__ acc, const int* __re
 namespace rotg {
 
 // One step of the rotation at key step `step`: acc_in int32 [B, 2, N] ->
-// acc_out = red31(acc_in + products), from the digits (dig_map, [B, K])
+// acc_out = red31(acc_in + products), from the digits (dig_map, [rows, K])
 // and the K-major key (key_map, [n, 8T, row_bytes]); step_gemm.cuh's
 // gemm_tiled.
 template <int NB, int MW>
@@ -180,12 +192,16 @@ __global__ void __launch_bounds__(256, 1) rot_gemm_split_kernel(
 
 // The arguments of a step loop: steps 0 .. n-1 over the key's first n
 // steps (key_steps in all), amounts as in rot_diff_decompose_kernel, dig
-// int8 scratch [B, K], sums int32 scratch [2, B, 2, N] (the split GEMM's).
+// int8 scratch [dig_rows, K] (dig_rows >= B; the digits kernel writes rows
+// below B, the rest stay as they are: zeros, which the tiled GEMM's boxes
+// read up to its last tile's end), sums int32 scratch [2, B, 2, N] (the
+// split GEMM's).
 // Step i reads the accumulator in bufs[i%2]; the result ends in
 // bufs[n%2].
 struct Loop {
   int* bufs[2];
   int8_t* dig;
+  int dig_rows;
   int* sums;
   const void* keyT;
   int key_steps;
@@ -202,7 +218,7 @@ Shape shape_of(const Loop& L, int NB, int MW) {
 
 bool maps_of(const Loop& L, const Shape& g, int NB, int dpg, CUtensorMap* dig_map,
              CUtensorMap* key_map) {
-  return make_maps(L.keyT, L.key_steps, 8, L.dig, g, NB, dpg, dig_map, key_map);
+  return make_maps(L.keyT, L.key_steps, 8, L.dig, L.dig_rows, g, NB, dpg, dig_map, key_map);
 }
 
 cudaError_t digits(const Loop& L, int i, const int* acc, const int* sum_in, int* acc_new,
@@ -282,14 +298,15 @@ int dispatch(const Loop& L) {
 
 // The whole rotation: n steps of (digits, GEMM).  acc0 holds the initial
 // accumulator; the result is in buffer n%2 of (acc0, acc1).  dig is int8
-// scratch [B, K], sums int32 scratch [2, B, 2, N] (used up to 16 gates);
-// keyT the K-major rev2 key [n, 8T, (2nt-1)*2RT].  Returns 0 or the first
-// cudaError_t of a launch.
+// scratch [dig_rows, K], its rows from B on zero, for the tiled GEMM B
+// rounded up to its gate tile (rot.py: digit_scratch); sums int32 scratch
+// [2, B, 2, N] (used up to 16 gates); keyT the K-major rev2 key [n, 8T,
+// (2nt-1)*2RT].  Returns 0 or the first cudaError_t of a launch.
 extern "C" int oece_blind_rotate_rot(void* acc0, void* acc1, void* dig, void* sums,
-                                     const void* keyT, const void* a2N, int B,
+                                     const void* keyT, const void* a2N, int B, int dig_rows,
                                      int n, int N, int d_used, int log_bg,
                                      int shift, int Q, void* stream) {
-  const rotg::Loop L{{(int*)acc0, (int*)acc1}, (int8_t*)dig, (int*)sums, keyT, n,
+  const rotg::Loop L{{(int*)acc0, (int*)acc1}, (int8_t*)dig, dig_rows, (int*)sums, keyT, n,
                      (const int*)a2N, n, 0, B, n, N, d_used, log_bg, shift, Q,
                      (cudaStream_t)stream};
   return rotg::dispatch(L);
@@ -300,10 +317,10 @@ extern "C" int oece_blind_rotate_rot(void* acc0, void* acc1, void* dig, void* su
 // read the old accumulator while others write the new one).  keyT_i is
 // the step's K-major block [8T, (2nt-1)*2RT]; dig and sums as above.
 extern "C" int oece_rot_step(const void* acc, void* out, void* dig, void* sums,
-                             const void* keyT_i, const void* amt, int B,
+                             const void* keyT_i, const void* amt, int B, int dig_rows,
                              int N, int d_used, int log_bg, int shift, int Q,
                              void* stream) {
-  const rotg::Loop L{{(int*)acc, (int*)out}, (int8_t*)dig, (int*)sums, keyT_i, 1,
+  const rotg::Loop L{{(int*)acc, (int*)out}, (int8_t*)dig, dig_rows, (int*)sums, keyT_i, 1,
                      (const int*)amt, 0, 1, B, 1, N, d_used, log_bg, shift, Q,
                      (cudaStream_t)stream};
   return rotg::dispatch(L);

@@ -418,11 +418,12 @@ inline int split_smem(int NB, int sub, int dpg) {
 
 // The TMA maps of a step GEMM: the key keyT as [steps, planes, T,
 // row_bytes], boxes of 4 planes x 16 coefficients x 128 bytes; the digits
-// dig as [B, K] with boxes of NB gates x 128 bytes (dpg = 0, the tiled
-// GEMM), or for the split GEMM as [SUB substages, nt chunks j, B, 128
-// bytes] (strides 128, R2T, K) with boxes of dpg+7 chunks x NB gates.
-inline bool make_maps(const void* keyT, int key_steps, int planes, const void* dig, const Shape& g,
-                      int NB, int dpg, CUtensorMap* dig_map, CUtensorMap* key_map) {
+// dig as [dig_rows, K] with boxes of NB gates x 128 bytes (dpg = 0, the
+// tiled GEMM: dig_rows runs to the last gate tile's end), or for the split
+// GEMM as [SUB substages, nt chunks j, B, 128 bytes] (strides 128, R2T, K)
+// with boxes of dpg+7 chunks x NB gates.
+inline bool make_maps(const void* keyT, int key_steps, int planes, const void* dig, int dig_rows,
+                      const Shape& g, int NB, int dpg, CUtensorMap* dig_map, CUtensorMap* key_map) {
   const long long K = (long long)g.chunks * wgmm::BK, BK = wgmm::BK;
   const long long kdims[4] = {g.row_bytes, T, planes, key_steps};
   const long long kstrides[3] = {g.row_bytes, (long long)T * g.row_bytes,
@@ -433,7 +434,7 @@ inline bool make_maps(const void* keyT, int key_steps, int planes, const void* d
   const int sbox[4] = {wgmm::BK, NB, dpg + 7, 1};
   return wgmm::make_map_nd(key_map, keyT, 4, kdims, kstrides, kbox) &&
          (dpg ? wgmm::make_map_nd(dig_map, dig, 4, sdims, sstrides, sbox)
-              : wgmm::make_map(dig_map, dig, g.B, K, NB));
+              : wgmm::make_map(dig_map, dig, dig_rows, K, NB));
 }
 
 // A step GEMM's geometry for B gates, N, R2T contraction bytes per

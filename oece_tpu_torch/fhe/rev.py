@@ -29,9 +29,10 @@ csrc/rev_step.cu, two kernels per step, the digits (with the previous
 step's CMUX) and a TMA + wgmma GEMM with 64 key columns on wgmma's M and
 the gates on its N (``gemm_config``): up to 16 gates a split GEMM that
 reads each key tile once and adds partial sums by atomics, above 16 a
-tiled one that writes the products mod Q.  ``gemm_config``,
-``split_groups`` and ``gemm_tiles`` repeat the kernels' tiling for the
-CPU layout tests; the TMA boxes start where rot.py's
+tiled one that reads its digits from scratch padded to the gate tile
+(``step_digits``, rot.py's) and writes the products mod Q.
+``gemm_config``, ``split_groups`` and ``gemm_tiles`` repeat the kernels'
+tiling for the CPU layout tests; the TMA boxes start where rot.py's
 ``key_box_origin`` and ``split_digit_box`` say, with RT contraction
 bytes per diagonal instead of 2RT.  ``window_matmul_counted`` (#2: #8's
 function on a row-major block, for fhe/negacyclic.py) runs the same
@@ -57,8 +58,8 @@ from . import _build, keys
 from .keys import TILE
 from .modmath import red31
 from .params import BinFHEParams
-from .rot import (GEMM_CHUNK, SMEM_MAX, amount_pairs, check_operands, monomial_rotate, split_smem,
-                  tile_digits, tile_products)
+from .rot import (GEMM_CHUNK, SMEM_MAX, amount_pairs, check_operands, digit_scratch,
+                  monomial_rotate, split_smem, tile_digits, tile_products)
 
 LAUNCHES = 0  # wrapper calls that launched CUDA kernels
 PLAIN_LAUNCHES = 0  # wrapper calls that ran a plain twin
@@ -262,9 +263,9 @@ def window_matmul_dec_true(acc: torch.Tensor, rev_flat: torch.Tensor, p: BinFHEP
     if B == 0:
         return out
     lib = _build.load()
-    dig = torch.empty((B, nt * R * TILE), dtype=torch.int8, device=acc.device)
+    dig = step_digits(B, N, p.d_g_used, acc.device, M // 4)
     rc = lib.oece_rev_matmul_dec(
-        acc.data_ptr(), dig.data_ptr(), rev_flat.data_ptr(), out.data_ptr(), B, N,
+        acc.data_ptr(), dig.data_ptr(), rev_flat.data_ptr(), out.data_ptr(), B, dig.shape[0], N,
         p.d_g_used, int(math.log2(p.B_g)), p.g_shift, M // 4, p.Q, _stream(out),
     )
     _rev_launch(name, rc, lib)
@@ -345,6 +346,13 @@ def gemm_tiles(B: int, N: int, d_used: int, polys: int = 4) -> list[tuple[int, i
             for gt in range(-(-B // NB))]
 
 
+def step_digits(B: int, N: int, d_used: int, device, polys: int = 4) -> torch.Tensor:
+    """The digit scratch of the rev step GEMM for B gates (rot.py's
+    ``digit_scratch``): int8 [rows, nt*RT]."""
+    NB, _, split = gemm_config(B, N, d_used, polys)
+    return digit_scratch(B, N // TILE * 2 * d_used * TILE, NB, split, device)
+
+
 def _check(acc, rev_all, a2N, p: BinFHEParams) -> None:
     """rev_all is [n, rows, 16T] on the CPU, K-major [n, 16, T, rows] on
     the card, where a row-major key is refused."""
@@ -374,11 +382,11 @@ def _blind_rotate_rev_cuda(acc, rev_all, a2N, p: BinFHEParams) -> torch.Tensor:
         return out
     lib = _build.load()
     split = gemm_config(B, N, p.d_g_used)[2]
-    dig = torch.empty((B, N // TILE * 2 * p.d_g_used * TILE), dtype=torch.int8, device=acc.device)
+    dig = step_digits(B, N, p.d_g_used, acc.device)
     prod = torch.empty((2, B, 4, N) if split else (B, 4, N), dtype=torch.int32, device=acc.device)
     rc = lib.oece_blind_rotate_rev(
         out.data_ptr(), prod.data_ptr(), dig.data_ptr(), rev_all.data_ptr(), a2N.data_ptr(),
-        B, n, N, p.d_g_used, int(math.log2(p.B_g)), p.g_shift, p.Q, _stream(out),
+        B, dig.shape[0], n, N, p.d_g_used, int(math.log2(p.B_g)), p.g_shift, p.Q, _stream(out),
     )
     _rev_launch("blind_rotate_rev", rc, lib)
     STEP_LAUNCHES += n

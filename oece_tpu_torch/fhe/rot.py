@@ -17,11 +17,12 @@ refused, not transposed per call.  Each step is two kernels: the digits
 of both rotated differences (``rot_diff_digits``), then a TMA + wgmma GEMM
 with 64 key columns (the 4 limbs of 16 coefficients) on wgmma's M and the
 gates on its N (``gemm_config``).  Above 16 gates the tiled GEMM (32-256
-gates per tile) takes the limb combine and the ``red31`` add in its
-epilogue; up to 16 gates the split GEMM reads each key tile once per step
-for all output tiles and adds combined partial sums into a scratch sum,
-which the next step's digits kernel (or, after the last step, a finalize
-kernel) adds to the accumulator.  ``gemm_config``, ``split_groups``,
+gates per tile) reads the digits from scratch padded with zero rows to
+its gate tile (``digit_scratch``) and takes the limb combine and the
+``red31`` add in its epilogue; up to 16 gates the split GEMM reads each
+key tile once per step for all output tiles and adds combined partial
+sums into a scratch sum, which the next step's digits kernel (or, after
+the last step, a finalize kernel) adds to the accumulator.  ``gemm_config``, ``split_groups``,
 ``split_digit_box``, ``gemm_tiles`` and ``key_box_origin`` repeat the
 kernels' tiling for the CPU layout tests.
 
@@ -293,13 +294,29 @@ def _check(acc, rev2, amounts, p: BinFHEParams, name="blind_rotate_rot", one_ste
         )
 
 
+def digit_scratch(B: int, K: int, NB: int, split: bool, device) -> torch.Tensor:
+    """A step loop's digit scratch int8 [rows, K]: B rows for the split
+    GEMM; for the tiled one B rounded up to its gate tile of NB gates, the
+    rows from B on zero (the digits kernel writes the others), so that its
+    digit boxes read zeros from memory where the TMA unit would fill rows
+    past the end of the map with zeros itself, at ~3.4 ns a row and block
+    (a 132-gate STD128 step's GEMM took twice the 256-gate one's; PERF.md,
+    section 5)."""
+    rows = B if split else -(-B // NB) * NB
+    dig = torch.empty((rows, K), dtype=torch.int8, device=device)
+    if rows > B:
+        dig[B:].zero_()
+    return dig
+
+
 def _scratch(acc, p: BinFHEParams):
-    """The step loop's scratch: the digits int8 [B, K] and the split GEMM's
-    two sums of products int32 [2, B, 2, N] (empty for the tiled GEMM)."""
+    """The step loop's scratch: the digits (``digit_scratch``) and the
+    split GEMM's two sums of products int32 [2, B, 2, N] (empty for the
+    tiled GEMM)."""
     B, _, N = acc.shape
     K = N // TILE * 2 * 2 * p.d_g_used * TILE
-    split = gemm_config(B, N, p.d_g_used)[2]
-    dig = torch.empty((B, K), dtype=torch.int8, device=acc.device)
+    NB, _, split = gemm_config(B, N, p.d_g_used)
+    dig = digit_scratch(B, K, NB, split, acc.device)
     sums = torch.empty((2, B, 2, N) if split else (0,), dtype=torch.int32, device=acc.device)
     return dig, sums
 
@@ -316,7 +333,7 @@ def _blind_rotate_rot_cuda(acc, rev2_all, a2N, p: BinFHEParams) -> torch.Tensor:
     stream = torch.cuda.current_stream(acc.device).cuda_stream
     rc = lib.oece_blind_rotate_rot(
         bufs[0].data_ptr(), bufs[1].data_ptr(), dig.data_ptr(), sums.data_ptr(),
-        rev2_all.data_ptr(), a2N.data_ptr(), B, n, N, p.d_g_used,
+        rev2_all.data_ptr(), a2N.data_ptr(), B, dig.shape[0], n, N, p.d_g_used,
         int(math.log2(p.B_g)), p.g_shift, p.Q, stream,
     )
     if rc != 0:
@@ -359,7 +376,7 @@ def _rot_step_cuda(acc, rev2_i, amt, p: BinFHEParams, out) -> torch.Tensor:
     dig, sums = _scratch(acc, p)
     rc = lib.oece_rot_step(
         acc.data_ptr(), out.data_ptr(), dig.data_ptr(), sums.data_ptr(), rev2_i.data_ptr(), amt.data_ptr(),
-        B, N, p.d_g_used, int(math.log2(p.B_g)), p.g_shift, p.Q,
+        B, dig.shape[0], N, p.d_g_used, int(math.log2(p.B_g)), p.g_shift, p.Q,
         torch.cuda.current_stream(acc.device).cuda_stream,
     )
     if rc != 0:

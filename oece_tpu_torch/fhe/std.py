@@ -185,12 +185,13 @@ def _blind_rotate_std_cuda(acc, ginx_ext, a2N, p: BinFHEParams) -> torch.Tensor:
     lib = _build.load()
     nt, RT = N // TILE, 2 * p.d_g_used * TILE
     split = rev.gemm_config(B, N, p.d_g_used)[2]
-    dig = torch.empty((B, nt * RT), dtype=torch.int8, device=acc.device)
+    dig = rev.step_digits(B, N, p.d_g_used, acc.device)
     prod = torch.empty((2, B, 4, N) if split else (B, 4, N), dtype=torch.int32, device=acc.device)
     ring = torch.empty((2, 16, TILE, (2 * nt - 1) * RT), dtype=torch.int8, device=acc.device)
     rc = lib.oece_blind_rotate_std(
         out.data_ptr(), prod.data_ptr(), dig.data_ptr(), ring.data_ptr(), ginx_ext.data_ptr(),
-        a2N.data_ptr(), B, n, N, p.d_g_used, int(math.log2(p.B_g)), p.g_shift, p.Q, rev._stream(out),
+        a2N.data_ptr(), B, dig.shape[0], n, N, p.d_g_used, int(math.log2(p.B_g)), p.g_shift, p.Q,
+        rev._stream(out),
     )
     if rc != 0:
         raise RuntimeError(f"rev_step.cu launch failed: {lib.oece_error_string(rc).decode()}")

@@ -22,11 +22,13 @@ choices.  Here:
   * the boxes at their origins rebuild every A tile of every stage from
     the K-major key (STD128_OPT widths with n=2, MICRO, TOY);
   * the digits times those tiles, summed stage by stage over NB-gate tiles
-    padded with zero rows as the TMA unit pads them (digit chunks outside
-    the key's range read as zeros), combined through the epilogue's
-    (limb, coefficient) rows, equal ``rev.window_matmul_true_plain`` (#8,
-    M = 16 and 8) and ``rev.window_matmul_dec_true_plain`` (#9), and, with
-    the digits kernel's CMUX applying each step's products (the split
+    padded with zero rows (the tiled GEMM's from the digit scratch,
+    ``rev.step_digits``, the split GEMM's as the TMA unit pads them; digit
+    chunks outside the key's range read as zeros), combined through the
+    epilogue's (limb, coefficient) rows, equal
+    ``rev.window_matmul_true_plain`` (#8, M = 16 and 8) and
+    ``rev.window_matmul_dec_true_plain`` (#9), and, with the digits
+    kernel's CMUX applying each step's products (the split
     GEMM's sums reduced mod Q on read) before the next step's digits,
     ``rev.rev_step_plain`` and ``rev.blind_rotate_rev_plain`` (ragged B
     with 16 and 17, a=0 lanes, both GEMMs).
@@ -177,10 +179,11 @@ def _combine(d, Q):
 
 def _gemm_by_tiles(dig, keyT_i, R, Q):
     """The step GEMM as rev_step.cu computes it, on digits int8 [B, K] and
-    one step's K-major block [4*polys, T, rows]: gates padded to the
-    NB-gate tile with zero rows as the TMA unit pads them, A tiles from the
-    key's boxes, sums of A_c x dig_c^T stage by stage (float64, exact:
-    |sum| <= 2**26), each coefficient t of a 16-coefficient chunk combining
+    one step's K-major block [4*polys, T, rows], the digits in the step's
+    digit scratch (``rev.step_digits``): gates padded to the NB-gate tile
+    with zero rows (the tiled GEMM's from the scratch, the split GEMM's as
+    the TMA unit pads them), A tiles from the key's boxes, sums of A_c x
+    dig_c^T stage by stage (float64, exact: |sum| <= 2**26), each coefficient t of a 16-coefficient chunk combining
     rows 16l + t (l = 0..3) mod Q.  Returns (out int [B, polys, N], split):
     the tiled GEMM's products in [0, Q), or the split GEMM's sums of one
     partial product per diagonal group (each in [0, Q))."""
@@ -190,8 +193,10 @@ def _gemm_by_tiles(dig, keyT_i, R, Q):
     nt = K // RT
     N, sub = nt * T, RT // BK
     NB, MW, split = rev.gemm_config(B, N, R // 2, polys)
+    scratch = rev.step_digits(B, N, R // 2, dig.device, polys)
+    scratch[:B] = dig
     padded = torch.zeros((-(-B // NB) * NB, K), dtype=torch.float64)
-    padded[:B] = dig.double()
+    padded[:scratch.shape[0]] = scratch.double()
     chunk = lambda q, rows: rows[:, q * BK:(q + 1) * BK]  # noqa: E731
     out = torch.zeros((B, polys, N), dtype=torch.int64)
     if split:  # per block (group, cc): one [64 x 8NB] product per stage, k = column // NB

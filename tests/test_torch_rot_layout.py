@@ -6,11 +6,13 @@ On the card rev2 is K-major, [n, 8, T, (2nt-1)*2RT], each step's block
 transposed (keys.py); the GEMMs read it by TMA boxes of 4 planes (the
 limbs of one output poly) x 16 coefficients x 128 contraction bytes.  The
 tiled GEMM (B > 16) takes one per stage of an output tile for each math
-warpgroup and the digits by boxes of NB gates; the split GEMM (B <= 16)
-one per stage of a diagonal, all output tiles at once against digit tiles
-it keeps in shared memory, and adds partial sums.  ``rot.gemm_config``,
-``rot.split_groups``, ``rot.split_digit_box``, ``rot.gemm_tiles`` and
-``rot.key_box_origin`` repeat the kernels' choices.  Here:
+warpgroup and the digits by boxes of NB gates, from scratch whose rows
+run to the last gate tile's end, zero from B on (``rot.digit_scratch``);
+the split GEMM (B <= 16) one per stage of a diagonal, all output tiles at
+once against digit tiles it keeps in shared memory, and adds partial sums.
+``rot.gemm_config``, ``rot.split_groups``, ``rot.split_digit_box``,
+``rot.gemm_tiles`` and ``rot.key_box_origin`` repeat the kernels'
+choices.  Here:
 
   * the K-major conversion (``keys.rev2_to``) and the K-major step blocks
     that ``build_rev2`` writes on the card equal each step's block
@@ -18,9 +20,12 @@ it keeps in shared memory, and adds partial sums.  ``rot.gemm_config``,
     convert back;
   * the boxes at their origins rebuild every A tile of every stage from
     the K-major key (STD128_OPT widths with n=2, MICRO_A, TOY);
+  * the tiled GEMM's walk covers every tile once, and its digit boxes lie
+    inside the padded scratch (STD128 and STD128_OPT, B = 17 ... 4096);
   * the digits times those tiles, summed stage by stage over NB-gate tiles
-    padded with zero rows as the TMA unit pads them (and digit chunks
-    outside the key's range read as zeros), then combined through the
+    padded with zero rows (the tiled GEMM's from the digit scratch, the
+    split GEMM's as the TMA unit pads them; digit chunks outside the key's
+    range read as zeros), then combined through the
     epilogue's (limb, coefficient) rows, equal ``rot.rot_step_plain`` and
     ``rot.blind_rotate_rot_plain`` (ragged B, a=0 lanes, both GEMMs).
 
@@ -36,7 +41,7 @@ import torch
 
 from oece_tpu.fhe import devkeygen as jdevkeygen
 from oece_tpu_torch.fhe import keys, modmath, rot
-from oece_tpu_torch.fhe.params import MICRO_A, STD128_OPT, TOY
+from oece_tpu_torch.fhe.params import MICRO_A, STD128, STD128_OPT, TOY
 from test_torch_copies import jax_params
 from test_torch_std import one_torch_thread  # noqa: F401
 
@@ -145,6 +150,47 @@ def test_gemm_config_picks_the_narrowest_tile():
     assert rot.split_groups(128) == (1, 1)
 
 
+def test_digit_scratch_runs_to_the_gate_tile_in_zeros():
+    """The step loop's digit scratch: B rows for the split GEMM; for the
+    tiled one, rows to the last gate tile's end, the rows from B on zero,
+    which the digits kernel never writes."""
+    p = STD128
+    K = p.N // T * 4 * p.d_g_used * T
+    for B in (4, 9, 17, 132, 256, 257, 4096):
+        NB, _, split = rot.gemm_config(B, p.N, p.d_g_used)
+        acc = torch.zeros((B, 2, p.N), dtype=torch.int32)
+        dig, sums = rot._scratch(acc, p)
+        assert dig.shape == ((B if split else -(-B // NB) * NB), K) and dig.dtype == torch.int8
+        assert not dig[B:].any()
+        assert sums.shape == ((2, B, 2, p.N) if split else (0,))
+
+
+WIDE = (17, 33, 65, 129, 132, 200, 256, 257, 1000, 4096)
+
+
+@pytest.mark.parametrize("p", [STD128, STD128_OPT], ids=_id)
+@pytest.mark.parametrize("B", WIDE)
+def test_tile_walk_covers_every_tile_once_inside_the_digit_scratch(p, B):
+    """The tiled GEMM's persistent blocks (one per SM, any number of them)
+    take every (gate tile, output tile, column tile) once, gate tile
+    fastest, and each tile's digit box of NB gates lies inside the digit
+    scratch, whose rows past B are zeros: no box reads past the map's
+    end."""
+    N, d = p.N, p.d_g_used
+    NB, MW, split = rot.gemm_config(B, N, d)
+    assert not split
+    nt, col_tiles, gate_tiles = N // T, 2 * (T // rot.GEMM_CHUNK) // MW, -(-B // NB)
+    tiles = rot.gemm_tiles(B, N, d)
+    assert sorted(tiles) == [(gt, k, ct) for gt in range(gate_tiles) for k in range(nt)
+                             for ct in range(col_tiles)]
+    assert [gt for gt, _, _ in tiles] == [i % gate_tiles for i in range(len(tiles))]
+    for grid in (1, 7, 66, 132):  # block b takes tiles b, b + grid, ...
+        walked = [tiles[i] for b in range(min(grid, len(tiles))) for i in range(b, len(tiles), grid)]
+        assert sorted(walked) == sorted(tiles)
+    dig = rot._scratch(torch.zeros((B, 2, N), dtype=torch.int32), p)[0]
+    assert dig.shape[0] == gate_tiles * NB and not dig[B:].any()
+
+
 def _combine(d, p):
     """[64 key columns x NB gates] limb sums -> their combine mod Q, [NB
     gates, 16 coefficients]: coefficient t combines rows 16l + t."""
@@ -154,9 +200,10 @@ def _combine(d, p):
 
 def _step_by_tiles(acc, keyT_i, amt, p):
     """One step as rot_step.cu computes it: the digits of both rotated
-    differences (the digits kernel's twin), gates padded to the NB-gate
-    tile with zero rows as the TMA unit pads them, A tiles from the key's
-    boxes, sums of A_c x dig_c^T stage by stage (float64, exact: |sum| <=
+    differences (the digits kernel's twin) in the step's digit scratch
+    (``rot.digit_scratch``), gates padded to the NB-gate tile with zero
+    rows (the tiled GEMM's from the scratch, the split GEMM's as the TMA
+    unit pads them), A tiles from the key's boxes, sums of A_c x dig_c^T stage by stage (float64, exact: |sum| <=
     2**27), each coefficient t of a 16-coefficient chunk combining rows
     16l + t (l = 0..3) mod Q.  The tiled GEMM adds the combined tile to the
     old accumulator with red31; the split GEMM stores one partial sum per
@@ -166,10 +213,11 @@ def _step_by_tiles(acc, keyT_i, amt, p):
     nt, R2T = N // T, 4 * p.d_g_used * T
     sub = R2T // rot.GEMM_BK
     NB, MW, split = rot.gemm_config(B, N, p.d_g_used)
-    dig = rot.rot_diff_digits(acc, amt, p)
+    dig = rot.digit_scratch(B, nt * R2T, NB, split, acc.device)
+    dig[:B] = rot.rot_diff_digits(acc, amt, p)
     gates = -(-B // NB) * NB
     padded = torch.zeros((gates, nt * R2T), dtype=torch.float64)
-    padded[:B] = dig.double()
+    padded[:dig.shape[0]] = dig.double()
     chunk = lambda q, rows: rows[:, q * rot.GEMM_BK:(q + 1) * rot.GEMM_BK]  # noqa: E731
     if split:  # per block (group, cc): one [64 x 8NB] product per stage, k = column // NB
         dpg, groups = rot.split_groups(N)
