@@ -294,6 +294,12 @@ def _check(acc, rev2, amounts, p: BinFHEParams, name="blind_rotate_rot", one_ste
         )
 
 
+def gemm_rows(B: int, NB: int, split: bool) -> int:
+    """The gate rows the step GEMM computes for B gates: B for the split
+    GEMM, B rounded up to the tiled GEMM's gate tile of NB gates."""
+    return B if split else -(-B // NB) * NB
+
+
 def digit_scratch(B: int, K: int, NB: int, split: bool, device) -> torch.Tensor:
     """A step loop's digit scratch int8 [rows, K]: B rows for the split
     GEMM; for the tiled one B rounded up to its gate tile of NB gates, the
@@ -302,7 +308,7 @@ def digit_scratch(B: int, K: int, NB: int, split: bool, device) -> torch.Tensor:
     past the end of the map with zeros itself, at ~3.4 ns a row and block
     (a 132-gate STD128 step's GEMM took twice the 256-gate one's; PERF.md,
     section 5)."""
-    rows = B if split else -(-B // NB) * NB
+    rows = gemm_rows(B, NB, split)
     dig = torch.empty((rows, K), dtype=torch.int8, device=device)
     if rows > B:
         dig[B:].zero_()

@@ -73,7 +73,8 @@ counters in each request's ``trace`` (utils/trace.py): ``set_input``, then
 under ``clock`` each ``level`` (``level.host``, per gate group
 ``group.gather``, the gate batches' ``boot`` spans, ``group.check``,
 ``group.scatter``, then ``level.linear`` and ``level.sync``) and
-``collect``, with the host waits counted where they happen.
+``collect``, with the host waits counted where they happen and the linear
+runs and gates (``linear_runs``, ``linear_gates``) in ``level.linear``.
 """
 
 from __future__ import annotations
@@ -116,6 +117,28 @@ _N_OPS = max(int(o) for o in Op) + 1  # device repair accumulators' op axis
 # Lanes per device call; bootstraps are independent per lane, so chunking
 # changes no value.
 MAX_LANES = 4096
+
+_NO_READ = (int(Op.EQ0), int(Op.EQ1))
+
+
+def linear_runs(level: dict, slot: np.ndarray) -> list:
+    """A level's linear gates, in its rank order, as (op, input slots,
+    output slots) runs that each run as one gather and one scatter: a run
+    holds gates of one op and ends before a gate that reads a slot the run
+    writes (a NOT or EQW of a chain inside the level, such as NOT(NOT(x))),
+    which must see that write."""
+    lops, lin0, lout = level["lin_op"], level["lin_in0"], level["lin_out"]
+    s_in, s_out = slot[lin0], slot[lout]
+    runs, k, G = [], 0, len(lops)
+    while k < G:
+        o, written = int(lops[k]), {int(s_out[k])}
+        j = k + 1
+        while j < G and int(lops[j]) == o and (o in _NO_READ or int(s_in[j]) not in written):
+            written.add(int(s_out[j]))
+            j += 1
+        runs.append((o, s_in[k:j], s_out[k:j]))
+        k = j
+    return runs
 
 
 def _check_mesh(mesh) -> None:
@@ -529,6 +552,9 @@ class Circuit:
             for grp in groups:
                 self._run_group(grp)
             with span("level.linear"):
+                if segments:
+                    count("linear_runs", len(segments))
+                    count("linear_gates", len(level["lin_op"]))
                 self._run_linear_encrypted(segments)
             if self.device.type == "cuda":
                 with span("level.sync"):
@@ -544,7 +570,7 @@ class Circuit:
         device index tensors each needs, uploaded once per netlist: a
         group is the level's bootstrap gates, or under compound XOR its
         XOR/XNOR subset (run first) and the rest; a linear run is a run of
-        one op, whose inputs rank order makes final."""
+        one op in the level's rank order (``linear_runs``)."""
         if self._index is not None:
             return self._index
         parts: List[np.ndarray] = []
@@ -573,15 +599,7 @@ class Circuit:
                     wo=put(outw[m]), gids=put(gids), opsv=put(ops[m]),
                     xnor=put(ops[m] == int(Op.XNOR)),
                 ))
-            segments = []
-            lops, lin0, lout = level["lin_op"], level["lin_in0"], level["lin_out"]
-            k, G = 0, len(lops)
-            while k < G:
-                j = k + 1
-                while j < G and int(lops[j]) == int(lops[k]):
-                    j += 1
-                segments.append((int(lops[k]), put(slot[lin0[k:j]]), put(slot[lout[k:j]])))
-                k = j
+            segments = [(o, put(s_in), put(s_out)) for o, s_in, s_out in linear_runs(level, slot)]
             index.append((groups, segments))
         flat = torch.from_numpy(np.concatenate(parts) if parts else np.zeros(0, np.int64))
         views = torch.split(flat.to(self.device), [len(a) for a in parts])

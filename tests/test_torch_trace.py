@@ -2,8 +2,9 @@
 the CPU at MICRO, GINX and binary-base AP: spans nest under their parents
 with the Clock's id, every level has its phase spans, the rotation counts
 match the gates and, for AP, the select bits of each rotation's own a2N
-(``fhe_bench.spans.ap_live``); with tracing off a Clock makes no span, no
-CUDA event and no profiler range."""
+(``fhe_bench.spans.ap_live``), GINX's step GEMM rows (``padded_lanes``)
+and the linear runs and gates match the plan; with tracing off a Clock
+makes no span, no CUDA event and no profiler range."""
 
 import dataclasses
 
@@ -13,10 +14,11 @@ import torch
 
 from fhe_bench.spans import ap_live
 from oece_tpu_torch.circuits.gen import gen_adder
-from oece_tpu_torch.fhe import boot
+from oece_tpu_torch.fhe import boot, rot
 from oece_tpu_torch.fhe.params import MICRO, MICRO_A
-from oece_tpu_torch.runtime.evaluator import Circuit
+from oece_tpu_torch.runtime.evaluator import Circuit, linear_runs
 from oece_tpu_torch.utils import trace
+from test_torch_linear_runs import chain_bristol
 from test_torch_std import one_torch_thread  # noqa: F401
 
 MICRO_AP2 = dataclasses.replace(MICRO_A, name="MICRO_AP2", B_r=2)
@@ -110,6 +112,67 @@ def test_rotation_counts_match_the_gates(traced):
     # recovery's host-branch check copies bits and errors once each per group,
     # the output collection once per word
     assert tr.counters["host_waits"] == 2 * rotating + len(c.netlist.outputs)
+
+
+def gemm_rows(B: int, p) -> int:
+    NB, _, split = rot.gemm_config(B, p.N, p.d_g_used)
+    return rot.gemm_rows(B, NB, split)
+
+
+def test_padded_lanes_are_the_step_gemms_gate_rows(traced):
+    """GINX counts each rotation's step GEMM rows beside its lanes (rev2
+    keys: ``rot.gemm_config``); AP counts none."""
+    method, c, traces, _ = traced
+    tr = traces[-1]
+    rots = [s for s in tr.spans if s.name == "boot.rotation"]
+    if method == "AP":
+        assert "padded_lanes" not in tr.counters
+        assert not any("padded_lanes" in s.attrs for s in rots)
+        return
+    assert c.keys.rev2 is not None
+    for s in rots:
+        assert s.attrs["padded_lanes"] == gemm_rows(s.attrs["lanes"], c.params)
+    want = sum(gemm_rows(len(level["boot_op"]) * T, c.params) for level in c.plan.levels
+               if len(level["boot_op"]))
+    assert tr.counters["padded_lanes"] == want
+
+
+def test_linear_and_padding_counters_match_the_plan(tmp_path):
+    """A netlist of linear chains at T = 8 (levels of 24 and 48 lanes, past
+    the split GEMM's 16): ``linear_runs`` and ``linear_gates`` in each
+    level's ``level.linear`` span equal the plan's runs and gates,
+    ``padded_lanes`` the rows of gemm_config's gate tiles; with tracing
+    off the same Clock records nothing."""
+    path = str(tmp_path / "chains.txt")
+    chain_bristol(path)
+    c = Circuit(set="MICRO", method="GINX", seed=21, device="cpu")
+    c.ReadFile(path)
+    c.setPlaintext(False)
+    c.setEncrypted(True)
+    c.setRecovery(False)
+    rng = np.random.default_rng(8)
+    words = [rng.integers(0, 2, (8, 6)) for _ in range(2)]
+    c.setTrace(True)
+    c.SetInput(words)
+    c.Clock()
+    tr = c.trace
+    runs = [len(linear_runs(level, c._slot)) for level in c.plan.levels]
+    gates = [len(level["lin_op"]) for level in c.plan.levels]
+    assert tr.counters["linear_runs"] == sum(runs) > len(c.plan.levels)
+    assert tr.counters["linear_gates"] == sum(gates)
+    linear = [s for s in tr.spans if s.name == "level.linear"]
+    assert [tr.spans[s.parent].attrs["level"] for s in linear] == list(range(c.plan.depth))
+    for s, r, g in zip(linear, runs, gates):
+        assert s.attrs == ({"linear_runs": r, "linear_gates": g} if r else {})
+    lanes = [len(level["boot_op"]) * 8 for level in c.plan.levels if len(level["boot_op"])]
+    assert lanes == [24, 48]
+    assert tr.counters["padded_lanes"] == gemm_rows(24, c.params) + gemm_rows(48, c.params) == 32 + 64
+    assert tr.counters["lanes"] == sum(lanes)
+    c.setTrace(False)
+    c.Reset()
+    c.SetInput(words)
+    c.Clock()
+    assert not c.trace.recording and c.trace.spans == [] and c.trace.counters == {}
 
 
 @pytest.mark.parametrize("traced", ["AP"], indirect=True)
