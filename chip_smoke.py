@@ -17,7 +17,9 @@ before the result lines):
              card, bit-exact: STD128_OPT (n=8), MICRO_A and TOY (exact
              gadget, N=512; n=4) at B = 1, 4, 8, 13, 37, 64, 65, 256,
              2048, STD128 (exact gadget, d = 4; n=2) at B = 17, 132, 256,
-             257, 4096 (the tiled GEMM's padded digit scratch); lanes with
+             257, 4096 (the tiled GEMM's padded digit scratch) and (n=3)
+             at B = 4, 8 (the split GEMM: digit chunks loaded only inside
+             the key's range, key tiles issued before the wait); lanes with
              a=0; a row-major key on the card must be refused.  Times one
              STD128_OPT step at B=2048 for both versions.
   3. gates   device keygen at full STD128_OPT (seed 0), then chained
@@ -104,7 +106,12 @@ before the result lines):
              events) against its bound, and at B = 4 and 2048 the step
              split into the digits, the GEMM and the launch gaps
              (torch.profiler's kernel timeline); the same for STD128 (d =
-             4) at B = 17, 132, 256, 257, 4096, each split.  It also runs
+             4) at B = 4, 8 (the split GEMM: each step beside the 31.5 MB
+             block's HBM floor, 9.4 us, and the compact-key roofline;
+             the rotation == its plain version bit for bit; and the GEMM
+             of one step by #11 calls on one block, L2-warm, against
+             calls on 16 blocks) and at B = 17, 132, 256, 257, 4096, each
+             split.  It also runs
              on a package whose kernel reads the row-major key, to compare
              trees in one call.  It runs after the long phases: in runs
              where its profiler windows came before the AP phases'
@@ -542,6 +549,7 @@ def rotation_inputs(p, B, n, layout, seed):
 
 ROT_BATCHES = (1, 4, 8, 13, 37, 64, 65, 256, 2048)
 WIDE_BATCHES = (17, 132, 256, 257, 4096)  # STD128's tiled GEMMs around the 256-gate tile
+NARROW_BATCHES = (4, 8)  # STD128's split GEMM: the narrow circuits' lanes, and B = NB
 
 
 def _rot_sets():
@@ -582,6 +590,7 @@ def phase_kernel():
     max_err = 0
     cases = [(p, B) for p in _rot_sets() for B in ROT_BATCHES]
     cases += [(dataclasses.replace(STD128, n=2), B) for B in WIDE_BATCHES]
+    cases += [(dataclasses.replace(STD128, n=3), B) for B in NARROW_BATCHES]
     for i, (p, B) in enumerate(cases):
         acc, rev2, a2N = rotation_inputs(p, B, p.n, "rev2", seed=100 + i)
         keyT = card_key(rev2)
@@ -617,9 +626,42 @@ def _rot_step_bound(p, B):
 def sweep_cases(std_opt, std128):
     """The sweeps' (params, B, split into kernels): STD128_OPT at B = 1
     ... 2048, split at B = 4 and 2048; STD128 (exact gadget, d = 4) at
-    WIDE_BATCHES, each split."""
+    NARROW_BATCHES and WIDE_BATCHES, each split."""
     cases = [(std_opt, B, B in (4, 2048)) for B in (1, 4, 8, 16, 64, 256, 1024, 2048)]
-    return cases + [(std128, B, True) for B in WIDE_BATCHES]
+    return cases + [(std128, B, True) for B in NARROW_BATCHES + WIDE_BATCHES]
+
+
+def compact_roofline_ms(p, B) -> float:
+    """The benchmark's least time of one GINX step of B gates
+    (fhe_bench/roofline.py: the work, on the compact key), ms."""
+    from fhe_bench import roofline
+
+    return 1e3 * roofline.ginx_call({"N": p.N, "n": 1}, p.d_g_used, B)[0]
+
+
+def split_step_checks(p, B, acc, rev2, keyT, a2N, t0) -> dict:
+    """The split GEMM's narrow STD128 step: the rotation == its plain
+    version bit for bit, and the GEMM of one step by #11 calls over one
+    block (L2-warm after the first) against calls over the rotation's
+    distinct blocks (from HBM), each by the profiler's timeline (the host
+    launches each call after the last has ended, so each kernel's time is
+    its own)."""
+    import torch
+    from oece_tpu_torch.fhe import rot
+
+    got = rot.blind_rotate_rot(acc, keyT, a2N, p)
+    _check_same("rot-sweep", f"#12 {p.name} n={p.n} B={B}", got,
+                rot.blind_rotate_rot_plain(acc, rev2, a2N, p), t0)
+    amt = rot.amount_pairs(a2N[:, 0], p.N).contiguous()
+    out = torch.empty_like(acc)
+    res = {}
+    for name, blocks in (("warm", [0] * p.n), ("cold", list(range(p.n)))):
+        run = lambda: [rot.rot_step_true(acc, keyT[i], amt, p, out=out) for i in blocks]  # noqa: E731
+        per, _, _ = kernel_timeline(run, ("rot_diff_decompose_kernel", "rot_gemm"), p.n, want=2 * p.n)
+        res[f"gemm_{name}_ms"] = per["rot_gemm"]
+    log("rot-sweep", t0, f"{p.name} B={B} one step's GEMM by #11 calls: L2-warm block "
+        f"{1e3 * res['gemm_warm_ms']:.2f} us, {p.n} blocks from HBM {1e3 * res['gemm_cold_ms']:.2f} us")
+    return res
 
 
 def phase_rot_sweep():
@@ -633,7 +675,6 @@ def phase_rot_sweep():
     for p, B, split in sweep_cases(dataclasses.replace(STD128_OPT, n=16), dataclasses.replace(STD128, n=16)):
         acc, rev2, a2N = rotation_inputs(p, B, p.n, "rev2", seed=900 + B + 10000 * (p.d_g_used == 4))
         keyT = card_key(rev2)
-        del rev2
         rotate = lambda: rot.blind_rotate_rot(acc, keyT, a2N, p)  # noqa: E731
         ms = cuda_time_ms(rotate, reps=10 if B < 1024 else 3) / p.n
         bnd = _rot_step_bound(p, B)
@@ -649,7 +690,13 @@ def phase_rot_sweep():
             log("rot-sweep", t0, f"{p.name} B={B} per step (profiler timeline): digits {1e3 * digits:.2f} us, "
                 f"GEMM ({gemm}) {1e3 * mm:.2f} us, of which no kernel running {1e3 * idle:.2f} us; "
                 f"events {1e3 * ms:.2f} us")
-        del keyT
+        if p.name == "STD128" and B in NARROW_BATCHES:
+            roof = compact_roofline_ms(p, B)
+            r.update(compact_roofline_ms=roof, **split_step_checks(p, B, acc, rev2, keyT, a2N, t0))
+            log("rot-sweep", t0, f"{p.name} B={B}: step {1e3 * ms:.2f} us, {bnd[0] / ms:.1%} of the "
+                f"block's HBM floor ({1e3 * bnd[0]:.2f} us); compact-key roofline {1e3 * roof:.3f} us, "
+                f"{roof / ms:.2%}")
+        del keyT, rev2
     return res
 
 

@@ -78,7 +78,9 @@
 //       chunks at 16 planes), one m64n(8NB)k32 wgmma per 32 bytes serves
 //       all nt output tiles, and limb-combined partial sums (< 4Q with 4
 //       groups, < 8Q with 8 at M = 8) meet by atomics in a sum [B, 4, N]
-//       that the digits kernel of the same step zeroed.  The sums
+//       that the digits kernel of the same step zeroed.  On the prebuilt
+//       rev key each block issues its first key stages before it waits
+//       for the digits kernel, as in rot_step.cu.  The sums
 //       ping-pong between two buffers: the next digits kernel reads the
 //       one at rotated positions while it zeroes the other.
 //     rev_gemm_kernel<NB, MW>  (B > 16, NB = 32 .. 256, two math
@@ -257,8 +259,8 @@ __global__ void __launch_bounds__(Cfg<NB, MW>::THREADS, 1) rev_gemm_kernel(
 template <int NB>
 __global__ void __launch_bounds__(256, 1) rev_gemm_split_kernel(
     const __grid_constant__ CUtensorMap dig_map, const __grid_constant__ CUtensorMap key_map,
-    int* __restrict__ sum, Shape g, int step, int dpg) {
-  rotg::gemm_split<NB>(&dig_map, &key_map, sum, g, step, dpg);
+    int* __restrict__ sum, Shape g, int step, int dpg, int early) {
+  rotg::gemm_split<NB>(&dig_map, &key_map, sum, g, step, dpg, early);
 }
 
 constexpr int SPLIT_BLOCKS = 128;  // the split GEMM's blocks, at most: one wave on 132 SMs
@@ -329,10 +331,15 @@ int run(const Run& A, int dpg) {
   else
     e = rotg::allow_smem((const void*)rev_gemm_kernel<NB, MW>, smem_set);
   const int groups = (2 * (A.N / T) - 1 + dpg - 1) / dpg, grid = std::min(g.tiles, rotg::sm_count());
+  // the split GEMM loads key tiles before its wait on the rotation's
+  // prebuilt rev key, which no kernel writes; the ring's slot is written
+  // by the step's build, and #8's block may be by the kernel before it
+  const int early = A.mode == ROTATE && !ring;
   const auto gemm = [&](int* out, int step) {
     if constexpr (kSplit)
       return rotg::launch(rev_gemm_split_kernel<NB>, g.polys * (T / CHUNK) * groups, 256,
-                          rotg::split_smem(NB, A.R, dpg), A.st, dig_map, key_map, out, g, step, dpg);
+                          rotg::split_smem(NB, A.R, dpg), A.st, dig_map, key_map, out, g, step, dpg,
+                          early);
     else
       return rotg::launch(rev_gemm_kernel<NB, MW>, grid, Cfg<NB, MW>::THREADS, Cfg<NB, MW>::SMEM,
                           A.st, dig_map, key_map, out, g, step);

@@ -48,7 +48,13 @@
 //       diagonals, and one wgmma per 32 bytes serves all 8 output tiles
 //       (below); the partial sums meet in an int32 sum by atomics, which
 //       the next step's digits kernel (or rot_finalize_kernel) adds to the
-//       accumulator.
+//       accumulator.  The key is read-only for the whole rotation, so each
+//       block issues its first 4 key stages before it waits for the
+//       digits kernel: a GEMM's blocks become resident as soon as that
+//       kernel starts, and the key stream no longer waits on it.  The
+//       digits come from scratch of NB rows (zeros from B on); at NB = 8
+//       each block loads only its digit chunks inside [0, nt) and zeroes
+//       the others in shared memory (step_gemm.cuh: chunk_major).
 //
 // The accumulator ping-pongs between two buffers: no block reads what
 // another block of the same step writes, and the digits of a step are
@@ -64,13 +70,23 @@
 // Bounds on the H100.  One step costs nt*K*8T = 67 M int8 MACs per gate at
 // STD128_OPT (K = nt*2R*T = 8192) and streams a 15.7 MB key block that
 // every gate of the batch shares: at 4-8 lanes 4.7 us of HBM (bytes
-// bound); the tiled GEMM's output tiles each read 8 of the block's 15
-// diagonals (64 MB from L2), the split GEMM's blocks read it once.  At
-// B = 2048 a step is 137 G MAC, 0.139 ms at the int8 peak (operations
-// bound).  The contraction is exact in int32: |sum| <= K * 128 * 128 =
-// 2**27.
+// bound); at STD128's exact gadget (d = 4, K = 16384) the block is 31.5 MB,
+// 9.4 us.  The tiled GEMM's output tiles each read 8 of the block's 15
+// diagonals (64 MB from L2 at STD128_OPT), the split GEMM's blocks read it
+// once.  At B = 2048 a step is 137 G MAC, 0.139 ms at the int8 peak
+// (operations bound).  The contraction is exact in int32: |sum| <= K * 128
+// * 128 = 2**27.  Measured at STD128, B = 4 and 8 (PERF.md, section 6): a
+// step ~17.5 us, 54% of its HBM floor: the digits kernel 4.1-4.7 us and
+// the split GEMM 12.2-12.7 us, which takes 8.1-8.5 us even with its step's
+// block already in L2.
 //
-// Left on the table: fitting the tiled GEMM's NB to B in steps of 32 (132
+// Left on the table: the digits fused into the split GEMM's producer, or a
+// persistent step loop (the digits kernel and its two PDL hand-offs take
+// a quarter of a narrow step); prefetching the split GEMM's remaining key
+// stages into L2 (cp.async.bulk.prefetch) before its wait, or the next
+// step's after its last load, measured no faster: the prefetch slows the
+// digits kernel, or the GEMM's tail, by what it saves elsewhere; fitting
+// the tiled GEMM's NB to B in steps of 32 (132
 // gates pay for 256 in the MMAs: a 128-tile STD128 step of 256 gates reads
 // ~50 us against 36 us of MMAs at the int8 peak), reusing key tiles across
 // output tiles (tile k at chunk c reads what tile k+1 reads at chunk c +
@@ -186,16 +202,17 @@ __global__ void __launch_bounds__(Cfg<NB, MW>::THREADS, 1) rot_gemm_kernel(
 template <int NB>
 __global__ void __launch_bounds__(256, 1) rot_gemm_split_kernel(
     const __grid_constant__ CUtensorMap dig_map, const __grid_constant__ CUtensorMap key_map,
-    int* __restrict__ sum, Shape g, int step, int dpg) {
-  gemm_split<NB>(&dig_map, &key_map, sum, g, step, dpg);
+    int* __restrict__ sum, Shape g, int step, int dpg, int early) {
+  gemm_split<NB>(&dig_map, &key_map, sum, g, step, dpg, early);
 }
 
 // The arguments of a step loop: steps 0 .. n-1 over the key's first n
 // steps (key_steps in all), amounts as in rot_diff_decompose_kernel, dig
 // int8 scratch [dig_rows, K] (dig_rows >= B; the digits kernel writes rows
-// below B, the rest stay as they are: zeros, which the tiled GEMM's boxes
-// read up to its last tile's end), sums int32 scratch [2, B, 2, N] (the
-// split GEMM's).
+// below B, the rest stay as they are: zeros, which the GEMMs' boxes read
+// up to the last gate tile's end), sums int32 scratch [2, B, 2, N] (the
+// split GEMM's).  `early`: no kernel writes the key during the call, so
+// the split GEMM issues key tiles before it waits (gemm_split).
 // Step i reads the accumulator in bufs[i%2]; the result ends in
 // bufs[n%2].
 struct Loop {
@@ -206,7 +223,7 @@ struct Loop {
   const void* keyT;
   int key_steps;
   const int* amt;
-  int a_stride, pair, B, n, N, d_used, log_bg, shift, Q;
+  int a_stride, pair, B, n, N, d_used, log_bg, shift, Q, early;
   cudaStream_t st;
 };
 
@@ -267,7 +284,7 @@ int run_split(const Loop& L, int dpg) {
                : digits(L, i, L.bufs[(i - 1) & 1], L.sums + ((i - 1) & 1) * plane, L.bufs[i & 1], sum);
     if (e == cudaSuccess)
       e = launch(rot_gemm_split_kernel<NB>, 2 * (T / CHUNK) * groups, 256, smem, L.st, dig_map,
-                 key_map, sum, g, i, dpg);
+                 key_map, sum, g, i, dpg, L.early);
   }
   if (e == cudaSuccess)
     e = launch(rot_finalize_kernel, blocks_for(plane / 4), 256, 0, L.st,
@@ -298,8 +315,8 @@ int dispatch(const Loop& L) {
 
 // The whole rotation: n steps of (digits, GEMM).  acc0 holds the initial
 // accumulator; the result is in buffer n%2 of (acc0, acc1).  dig is int8
-// scratch [dig_rows, K], its rows from B on zero, for the tiled GEMM B
-// rounded up to its gate tile (rot.py: digit_scratch); sums int32 scratch
+// scratch [dig_rows, K], its rows from B on zero, B rounded up to the
+// GEMM's gate tile (rot.py: digit_scratch); sums int32 scratch
 // [2, B, 2, N] (used up to 16 gates); keyT the K-major rev2 key [n, 8T,
 // (2nt-1)*2RT].  Returns 0 or the first cudaError_t of a launch.
 extern "C" int oece_blind_rotate_rot(void* acc0, void* acc1, void* dig, void* sums,
@@ -307,7 +324,7 @@ extern "C" int oece_blind_rotate_rot(void* acc0, void* acc1, void* dig, void* su
                                      int n, int N, int d_used, int log_bg,
                                      int shift, int Q, void* stream) {
   const rotg::Loop L{{(int*)acc0, (int*)acc1}, (int8_t*)dig, dig_rows, (int*)sums, keyT, n,
-                     (const int*)a2N, n, 0, B, n, N, d_used, log_bg, shift, Q,
+                     (const int*)a2N, n, 0, B, n, N, d_used, log_bg, shift, Q, 1,
                      (cudaStream_t)stream};
   return rotg::dispatch(L);
 }
@@ -315,13 +332,15 @@ extern "C" int oece_blind_rotate_rot(void* acc0, void* acc1, void* dig, void* su
 // One step for any amount pair amt int32 [B, 2] in [0, 2N) (#11): acc
 // int32 [B, 2, N] -> out, which must not overlap acc (blocks of the GEMM
 // read the old accumulator while others write the new one).  keyT_i is
-// the step's K-major block [8T, (2nt-1)*2RT]; dig and sums as above.
+// the step's K-major block [8T, (2nt-1)*2RT], which a kernel just before
+// may have written, so the GEMM waits before it loads; dig and sums as
+// above.
 extern "C" int oece_rot_step(const void* acc, void* out, void* dig, void* sums,
                              const void* keyT_i, const void* amt, int B, int dig_rows,
                              int N, int d_used, int log_bg, int shift, int Q,
                              void* stream) {
   const rotg::Loop L{{(int*)acc, (int*)out}, (int8_t*)dig, dig_rows, (int*)sums, keyT_i, 1,
-                     (const int*)amt, 0, 1, B, 1, N, d_used, log_bg, shift, Q,
+                     (const int*)amt, 0, 1, B, 1, N, d_used, log_bg, shift, Q, 0,
                      (cudaStream_t)stream};
   return rotg::dispatch(L);
 }

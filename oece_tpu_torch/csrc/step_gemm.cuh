@@ -287,6 +287,22 @@ __device__ __forceinline__ void gemm_tiled(const CUtensorMap* dig_map, const CUt
   }
 }
 
+// The split GEMM's digit chunks in shared memory for NB gates.  With
+// NB = 8 a chunk's 8 rows are one 8-row group of the swizzle, so the
+// chunks lie chunk-major, [jj][substage][NB][128 bytes]: one box of all
+// substages loads a chunk, only the chunks j in [0, nt) are loaded (the
+// math warpgroup zeroes the others), and wgmma steps from chunk to chunk
+// by the descriptor's 8-row group offset (SBO).  With NB = 16 they lie
+// substage-major, [substage][jj][NB][128 bytes], one box of dpg + 7
+// chunks per substage, and the TMA unit reads the chunks outside [0, nt)
+// as zeros.
+__host__ __device__ constexpr bool chunk_major(int NB) { return NB == 8; }
+
+// wgmm::smem_desc with 8-row groups `sbo` bytes apart.
+__device__ __forceinline__ uint64_t smem_desc_sbo(uint32_t addr, uint32_t sbo) {
+  return (wgmm::smem_desc(addr) & ~(0x3FFFull << 32)) | ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
 // The split GEMM of narrow batches (B <= NB <= 16; the body of
 // rot_step.cu's rot_gemm_split_kernel and rev_step.cu's
 // rev_gemm_split_kernel, 256 threads, split_smem bytes): block (column
@@ -304,11 +320,19 @@ __device__ __forceinline__ void gemm_tiled(const CUtensorMap* dig_map, const CUt
 // k >= nt are not used).  The epilogue combines each k's limb sums mod Q
 // (the combine is linear mod Q, so partial sums combine as the whole
 // does) and adds them atomically into sum [B, polys, N]: with at most 8
-// groups, sum < 8Q.
+// groups, sum < 8Q.  With `early` the key is read-only for the whole call
+// (the prebuilt key of a rotation), so the loader issues its first EARLY
+// ring stages before it waits for the digits kernel: the key stream starts
+// while that kernel runs, not after it.
 template <int NB>
 __device__ __forceinline__ void gemm_split(const CUtensorMap* dig_map, const CUtensorMap* key_map,
-                                           int* __restrict__ sum, const Shape& g, int step, int dpg) {
+                                           int* __restrict__ sum, const Shape& g, int step, int dpg,
+                                           int early) {
   constexpr int BK = wgmm::BK, A_BYTES = COLS * BK, STAGES = 8, EPI_PITCH = NB + 1;
+  // ring stages issued before the wait: 8 slowed the digits kernel of 8
+  // lanes (the 8 MB stream beside it) by more than the GEMM gained, 2 left
+  // the GEMM 1 us slower (PERF.md, section 6)
+  constexpr int EARLY = 4;
   constexpr int TILE_B = NB * BK;  // one digit chunk of the NB gates
   extern __shared__ uint8_t smem_raw[];
   const int tid = threadIdx.x, nt = g.N / T, sub = g.R2T / BK, jjs = dpg + 7;
@@ -322,6 +346,22 @@ __device__ __forceinline__ void gemm_split(const CUtensorMap* dig_map, const CUt
   const int cc = blockIdx.x % chunks, grp = blockIdx.x / chunks;
   const int o = cc / (T / CHUNK), t0 = cc % (T / CHUNK) * CHUNK;
   const int d_lo = grp * dpg, d_hi = min(d_lo + dpg, 2 * nt - 1);
+  // the digit tile of chunk jj (j = d_lo - nt + 1 + jj) at substage c; the
+  // chunks jj in [jlo, jhi) have j in [0, nt)
+  constexpr bool kChunks = chunk_major(NB);
+  const auto dig_at = [&](int c, int jj) {
+    return digits + (kChunks ? jj * sub + c : c * jjs + jj) * TILE_B;
+  };
+  const int jlo = max(0, nt - 1 - d_lo), jhi = min(jjs, 2 * nt - 1 - d_lo);
+  // key stage q: diagonal d_lo + q / sub, substage q % sub
+  const int stages = (d_hi - d_lo) * sub, pre = early ? min(stages, EARLY) : 0;
+  const auto load_key = [&](int q) {
+    const int s = q % STAGES;
+    wgmm::mbar_wait(empty0 + 8 * s, ((q / STAGES) & 1) ^ 1);
+    wgmm::mbar_expect_tx(full0 + 8 * s, A_BYTES);
+    wgmm::tma_load_4d(ring + s * A_BYTES, key_map, full0 + 8 * s,
+                      (d_lo + q / sub) * g.R2T + q % sub * BK, t0, 4 * o, step);
+  };
 
   if (tid == 0) {
     for (int i = 0; i < STAGES; ++i) {
@@ -332,26 +372,22 @@ __device__ __forceinline__ void gemm_split(const CUtensorMap* dig_map, const CUt
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
+  if (tid == 0)
+    for (int q = 0; q < pre; ++q) load_key(q);  // no kernel writes the key
   pdl_wait_and_release();  // the digits are complete from here
 
   if (tid < 128) {  // the loader: the digit chunks once, then the key tiles
     if (tid != 0) return;
-    wgmm::mbar_expect_tx(dig_bar, sub * jjs * TILE_B);
-    for (int c = 0; c < sub; ++c)  // chunks j = d_lo - nt + 1 .. +jjs-1 of substage c
-      wgmm::tma_load_4d(digits + c * jjs * TILE_B, dig_map, dig_bar, 0, 0, d_lo - nt + 1, c);
-    int s = 0;
-    uint32_t ph = 0;
-    for (int dd = d_lo; dd < d_hi; ++dd)
-      for (int c = 0; c < sub; ++c) {
-        wgmm::mbar_wait(empty0 + 8 * s, ph ^ 1);
-        wgmm::mbar_expect_tx(full0 + 8 * s, A_BYTES);
-        wgmm::tma_load_4d(ring + s * A_BYTES, key_map, full0 + 8 * s, dd * g.R2T + c * BK, t0,
-                          4 * o, step);
-        if (++s == STAGES) {
-          s = 0;
-          ph ^= 1;
-        }
-      }
+    if constexpr (kChunks) {  // chunk jj, all its substages
+      wgmm::mbar_expect_tx(dig_bar, (jhi - jlo) * sub * TILE_B);
+      for (int jj = jlo; jj < jhi; ++jj)
+        wgmm::tma_load_4d(dig_at(0, jj), dig_map, dig_bar, 0, 0, d_lo - nt + 1 + jj, 0);
+    } else {
+      wgmm::mbar_expect_tx(dig_bar, sub * jjs * TILE_B);
+      for (int c = 0; c < sub; ++c)  // chunks j = d_lo - nt + 1 .. +jjs-1 of substage c
+        wgmm::tma_load_4d(dig_at(c, 0), dig_map, dig_bar, 0, 0, d_lo - nt + 1, c);
+    }
+    for (int q = pre; q < stages; ++q) load_key(q);
     return;
   }
 
@@ -359,6 +395,15 @@ __device__ __forceinline__ void gemm_split(const CUtensorMap* dig_map, const CUt
   int d[4 * NB];  // [64 columns x 8*NB (k, gate)]
 #pragma unroll
   for (int i = 0; i < 4 * NB; ++i) d[i] = 0;
+  if constexpr (kChunks) {  // zeros in the chunks outside [0, nt), which wgmma reads
+    for (int jj = 0; jj < jjs; ++jj) {
+      if (jj >= jlo && jj < jhi) continue;
+      int4* z = (int4*)(smem_raw + (dig_at(0, jj) - raw));
+      for (int v = lt; v < sub * TILE_B / 16; v += 128) z[v] = make_int4(0, 0, 0, 0);
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // visible to wgmma
+    wg_sync(0);
+  }
   wgmm::mbar_wait(dig_bar, 0);
   int s = 0, prev = 0;
   uint32_t ph = 0;
@@ -366,7 +411,7 @@ __device__ __forceinline__ void gemm_split(const CUtensorMap* dig_map, const CUt
     for (int c = 0; c < sub; ++c) {
       wgmm::mbar_wait(full0 + 8 * s, ph);
       const uint64_t da = wgmm::smem_desc(ring + s * A_BYTES);
-      const uint64_t db = wgmm::smem_desc(digits + (c * jjs + dd - d_lo) * TILE_B);
+      const uint64_t db = smem_desc_sbo(dig_at(c, dd - d_lo), kChunks ? sub * TILE_B : 1024);
       wgmm::fence_acc(d);
       asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
@@ -419,9 +464,11 @@ inline int split_smem(int NB, int sub, int dpg) {
 // The TMA maps of a step GEMM: the key keyT as [steps, planes, T,
 // row_bytes], boxes of 4 planes x 16 coefficients x 128 bytes; the digits
 // dig as [dig_rows, K] with boxes of NB gates x 128 bytes (dpg = 0, the
-// tiled GEMM: dig_rows runs to the last gate tile's end), or for the split
-// GEMM as [SUB substages, nt chunks j, B, 128 bytes] (strides 128, R2T, K)
-// with boxes of dpg+7 chunks x NB gates.
+// tiled GEMM), or for the split GEMM as [SUB substages, nt chunks j,
+// dig_rows, 128 bytes] (strides 128, R2T, K) with boxes of NB gates x
+// dpg+7 chunks, or (chunk_major) NB gates x all SUB substages of one
+// chunk.  dig_rows runs to the end of the last NB-gate tile where the
+// digits are the step loop's scratch, rows from B on zero.
 inline bool make_maps(const void* keyT, int key_steps, int planes, const void* dig, int dig_rows,
                       const Shape& g, int NB, int dpg, CUtensorMap* dig_map, CUtensorMap* key_map) {
   const long long K = (long long)g.chunks * wgmm::BK, BK = wgmm::BK;
@@ -429,9 +476,10 @@ inline bool make_maps(const void* keyT, int key_steps, int planes, const void* d
   const long long kstrides[3] = {g.row_bytes, (long long)T * g.row_bytes,
                                  (long long)planes * T * g.row_bytes};
   const int kbox[4] = {wgmm::BK, CHUNK, 4, 1};
-  const long long sdims[4] = {BK, g.B, g.N / T, g.R2T / BK};
+  const long long sdims[4] = {BK, dig_rows, g.N / T, g.R2T / BK};
   const long long sstrides[3] = {K, g.R2T, BK};
-  const int sbox[4] = {wgmm::BK, NB, dpg + 7, 1};
+  const int sbox[4] = {wgmm::BK, NB, chunk_major(NB) ? 1 : dpg + 7,
+                       chunk_major(NB) ? g.R2T / wgmm::BK : 1};
   return wgmm::make_map_nd(key_map, keyT, 4, kdims, kstrides, kbox) &&
          (dpg ? wgmm::make_map_nd(dig_map, dig, 4, sdims, sstrides, sbox)
               : wgmm::make_map(dig_map, dig, dig_rows, K, NB));

@@ -143,6 +143,20 @@ def gemm_rows(B: int, keys: BootKeys) -> int:
     return rot.gemm_rows(B, NB, split)
 
 
+def key_prefetch_bytes(B: int, keys: BootKeys) -> int:
+    """The key bytes that the split GEMMs of a GINX rotation of B gates
+    load on the card ahead of the step chain, before each waits for its
+    digits kernel: the step loops of whole rotations on prebuilt keys
+    (rev2 with ``ROT_MEGA``, rev); none on ginx_ext (its ring's slots are
+    built per step) or in one call per step (#11)."""
+    p = keys.params
+    if keys.ginx_ext is not None:
+        return 0
+    if keys.rev is not None:
+        return rev.rotation_prefetch_bytes(B, p)
+    return rot.rotation_prefetch_bytes(B, p) if ROT_MEGA else 0
+
+
 def bootstrap_batch(prep: torch.Tensor, gate_ids: torch.Tensor, keys: BootKeys, tp=None) -> torch.Tensor:
     """Bootstrap prepared LWE cts [B, n+1] mod q -> fresh cts [B, n+1].
     With ``tp`` (a parallel.mesh.Mesh with tp > 1) ``keys`` is this rank's
@@ -150,7 +164,9 @@ def bootstrap_batch(prep: torch.Tensor, gate_ids: torch.Tensor, keys: BootKeys, 
     their partial products over the tp group.  Under a traced Clock it is
     span ``boot`` with ``boot.pre``, ``boot.rotation`` and ``boot.post``,
     and counts the rotation, its lanes, (GINX: all n) its steps and (GINX
-    without tp) its step GEMM's gate rows, ``padded_lanes``."""
+    without tp) its step GEMM's gate rows, ``padded_lanes``, and the key
+    bytes its split GEMMs load ahead of the step chain,
+    ``key_prefetch_bytes``."""
     p = keys.params
     Q, N, q, Qks = p.Q, p.N, p.q, p.Q_ks
     log_q, log_qks = int(math.log2(q)), int(math.log2(Qks))
@@ -166,6 +182,7 @@ def bootstrap_batch(prep: torch.Tensor, gate_ids: torch.Tensor, keys: BootKeys, 
                 trace.count("steps", p.n)  # AP counts its live steps
                 if trace.ACTIVE is not None and tp is None:
                     trace.count("padded_lanes", gemm_rows(prep.shape[0], keys))
+                    trace.count("key_prefetch_bytes", key_prefetch_bytes(prep.shape[0], keys))
             if tp is None:
                 acc = blind_rotation(acc, a2N, keys)
             else:

@@ -32,7 +32,8 @@ reads each key tile once and adds partial sums by atomics, above 16 a
 tiled one that reads its digits from scratch padded to the gate tile
 (``step_digits``, rot.py's) and writes the products mod Q.
 ``gemm_config``, ``split_groups`` and ``gemm_tiles`` repeat the kernels'
-tiling for the CPU layout tests; the TMA boxes start where rot.py's
+tiling for the CPU layout tests, ``rotation_prefetch_bytes`` the key
+bytes its split GEMMs load before they wait; the TMA boxes start where rot.py's
 ``key_box_origin`` and ``split_digit_box`` say, with RT contraction
 bytes per diagonal instead of 2RT.  ``window_matmul_counted`` (#2: #8's
 function on a row-major block, for fhe/negacyclic.py) runs the same
@@ -59,7 +60,7 @@ from .keys import TILE
 from .modmath import red31
 from .params import BinFHEParams
 from .rot import (GEMM_CHUNK, SMEM_MAX, amount_pairs, check_operands, digit_scratch,
-                  monomial_rotate, split_smem, tile_digits, tile_products)
+                  key_prefetch_bytes, monomial_rotate, split_smem, tile_digits, tile_products)
 
 LAUNCHES = 0  # wrapper calls that launched CUDA kernels
 PLAIN_LAUNCHES = 0  # wrapper calls that ran a plain twin
@@ -346,11 +347,20 @@ def gemm_tiles(B: int, N: int, d_used: int, polys: int = 4) -> list[tuple[int, i
             for gt in range(-(-B // NB))]
 
 
+def rotation_prefetch_bytes(B: int, p: BinFHEParams) -> int:
+    """Key bytes that ``blind_rotate_rev``'s split GEMMs load ahead of the
+    step chain on B gates (rot.py: ``key_prefetch_bytes``; 4 output polys,
+    RT bytes a diagonal): its prebuilt key, as the rotated form's, is
+    read-only for the whole rotation."""
+    split = gemm_config(B, p.N, p.d_g_used)[2]
+    return key_prefetch_bytes(p.n, p.N, 2 * p.d_g_used * TILE, 4, *split_groups(p.N), split)
+
+
 def step_digits(B: int, N: int, d_used: int, device, polys: int = 4) -> torch.Tensor:
     """The digit scratch of the rev step GEMM for B gates (rot.py's
     ``digit_scratch``): int8 [rows, nt*RT]."""
-    NB, _, split = gemm_config(B, N, d_used, polys)
-    return digit_scratch(B, N // TILE * 2 * d_used * TILE, NB, split, device)
+    NB = gemm_config(B, N, d_used, polys)[0]
+    return digit_scratch(B, N // TILE * 2 * d_used * TILE, NB, device)
 
 
 def _check(acc, rev_all, a2N, p: BinFHEParams) -> None:

@@ -22,7 +22,10 @@ its gate tile (``digit_scratch``) and takes the limb combine and the
 ``red31`` add in its epilogue; up to 16 gates the split GEMM reads each
 key tile once per step for all output tiles and adds combined partial
 sums into a scratch sum, which the next step's digits kernel (or, after
-the last step, a finalize kernel) adds to the accumulator.  ``gemm_config``, ``split_groups``,
+the last step, a finalize kernel) adds to the accumulator.  Over a whole
+rotation the key is read-only, so each split GEMM block loads its first
+key tiles before it waits for the digits kernel (``early_boxes``,
+``key_prefetch_bytes``).  ``gemm_config``, ``split_groups``,
 ``split_digit_box``, ``gemm_tiles`` and ``key_box_origin`` repeat the
 kernels' tiling for the CPU layout tests.
 
@@ -232,8 +235,57 @@ def split_digit_box(c: int, d_lo: int, N: int) -> tuple[int, int]:
     """(first digit chunk j0, substage c) of the split GEMM's digit box for
     substage c of a block whose diagonals start at d_lo: the chunks j0 ..
     j0 + dpg + 6 of the NB gates, chunk j at the contraction bytes j*2RT +
-    128c .. +127; chunks outside [0, nt) read as zeros."""
+    128c .. +127; chunks outside [0, nt) are zeros (at NB = 8 zeroed in
+    shared memory and not loaded, at 16 filled by the TMA unit)."""
     return d_lo - (N // TILE - 1), c
+
+
+EARLY_STAGES = 4  # key stages a split GEMM block loads before its wait (step_gemm.cuh: EARLY)
+KEY_STAGE_BYTES = 4 * GEMM_CHUNK * GEMM_BK  # one key box: 64 key columns x 128 bytes
+
+
+def split_blocks(N: int, R2T: int, polys: int, dpg: int, groups: int) -> list[tuple[int, int, int]]:
+    """The split GEMM's blocks (column chunk cc, diagonal group grp, key
+    stages), block cc + chunks*grp, chunks = polys*T/16: diagonals grp*dpg
+    .. +dpg-1 (the last group fewer), R2T / 128 stages each."""
+    ndiag, chunks = 2 * (N // TILE) - 1, polys * (TILE // GEMM_CHUNK)
+    return [(cc, grp, (min(grp * dpg + dpg, ndiag) - grp * dpg) * (R2T // GEMM_BK))
+            for grp in range(groups) for cc in range(chunks)]
+
+
+def early_boxes(cc: int, grp: int, step: int, N: int, d_used: int,
+                whole: bool = True) -> list[tuple[int, int, int, int]]:
+    """The key boxes (contraction byte, coefficient t0, plane, key step)
+    that block (cc, grp) of the rotation's split GEMM at step ``step``
+    loads before it waits for the digits kernel: the first EARLY_STAGES
+    stages of its own slice, in its loader's order (diagonal, then
+    substage).  None where the call is not a whole rotation on the
+    prebuilt key (``whole`` False: #11's one step, the ginx_ext ring), whose
+    GEMMs wait before they load."""
+    R2T, dpg = 4 * d_used * TILE, split_groups(N)[0]
+    sub, d_lo = R2T // GEMM_BK, grp * dpg
+    stages = (min(d_lo + dpg, 2 * (N // TILE) - 1) - d_lo) * sub
+    return [(*key_box_origin((d_lo + q // sub) * R2T + q % sub * GEMM_BK, cc), step)
+            for q in range(min(EARLY_STAGES, stages) if whole else 0)]
+
+
+def key_prefetch_bytes(n: int, N: int, R2T: int, polys: int, dpg: int, groups: int,
+                       split: bool) -> int:
+    """Key bytes that a whole rotation's split GEMMs load ahead of the
+    step chain, before their wait for the digits kernel: each block's
+    first EARLY_STAGES stages (at most its stages) at each of the n steps;
+    none for the tiled GEMM (B > 16)."""
+    if not split:
+        return 0
+    blocks = split_blocks(N, R2T, polys, dpg, groups)
+    return n * sum(min(EARLY_STAGES, st) for _, _, st in blocks) * KEY_STAGE_BYTES
+
+
+def rotation_prefetch_bytes(B: int, p: BinFHEParams) -> int:
+    """``key_prefetch_bytes`` of ``blind_rotate_rot``'s step loop on B gates
+    (2 output polys, 2RT bytes a diagonal)."""
+    split = gemm_config(B, p.N, p.d_g_used)[2]
+    return key_prefetch_bytes(p.n, p.N, 4 * p.d_g_used * TILE, 2, *split_groups(p.N), split)
 
 
 def gemm_tiles(B: int, N: int, d_used: int) -> list[tuple[int, int, int]]:
@@ -300,15 +352,15 @@ def gemm_rows(B: int, NB: int, split: bool) -> int:
     return B if split else -(-B // NB) * NB
 
 
-def digit_scratch(B: int, K: int, NB: int, split: bool, device) -> torch.Tensor:
-    """A step loop's digit scratch int8 [rows, K]: B rows for the split
-    GEMM; for the tiled one B rounded up to its gate tile of NB gates, the
-    rows from B on zero (the digits kernel writes the others), so that its
-    digit boxes read zeros from memory where the TMA unit would fill rows
-    past the end of the map with zeros itself, at ~3.4 ns a row and block
-    (a 132-gate STD128 step's GEMM took twice the 256-gate one's; PERF.md,
-    section 5)."""
-    rows = gemm_rows(B, NB, split)
+def digit_scratch(B: int, K: int, NB: int, device) -> torch.Tensor:
+    """A step loop's digit scratch int8 [rows, K]: B rounded up to the
+    GEMM's gate tile of NB gates (the split GEMM's one tile, the tiled
+    GEMM's last), the rows from B on zero (the digits kernel writes the
+    others), so that the digit boxes read zeros from memory where the TMA
+    unit would fill rows past the end of the map with zeros itself, at
+    ~3.4 ns a row and block (a 132-gate STD128 step's GEMM took twice the
+    256-gate one's; PERF.md, section 5)."""
+    rows = -(-B // NB) * NB
     dig = torch.empty((rows, K), dtype=torch.int8, device=device)
     if rows > B:
         dig[B:].zero_()
@@ -322,7 +374,7 @@ def _scratch(acc, p: BinFHEParams):
     B, _, N = acc.shape
     K = N // TILE * 2 * 2 * p.d_g_used * TILE
     NB, _, split = gemm_config(B, N, p.d_g_used)
-    dig = digit_scratch(B, K, NB, split, acc.device)
+    dig = digit_scratch(B, K, NB, acc.device)
     sums = torch.empty((2, B, 2, N) if split else (0,), dtype=torch.int32, device=acc.device)
     return dig, sums
 

@@ -9,10 +9,12 @@ tiled GEMM (B > 16) takes one per stage of an output tile for each math
 warpgroup and the digits by boxes of NB gates, from scratch whose rows
 run to the last gate tile's end, zero from B on (``rot.digit_scratch``);
 the split GEMM (B <= 16) one per stage of a diagonal, all output tiles at
-once against digit tiles it keeps in shared memory, and adds partial sums.
-``rot.gemm_config``, ``rot.split_groups``, ``rot.split_digit_box``,
-``rot.gemm_tiles`` and ``rot.key_box_origin`` repeat the kernels'
-choices.  Here:
+once against digit tiles it keeps in shared memory (from NB rows of the
+same scratch), and adds partial sums; over a whole rotation each of its
+blocks loads its first key stages before it waits for the digits kernel
+(``rot.early_boxes``).  ``rot.gemm_config``, ``rot.split_groups``,
+``rot.split_digit_box``, ``rot.gemm_tiles`` and ``rot.key_box_origin``
+repeat the kernels' choices.  Here:
 
   * the K-major conversion (``keys.rev2_to``) and the K-major step blocks
     that ``build_rev2`` writes on the card equal each step's block
@@ -22,10 +24,13 @@ choices.  Here:
     the K-major key (STD128_OPT widths with n=2, MICRO_A, TOY);
   * the tiled GEMM's walk covers every tile once, and its digit boxes lie
     inside the padded scratch (STD128 and STD128_OPT, B = 17 ... 4096);
+  * the key boxes a split GEMM block loads before its wait are its first
+    stages in its loader's order, none off the whole rotation or for
+    the tiled GEMM, and a rotation counts their bytes;
   * the digits times those tiles, summed stage by stage over NB-gate tiles
-    padded with zero rows (the tiled GEMM's from the digit scratch, the
-    split GEMM's as the TMA unit pads them; digit chunks outside the key's
-    range read as zeros), then combined through the
+    padded with zero rows (both GEMMs' from the digit scratch; the split
+    GEMM's digit chunks outside the key's range are zeros), then combined
+    through the
     epilogue's (limb, coefficient) rows, equal ``rot.rot_step_plain`` and
     ``rot.blind_rotate_rot_plain`` (ragged B, a=0 lanes, both GEMMs).
 
@@ -34,13 +39,15 @@ the CUDA kernel to them on the card by chip_smoke.py (kernel, rot-step).
 """
 
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from oece_tpu.fhe import devkeygen as jdevkeygen
-from oece_tpu_torch.fhe import keys, modmath, rot
+from oece_tpu_torch.fhe import keys, modmath, rev, rot
 from oece_tpu_torch.fhe.params import MICRO_A, STD128, STD128_OPT, TOY
 from test_torch_copies import jax_params
 from test_torch_std import one_torch_thread  # noqa: F401
@@ -151,18 +158,79 @@ def test_gemm_config_picks_the_narrowest_tile():
 
 
 def test_digit_scratch_runs_to_the_gate_tile_in_zeros():
-    """The step loop's digit scratch: B rows for the split GEMM; for the
-    tiled one, rows to the last gate tile's end, the rows from B on zero,
-    which the digits kernel never writes."""
-    p = STD128
-    K = p.N // T * 4 * p.d_g_used * T
-    for B in (4, 9, 17, 132, 256, 257, 4096):
-        NB, _, split = rot.gemm_config(B, p.N, p.d_g_used)
-        acc = torch.zeros((B, 2, p.N), dtype=torch.int32)
-        dig, sums = rot._scratch(acc, p)
-        assert dig.shape == ((B if split else -(-B // NB) * NB), K) and dig.dtype == torch.int8
-        assert not dig[B:].any()
-        assert sums.shape == ((2, B, 2, p.N) if split else (0,))
+    """The step loop's digit scratch: rows to the last gate tile's end,
+    for the split GEMM its one tile of NB = 8 or 16 gates, for the tiled
+    one NB = 32 ... 256, the rows from B on zero, which the digits kernel
+    never writes (so no digit box reads past the map's rows)."""
+    for p in (STD128, STD128_OPT):
+        K = p.N // T * 4 * p.d_g_used * T
+        for B in (1, 4, 8, 9, 16, 17, 132, 256, 257, 4096):
+            NB, _, split = rot.gemm_config(B, p.N, p.d_g_used)
+            acc = torch.zeros((B, 2, p.N), dtype=torch.int32)
+            dig, sums = rot._scratch(acc, p)
+            assert dig.shape == (-(-B // NB) * NB, K) and dig.dtype == torch.int8
+            assert not dig[B:].any() and (dig.shape[0] == NB or not split)
+            assert sums.shape == ((2, B, 2, p.N) if split else (0,))
+
+
+def _loader_boxes(cc, grp, step, N, d_used):
+    """The key boxes the split GEMM's loader of block (cc, grp) takes at
+    key step ``step``, in order: diagonals d_lo .. d_hi-1, substages 0 ..
+    2RT/128 - 1 of each."""
+    R2T, (dpg, _) = 4 * d_used * T, rot.split_groups(N)
+    d_lo, d_hi = grp * dpg, min(grp * dpg + dpg, 2 * (N // T) - 1)
+    return [(*rot.key_box_origin(dd * R2T + c * rot.GEMM_BK, cc), step)
+            for dd in range(d_lo, d_hi) for c in range(R2T // rot.GEMM_BK)]
+
+
+@pytest.mark.parametrize("p", [STD128, STD128_OPT, MICRO_A], ids=_id)
+def test_early_boxes_are_each_blocks_first_ring_stages(p):
+    """Block (cc, grp) of a rotation's split GEMM at step i loads exactly
+    the first EARLY_STAGES stages of its own slice of step i, in its
+    loader's order, before it waits for the digits kernel: at STD128 4
+    of the 32 stages of groups 0-6 and of the 16 of group 7, 4 MiB a step
+    in all, which the rotation counts at every step."""
+    src = (Path(rot.__file__).parent.parent / "csrc" / "step_gemm.cuh").read_text()
+    early = re.search(r"constexpr int EARLY = (\d+);", src).group(1)
+    ring = re.search(r"A_BYTES = COLS \* BK, STAGES = (\d+), EPI_PITCH", src).group(1)
+    assert int(early) == rot.EARLY_STAGES <= int(ring)  # gemm_split's, within its ring
+    N, d = p.N, p.d_g_used
+    dpg, groups = rot.split_groups(N)
+    chunks = 2 * T // rot.GEMM_CHUNK
+    total = 0
+    for grp in range(groups):
+        for cc in range(chunks):
+            want = _loader_boxes(cc, grp, 5, N, d)
+            got = rot.early_boxes(cc, grp, 5, N, d)
+            assert got == want[:rot.EARLY_STAGES], (grp, cc)
+            total += len(got)
+    assert [st for _, _, st in rot.split_blocks(N, 4 * d * T, 2, dpg, groups)] == [
+        len(_loader_boxes(cc, grp, 0, N, d)) for grp in range(groups) for cc in range(chunks)]
+    q = dataclasses.replace(p, n=5)
+    assert rot.rotation_prefetch_bytes(4, q) == 5 * total * rot.KEY_STAGE_BYTES
+    if p is STD128:
+        assert groups * chunks == 128 and total * rot.KEY_STAGE_BYTES == 4 * 2**20
+        assert len(_loader_boxes(0, 0, 1, N, d)) == 32 and len(_loader_boxes(0, 7, 1, N, d)) == 16
+
+
+@pytest.mark.parametrize("p", [STD128, STD128_OPT], ids=_id)
+def test_no_early_boxes_off_the_rotation_or_in_the_tiled_gemm(p):
+    """No key box goes before the wait in #11's one step or on the
+    ginx_ext ring (not a whole rotation on a prebuilt key), and the tiled
+    GEMM (B > 16) counts none, in either form; both prebuilt forms' split
+    GEMMs count theirs at every step."""
+    N, d = p.N, p.d_g_used
+    dpg, groups = rot.split_groups(N)
+    for grp in range(groups):
+        for cc in range(2 * T // rot.GEMM_CHUNK):
+            assert rot.early_boxes(cc, grp, 0, N, d, whole=False) == []
+    for B in (17, 132, 256, 257, 4096):
+        assert not rot.gemm_config(B, N, d)[2]
+        assert rot.rotation_prefetch_bytes(B, p) == 0 and rev.rotation_prefetch_bytes(B, p) == 0
+    one = dataclasses.replace(p, n=1)
+    for B in (1, 4, 8):
+        assert rot.rotation_prefetch_bytes(B, p) == p.n * rot.rotation_prefetch_bytes(B, one) > 0
+        assert rev.rotation_prefetch_bytes(B, p) == p.n * rev.rotation_prefetch_bytes(B, one) > 0
 
 
 WIDE = (17, 33, 65, 129, 132, 200, 256, 257, 1000, 4096)
@@ -202,8 +270,7 @@ def _step_by_tiles(acc, keyT_i, amt, p):
     """One step as rot_step.cu computes it: the digits of both rotated
     differences (the digits kernel's twin) in the step's digit scratch
     (``rot.digit_scratch``), gates padded to the NB-gate tile with zero
-    rows (the tiled GEMM's from the scratch, the split GEMM's as the TMA
-    unit pads them), A tiles from the key's boxes, sums of A_c x dig_c^T stage by stage (float64, exact: |sum| <=
+    rows from the scratch, A tiles from the key's boxes, sums of A_c x dig_c^T stage by stage (float64, exact: |sum| <=
     2**27), each coefficient t of a 16-coefficient chunk combining rows
     16l + t (l = 0..3) mod Q.  The tiled GEMM adds the combined tile to the
     old accumulator with red31; the split GEMM stores one partial sum per
@@ -213,11 +280,11 @@ def _step_by_tiles(acc, keyT_i, amt, p):
     nt, R2T = N // T, 4 * p.d_g_used * T
     sub = R2T // rot.GEMM_BK
     NB, MW, split = rot.gemm_config(B, N, p.d_g_used)
-    dig = rot.digit_scratch(B, nt * R2T, NB, split, acc.device)
+    dig, _ = rot._scratch(acc, p)
     dig[:B] = rot.rot_diff_digits(acc, amt, p)
     gates = -(-B // NB) * NB
-    padded = torch.zeros((gates, nt * R2T), dtype=torch.float64)
-    padded[:dig.shape[0]] = dig.double()
+    assert dig.shape[0] == gates  # every box's NB rows lie in the scratch
+    padded = dig.double()
     chunk = lambda q, rows: rows[:, q * rot.GEMM_BK:(q + 1) * rot.GEMM_BK]  # noqa: E731
     if split:  # per block (group, cc): one [64 x 8NB] product per stage, k = column // NB
         dpg, groups = rot.split_groups(N)
@@ -228,7 +295,7 @@ def _step_by_tiles(acc, keyT_i, amt, p):
             for c in range(sub):
                 j0, c_box = rot.split_digit_box(c, d_lo, N)
                 for jj in range(dpg + 7):
-                    if 0 <= j0 + jj < nt:  # else the TMA unit reads zeros
+                    if 0 <= j0 + jj < nt:  # else zeros (not loaded at NB = 8, TMA fill at 16)
                         tiles[c, jj] = chunk((j0 + jj) * sub + c_box, padded)
             for cc in range(2 * T // rot.GEMM_CHUNK):
                 o, t0 = divmod(cc, T // rot.GEMM_CHUNK)

@@ -2,8 +2,10 @@
 the CPU at MICRO, GINX and binary-base AP: spans nest under their parents
 with the Clock's id, every level has its phase spans, the rotation counts
 match the gates and, for AP, the select bits of each rotation's own a2N
-(``fhe_bench.spans.ap_live``), GINX's step GEMM rows (``padded_lanes``)
-and the linear runs and gates match the plan; with tracing off a Clock
+(``fhe_bench.spans.ap_live``), GINX's step GEMM rows (``padded_lanes``),
+the key bytes its split GEMMs load before their wait
+(``key_prefetch_bytes``) and the
+linear runs and gates match the plan; with tracing off a Clock
 makes no span, no CUDA event and no profiler range."""
 
 import dataclasses
@@ -137,6 +139,28 @@ def test_padded_lanes_are_the_step_gemms_gate_rows(traced):
     assert tr.counters["padded_lanes"] == want
 
 
+def test_key_prefetch_bytes_are_the_plans_sum(traced):
+    """A narrow GINX rotation counts the key bytes its split GEMMs load
+    ahead of the step chain, before their wait for the digits kernel
+    (``rot.rotation_prefetch_bytes``); a rotation over 16 lanes and AP
+    count none."""
+    method, c, traces, _ = traced
+    tr = traces[-1]
+    rots = [s for s in tr.spans if s.name == "boot.rotation"]
+    if method == "AP":
+        assert "key_prefetch_bytes" not in tr.counters
+        assert not any("key_prefetch_bytes" in s.attrs for s in rots)
+        return
+    p = c.params
+    assert boot.ROT_MEGA and any(s.attrs["lanes"] <= 16 for s in rots)
+    for s in rots:
+        want = rot.rotation_prefetch_bytes(s.attrs["lanes"], p)
+        assert s.attrs["key_prefetch_bytes"] == want and (want > 0) == (s.attrs["lanes"] <= 16)
+    want = sum(rot.rotation_prefetch_bytes(len(level["boot_op"]) * T, p)
+               for level in c.plan.levels if len(level["boot_op"]))
+    assert tr.counters["key_prefetch_bytes"] == want > 0
+
+
 def test_linear_and_padding_counters_match_the_plan(tmp_path):
     """A netlist of linear chains at T = 8 (levels of 24 and 48 lanes, past
     the split GEMM's 16): ``linear_runs`` and ``linear_gates`` in each
@@ -167,6 +191,7 @@ def test_linear_and_padding_counters_match_the_plan(tmp_path):
     lanes = [len(level["boot_op"]) * 8 for level in c.plan.levels if len(level["boot_op"])]
     assert lanes == [24, 48]
     assert tr.counters["padded_lanes"] == gemm_rows(24, c.params) + gemm_rows(48, c.params) == 32 + 64
+    assert tr.counters["key_prefetch_bytes"] == 0  # the tiled GEMMs prefetch nothing
     assert tr.counters["lanes"] == sum(lanes)
     c.setTrace(False)
     c.Reset()
