@@ -83,7 +83,8 @@ before the result lines):
              blind_rotate_rev at STD128_OPT (n=8) B = 1, 4, 8, 13, 16, 17,
              37, 64, 256, 2048, STD128 (R=8, n=2), MICRO (n=4) and TOY
              (n=3) at B = 4, 13, 37, STD128 (n=2) at B = 17, 132, 256, 257,
-             4096, random int8 blocks, a=0 lanes unchanged; #8 and #9
+             4096, random int8 blocks, a=0 lanes unchanged, each with the
+             step GEMM that rot.gemm_config chooses; #8 and #9
              alone on K-major blocks of 16 and 8 planes and #10 (any
              amount pairs) at B = 4, 13, 37, 2048; a
              row-major key or block on the card is refused, and the
@@ -97,13 +98,13 @@ before the result lines):
              mod-switch amounts, dead steps included; CUDA events) against
              its bound, and at B = 4 and 2048 each kernel's device time and
              the launch gaps per step (torch.profiler's kernel timeline).
-             It also runs on a package whose AP kernel builds a block per
-             step (rev_build, decompose, int8_mm), to compare trees in one
-             call; it runs after the AP phases, as rot-sweep does.
+             It runs after the AP phases, as rot-sweep does.
      rot-sweep  one STD128_OPT step of #12 by batch size (B = 1, 4, 8, 16,
              64, 256, 1024, 2048; a rotation over 16 distinct random
              blocks, 251 MB, so each step reads its block from HBM; CUDA
-             events) against its bound, and at B = 4 and 2048 the step
+             events) against its bound, with the step GEMM that
+             rot.gemm_config chooses (NB, MW, split) at each B, and at B =
+             4 and 2048 the step
              split into the digits, the GEMM and the launch gaps
              (torch.profiler's kernel timeline); the same for STD128 (d =
              4) at B = 4, 8 (the split GEMM: each step beside the 31.5 MB
@@ -111,23 +112,18 @@ before the result lines):
              the rotation == its plain version bit for bit; and the GEMM
              of one step by #11 calls on one block, L2-warm, against
              calls on 16 blocks) and at B = 17, 132, 256, 257, 4096, each
-             split.  It also runs
-             on a package whose kernel reads the row-major key, to compare
-             trees in one call.  It runs after the long phases: in runs
+             split.  It runs after the long phases: in runs
              where its profiler windows came before the AP phases'
              million launches, later windows lost records.
      rev-sweep  the same for the rev step (#9/#8, csrc/rev_step.cu): 16
              distinct random blocks, B = 1 ... 2048 and STD128's, against
-             the bound; split into its digits kernel, GEMM and gaps per
-             step where rot-sweep splits.
-             Both rev phases also run on a package whose rev kernels read
-             the row-major key, to compare trees in one call.
+             the bound, with rot.gemm_config's step GEMM; split into its
+             digits kernel, GEMM and gaps per step where rot-sweep splits.
      std-sweep  the same for the standard-form step on ginx_ext: 16
              distinct random step keys, B = 1 ... 2048, against the
              function's bound (and the bound with the block written and
              read once); at B = 4 and 2048 its build, digits kernel, GEMM
-             and gaps per step.  It also runs on a package whose std step
-             loop is the mma.sync one (build, digits, matmul, CMUX).
+             and gaps per step.
  12. rot-step    #11 (fhe/rot.py rot_step_true -> csrc/rot_step.cu
              oece_rot_step: the same two kernels) against its plain
              version for any amount pairs (STD128_OPT, MICRO_A and TOY at
@@ -265,7 +261,8 @@ into the kernels line beside phase 17's.
 The last two lines are the kernels' JSON record and {"ok": true,
 "device": {...}}.  JAX and the JAX package are blocked from being
 imported.  ``python3 chip_smoke.py PHASE ...`` runs the build and the
-named phases only, and prints neither of the last two lines.
+named phases only, and prints no kernels line; it too ends with {"ok":
+true, ...}, which names the phases.
 """
 
 from __future__ import annotations
@@ -310,14 +307,6 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def new_window() -> bool:
-    """Whether #2 runs as #3's transpose and #8's wgmma GEMMs (a parent's
-    package runs the mma.sync int8_mm_kernel)."""
-    from oece_tpu_torch.fhe import _build
-
-    return hasattr(_build.load(), "oece_window_matmul")
-
-
 def reset_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
     from oece_tpu_torch.fhe import ap, negacyclic, rev, rot, std
@@ -327,8 +316,7 @@ def reset_counts() -> None:
         m.PLAIN_LAUNCHES = 0
         m.STEP_LAUNCHES = 0
     rot.SINGLE_STEP_LAUNCHES = 0
-    if hasattr(ap, "KERNEL_LAUNCHES"):  # a package before the live-gate table has none
-        ap.KERNEL_LAUNCHES = 0
+    ap.KERNEL_LAUNCHES = 0
     for k in negacyclic.KERNELS:
         negacyclic.LAUNCHES[k] = negacyclic.PLAIN_LAUNCHES[k] = 0
 
@@ -355,7 +343,7 @@ def read_step_launches(kernel: str) -> int:
 
     if kernel == "rot_steps":
         return rot.SINGLE_STEP_LAUNCHES
-    if kernel == "ap" and hasattr(ap, "KERNEL_LAUNCHES"):
+    if kernel == "ap":
         return ap.KERNEL_LAUNCHES
     return {"rot": rot, "ap": ap, "std": std, "rev": rev}[kernel].STEP_LAUNCHES
 
@@ -476,11 +464,11 @@ def phase_build():
     t0 = time.time()
     _build.load()
     regs = kernel_registers(_build.BUILD_LOG)
-    if new_window():  # #2 and #7 on their Hopper kernels: the mma.sync route is gone
-        spills = {k: r for k, r in regs.items() if k.endswith("spill bytes")
-                  and any(n in k for n in ("transpose_kernel", "rev_gemm", "rev_build_kernel"))}
-        if spills or "int8_mm_kernel" in _build.BUILD_LOG:
-            fail(f"build: spills in #2's or #7's kernels {spills}, or an int8_mm_kernel was built")
+    # #2 and #7 on their Hopper kernels: the mma.sync route is gone
+    spills = {k: r for k, r in regs.items() if k.endswith("spill bytes")
+              and any(n in k for n in ("transpose_kernel", "rev_gemm", "rev_build_kernel"))}
+    if spills or "int8_mm_kernel" in _build.BUILD_LOG:
+        fail(f"build: spills in #2's or #7's kernels {spills}, or an int8_mm_kernel was built")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -560,22 +548,18 @@ def _rot_sets():
 
 
 def card_key(rev2):
-    """rev2 in the layout of the card's kernel: K-major (keys.rev2_to); a
-    package whose kernel reads the row-major key takes it as it is."""
+    """rev2 in the layout of the card's kernel: K-major (keys.rev2_to)."""
     from oece_tpu_torch.fhe import keys
 
-    return keys.rev2_to(rev2, "cuda") if hasattr(keys, "rev2_to") else rev2
+    return keys.rev2_to(rev2, "cuda")
 
 
 def card_rev(rev):
     """A rev key [n, rows, 16T] (or one step's block [rows, M*T]) in the
     layout of the card's kernels: K-major (keys.rev_to; a block as [M, T,
-    rows]); a package whose rev kernels read the row-major key takes it as
-    it is."""
-    from oece_tpu_torch.fhe import keys, rev as rev_mod
+    rows])."""
+    from oece_tpu_torch.fhe import keys
 
-    if not hasattr(rev_mod, "gemm_config"):
-        return rev
     if rev.ndim == 3:
         return keys.rev_to(rev, "cuda")
     return rev.t().reshape(rev.shape[1] // 128, 128, rev.shape[0]).contiguous()
@@ -665,8 +649,9 @@ def split_step_checks(p, B, acc, rev2, keyT, a2N, t0) -> dict:
 
 
 def phase_rot_sweep():
-    """#12's step time by batch size against its bound (sweep_cases); the
-    splits into the digits, the GEMM and the launch gaps."""
+    """#12's step time by batch size against its bound (sweep_cases), with
+    the step GEMM that rot.gemm_config chooses; the splits into the
+    digits, the GEMM and the launch gaps."""
     from oece_tpu_torch.fhe import rot
     from oece_tpu_torch.fhe.params import STD128, STD128_OPT
 
@@ -678,17 +663,17 @@ def phase_rot_sweep():
         rotate = lambda: rot.blind_rotate_rot(acc, keyT, a2N, p)  # noqa: E731
         ms = cuda_time_ms(rotate, reps=10 if B < 1024 else 3) / p.n
         bnd = _rot_step_bound(p, B)
+        gemm = rot.gemm_config(B, p.N, 4 * p.d_g_used, 2)
         r = res[B if p.name == "STD128_OPT" else f"{p.name} B={B}"] = {
-            "ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1]}
-        log("rot-sweep", t0, f"{p.name} step B={B}: {1e3 * ms:.1f} us, bound {1e3 * bnd[0]:.1f} us "
-            f"({bnd[1]}), {bnd[0] / ms:.1%} of the bound")
+            "ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1], "gemm_config": gemm}
+        log("rot-sweep", t0, f"{p.name} step B={B} (NB, MW, split) {gemm}: {1e3 * ms:.1f} us, bound "
+            f"{1e3 * bnd[0]:.1f} us ({bnd[1]}), {bnd[0] / ms:.1%} of the bound")
         if split:
-            gemm = "rot_gemm" if hasattr(rot, "gemm_config") else "int8_mm_kernel"
-            per, _, idle = kernel_timeline(rotate, ("rot_diff_decompose_kernel", gemm), p.n, want=2 * p.n)
-            digits, mm = per["rot_diff_decompose_kernel"], per[gemm]
+            per, _, idle = kernel_timeline(rotate, ("rot_diff_decompose_kernel", "rot_gemm"), p.n, want=2 * p.n)
+            digits, mm = per["rot_diff_decompose_kernel"], per["rot_gemm"]
             r.update(digits_ms=digits, gemm_ms=mm, gap_ms=idle)
             log("rot-sweep", t0, f"{p.name} B={B} per step (profiler timeline): digits {1e3 * digits:.2f} us, "
-                f"GEMM ({gemm}) {1e3 * mm:.2f} us, of which no kernel running {1e3 * idle:.2f} us; "
+                f"GEMM {1e3 * mm:.2f} us, of which no kernel running {1e3 * idle:.2f} us; "
                 f"events {1e3 * ms:.2f} us")
         if p.name == "STD128" and B in NARROW_BATCHES:
             roof = compact_roofline_ms(p, B)
@@ -760,7 +745,6 @@ def phase_ap_kernel():
     cases += [(dataclasses.replace(TOY, name="TOY_AP2", n=2, B_r=2), 37, kind) for kind in ("modswitch", "any")]
     cases += [(std2, 4, "zero"), (std2, 37, "zero")]
     max_err = 0
-    new = hasattr(ap, "live_table")
     for i, (p, B, kind) in enumerate(cases):
         acc, ext, a2N = _ap_inputs(p, B, seed=200 + i, kind=kind)
         steps0 = ap.STEP_LAUNCHES
@@ -771,22 +755,20 @@ def phase_ap_kernel():
                                            f"B={B} {kind} amounts ({steps} steps launched)", got, want, t0))
         if B > 1 and not torch.equal(got[0], acc[0]):
             fail(f"AP kernel changed the a=0 lane at {p.name} B={B}")
-        if new:
-            mask, rank0, count = ap.live_table(a2N, p)
-            pm, pr, pc = ap.live_table_plain(a2N, p)
-            if not (torch.equal(mask.long() & 0xFFFFFFFF, pm) and torch.equal(rank0, pr) and torch.equal(count, pc)):
-                fail(f"ap-kernel: the live-gate table kernel != its plain twin at {p.name} B={B} {kind}")
-            if steps != int((pc > 0).sum()):
-                fail(f"ap-kernel: {steps} steps launched, {int((pc > 0).sum())} live at {p.name} B={B} {kind}")
-            if kind == "zero" and (steps != 0 or not torch.equal(got, acc)):
-                fail(f"ap-kernel: an all-zero batch of {B} changed the accumulator or launched a step")
-    if new:
-        try:
-            ap.blind_rotate_ap(acc, ext.transpose(1, 2).contiguous().transpose(1, 2), a2N, std2)
-        except ValueError as e:
-            log("ap-kernel", t0, f"a transposed ap_ext on the card is refused: {e}")
-        else:
-            fail("ap-kernel: a non-compact ap_ext on the card was not refused")
+        mask, rank0, count = ap.live_table(a2N, p)
+        pm, pr, pc = ap.live_table_plain(a2N, p)
+        if not (torch.equal(mask.long() & 0xFFFFFFFF, pm) and torch.equal(rank0, pr) and torch.equal(count, pc)):
+            fail(f"ap-kernel: the live-gate table kernel != its plain twin at {p.name} B={B} {kind}")
+        if steps != int((pc > 0).sum()):
+            fail(f"ap-kernel: {steps} steps launched, {int((pc > 0).sum())} live at {p.name} B={B} {kind}")
+        if kind == "zero" and (steps != 0 or not torch.equal(got, acc)):
+            fail(f"ap-kernel: an all-zero batch of {B} changed the accumulator or launched a step")
+    try:
+        ap.blind_rotate_ap(acc, ext.transpose(1, 2).contiguous().transpose(1, 2), a2N, std2)
+    except ValueError as e:
+        log("ap-kernel", t0, f"a transposed ap_ext on the card is refused: {e}")
+    else:
+        fail("ap-kernel: a non-compact ap_ext on the card was not refused")
     # one STD128_OPT rotation digit i (d_r = 11 steps, all live), per step
     p = dataclasses.replace(STD128_OPT, n=1)
     acc, ext, a2N = _ap_inputs(p, 2048, seed=8, kind="any")
@@ -858,17 +840,14 @@ def phase_ap_sweep():
     """#13's step by batch size against its bound (mod-switch amounts, the
     traffic circuits and gate batches send; per step of the n*d_r, dead
     ones included), and at B = 4 and 2048 its kernels' device times and
-    launch gaps per step from the profiler's timeline.  Also runs on a
-    package whose AP kernel builds a block per step (the parent's)."""
+    launch gaps per step from the profiler's timeline."""
     from oece_tpu_torch.fhe import ap
     from oece_tpu_torch.fhe.params import STD128_OPT
 
     t0 = time.time()
     p = dataclasses.replace(STD128_OPT, n=8)
     steps = p.n * p.d_r
-    new = hasattr(ap, "live_table")
-    names = (("ap_live_kernel", "ap_digits_kernel", "ap_split_kernel", "ap_gemm_kernel") if new else
-             ("rev_build_kernel", "decompose_kernel", "int8_mm_kernel"))
+    names = ("ap_live_kernel", "ap_digits_kernel", "ap_split_kernel", "ap_gemm_kernel")
     res = {}
     for B in (1, 4, 8, 16, 64, 256, 1024, 2048):
         acc, ext, a2N = _ap_inputs(p, B, seed=950 + B)
@@ -1157,16 +1136,12 @@ def phase_std_sweep():
     """The standard-form step on ginx_ext by batch size (a rotation over 16
     distinct random step keys; CUDA events) against its bound, and at B =
     4 and 2048 the step split into its kernels and the launch gaps
-    (torch.profiler's kernel timeline).  On a package whose std step loop
-    is the old one (build, digits, mma.sync matmul, CMUX) it times that
-    route, to compare trees in one call."""
+    (torch.profiler's kernel timeline)."""
     from oece_tpu_torch.fhe import std
     from oece_tpu_torch.fhe.params import STD128_OPT
 
     t0 = time.time()
     p = dataclasses.replace(STD128_OPT, n=16)
-    new = hasattr(std, "build_diagonals_kmajor")
-    names = STD_NAMES if new else OLD_STD_NAMES
     res = {}
     for B in (1, 4, 8, 16, 64, 256, 1024, 2048):
         acc, ext, a2N = rotation_inputs(p, B, p.n, "ginx_ext", seed=850 + B)
@@ -1178,7 +1153,7 @@ def phase_std_sweep():
             f"({bnd[1]}), {bnd[0] / ms:.1%} of the bound; with the block written and read once "
             f"{1e3 * blk[0]:.1f} us ({blk[1]})")
         if B in (4, 2048):
-            per, counts, idle = kernel_timeline(rotate, names, p.n, want=(3 * p.n + 1) if new else 4 * p.n)
+            per, counts, idle = kernel_timeline(rotate, STD_NAMES, p.n, want=3 * p.n + 1)
             res[B].update(kernels_ms=per, launches=counts, gap_ms=idle)
             log("std-sweep", t0, f"B={B} per step (profiler timeline): "
                 + ", ".join(f"{k} {1e3 * v:.2f} us ({counts[k]} launches)" for k, v in per.items())
@@ -1235,14 +1210,13 @@ def phase_rev_kernel():
     block on the card refused; no kernel of csrc/std_step.cu in the
     rotation.  Then a STD128_OPT rotation at B=2048 over 8 distinct
     blocks: timed whole (CUDA events) and per kernel (device time), with
-    bounds.  On a package whose rev kernels read the row-major key (the
-    parent's), the same checks run on that key."""
+    bounds.  Each rotation's line prints the step GEMM that rot.gemm_config
+    chooses (NB, MW, split)."""
     import torch
-    from oece_tpu_torch.fhe import rev
+    from oece_tpu_torch.fhe import rev, rot
     from oece_tpu_torch.fhe.params import MICRO, STD128, STD128_OPT, TOY
 
     t0 = time.time()
-    new = hasattr(rev, "gemm_config")
     std8 = dataclasses.replace(STD128_OPT, n=8)
     cases = [(std8, B) for B in REV_BATCHES]
     cases += [(dataclasses.replace(q, n=n), B) for q, n in ((STD128, 2), (MICRO, 4), (TOY, 3))
@@ -1252,8 +1226,8 @@ def phase_rev_kernel():
     for i, (p, B) in enumerate(cases):
         acc, rev_all, a2N = rotation_inputs(p, B, p.n, "rev", seed=400 + i)
         got = rev.blind_rotate_rev(acc, card_rev(rev_all), a2N, p)
-        what = (f"rotation {p.name} N={p.N} R={2 * p.d_g_used} n={p.n} B={B}"
-                + (f" {rev.gemm_config(B, p.N, p.d_g_used)}" if new else ""))
+        what = (f"rotation {p.name} N={p.N} R={2 * p.d_g_used} n={p.n} B={B} "
+                f"{rot.gemm_config(B, p.N, 2 * p.d_g_used, 4)}")
         err = max(err, _check_same("rev-kernel", what, got, rev.blind_rotate_rev_plain(acc, rev_all, a2N, p), t0))
         if not torch.equal(got[0], acc[0]):
             fail(f"rev kernel changed the a=0 lane at {p.name} B={B}")
@@ -1283,34 +1257,29 @@ def phase_rev_kernel():
     acc, rev_all, a2N = rotation_inputs(std8, B, n, "rev", seed=400 + len(cases))
     key = card_rev(rev_all)
     rotate = lambda: rev.blind_rotate_rev(acc, key, a2N, p)  # noqa: E731
-    if new:
-        for bad in ((lambda: rev.blind_rotate_rev(acc, rev_all, a2N, p)),
-                    (lambda: rev.window_matmul_true(dig, rev_all[0], R, p.Q)),
-                    (lambda: rev.window_matmul_dec_true(acc, rev_all[0], p))):
-            try:
-                bad()
-            except ValueError as e:
-                log("rev-kernel", t0, f"a row-major key or block on the card is refused: {e}")
-            else:
-                fail("rev-kernel: a row-major rev key or block on the card was not refused")
-        for Bn in (4, B):
-            acc_n, a_n = acc[:Bn].contiguous(), a2N[:Bn].contiguous()
-            names = kernel_names(lambda: rev.blind_rotate_rev(acc_n, key, a_n, p))
-            old = [k for k in names if any(o in k for o in ("int8_mm_kernel", "std_cmux_kernel", "decompose_kernel"))]
-            if old or not any("rev_gemm" in k for k in names):
-                fail(f"rev-kernel: the rotation at B={Bn} launched {sorted(names)}: want rev_step.cu's only")
-            log("rev-kernel", t0, f"kernels of the B={Bn} rotation: {sorted(k[:48] for k in names)}")
+    for bad in ((lambda: rev.blind_rotate_rev(acc, rev_all, a2N, p)),
+                (lambda: rev.window_matmul_true(dig, rev_all[0], R, p.Q)),
+                (lambda: rev.window_matmul_dec_true(acc, rev_all[0], p))):
+        try:
+            bad()
+        except ValueError as e:
+            log("rev-kernel", t0, f"a row-major key or block on the card is refused: {e}")
+        else:
+            fail("rev-kernel: a row-major rev key or block on the card was not refused")
+    for Bn in (4, B):
+        acc_n, a_n = acc[:Bn].contiguous(), a2N[:Bn].contiguous()
+        names = kernel_names(lambda: rev.blind_rotate_rev(acc_n, key, a_n, p))
+        old = [k for k in names if any(o in k for o in ("int8_mm_kernel", "std_cmux_kernel", "decompose_kernel"))]
+        if old or not any("rev_gemm" in k for k in names):
+            fail(f"rev-kernel: the rotation at B={Bn} launched {sorted(names)}: want rev_step.cu's only")
+        log("rev-kernel", t0, f"kernels of the B={Bn} rotation: {sorted(k[:48] for k in names)}")
     res = {"step": {"max_abs_err": err, "ms": cuda_time_ms(rotate, reps=5) / n,
                     "plain_ms": cuda_time_ms(lambda: rev.blind_rotate_rev_plain(acc, rev_all, a2N, p), reps=1) / n}}
     # per step from the profiler's timeline: under programmatic dependent
-    # launch a kernel's own duration includes its wait for its predecessor
-    if new:  # the digits kernel runs once more per rotation, for the last CMUX
-        per, _, _ = kernel_timeline(rotate, ("rev_digits_kernel", "rev_gemm"), n, want=2 * n + 1)
-        dev = {"digits": per["rev_digits_kernel"], "matmul": per["rev_gemm"], "cmux": per["rev_digits_kernel"]}
-    else:
-        names = {"digits": "decompose_kernel", "matmul": "int8_mm_kernel", "cmux": "std_cmux_kernel"}
-        per, _, _ = kernel_timeline(rotate, tuple(names.values()), n, want=3 * n)
-        dev = {k: per[v] for k, v in names.items()}
+    # launch a kernel's own duration includes its wait for its predecessor;
+    # the digits kernel runs once more per rotation, for the last CMUX
+    per, _, _ = kernel_timeline(rotate, ("rev_digits_kernel", "rev_gemm"), n, want=2 * n + 1)
+    dev = {"digits": per["rev_digits_kernel"], "matmul": per["rev_gemm"], "cmux": per["rev_digits_kernel"]}
     dig = torch.randint(-128, 128, (B, nt * R * 128), generator=g, device="cuda", dtype=torch.int8)
     P4 = rev.window_matmul_true_plain(dig, rev_all[0], p.Q)
     amt = torch.stack([(2 * p.N - a2N[:, 0]) & (2 * p.N - 1), a2N[:, 0]], dim=1).contiguous()
@@ -1320,14 +1289,14 @@ def phase_rev_kernel():
         "matmul_dec": lambda: rev.window_matmul_dec_true_plain(acc, rev_all[0], p),
         "cmux": lambda: rev.cmux_epilogue_true_plain(P, acc, amt, p.Q),
     }
-    # #8 is the GEMM, #9 the digits kernel and the GEMM; on the new route the
-    # CMUX of #10 runs inside the digits kernel, which is timed whole
+    # #8 is the GEMM, #9 the digits kernel and the GEMM; the CMUX of #10
+    # runs inside the digits kernel, which is timed whole
     res["window_matmul"] = {"ms": dev["matmul"]}
     res["matmul_dec"] = {"ms": dev["digits"] + dev["matmul"]}
     res["cmux"] = {"ms": dev["cmux"]}
     ops_mm = 2.0 * B * nt * (nt * R * 128) * 16 * 128
     blk, acc_b, P4_b = rev_all[0].numel(), acc.numel() * 4, P4.numel() * 4
-    cmux_bytes = P4_b + 2 * acc_b + amt.numel() * 4 + (dig.numel() if new else 0)
+    cmux_bytes = P4_b + 2 * acc_b + amt.numel() * 4 + dig.numel()
     bounds = {  # (int8 operations, bytes) the function needs
         "window_matmul": (ops_mm, dig.numel() + blk + P4_b),
         "matmul_dec": (ops_mm, acc_b + blk + P4_b),
@@ -1347,16 +1316,13 @@ def phase_rev_kernel():
 def phase_rev_sweep():
     """The rev step by batch size against its bound (sweep_cases; a
     rotation over 16 distinct random blocks, so each step reads its block
-    from HBM; CUDA events), and where the case says so the step split into
-    its kernels and the launch gaps (torch.profiler's kernel timeline).  On
-    a package whose rev kernels read the row-major key (the parent's) it
-    times that route."""
-    from oece_tpu_torch.fhe import rev
+    from HBM; CUDA events), with the step GEMM that rot.gemm_config
+    chooses, and where the case says so the step split into its kernels
+    and the launch gaps (torch.profiler's kernel timeline)."""
+    from oece_tpu_torch.fhe import rev, rot
     from oece_tpu_torch.fhe.params import STD128, STD128_OPT
 
     t0 = time.time()
-    new = hasattr(rev, "gemm_config")
-    names = ("rev_digits_kernel", "rev_gemm") if new else ("decompose_kernel", "int8_mm_kernel", "std_cmux_kernel")
     res = {}
     for p, B, split in sweep_cases(dataclasses.replace(STD128_OPT, n=16), dataclasses.replace(STD128, n=16)):
         acc, rev_all, a2N = rotation_inputs(p, B, p.n, "rev", seed=800 + B + 10000 * (p.d_g_used == 4))
@@ -1365,12 +1331,13 @@ def phase_rev_sweep():
         rotate = lambda: rev.blind_rotate_rev(acc, key, a2N, p)  # noqa: E731
         ms = cuda_time_ms(rotate, reps=10 if B < 1024 else 3) / p.n
         bnd = _rev_step_bound(p, B)
+        gemm = rot.gemm_config(B, p.N, 2 * p.d_g_used, 4)
         r = res[B if p.name == "STD128_OPT" else f"{p.name} B={B}"] = {
-            "ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1]}
-        log("rev-sweep", t0, f"{p.name} step B={B}: {1e3 * ms:.1f} us, bound {1e3 * bnd[0]:.1f} us "
-            f"({bnd[1]}), {bnd[0] / ms:.1%} of the bound")
+            "ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1], "gemm_config": gemm}
+        log("rev-sweep", t0, f"{p.name} step B={B} (NB, MW, split) {gemm}: {1e3 * ms:.1f} us, bound "
+            f"{1e3 * bnd[0]:.1f} us ({bnd[1]}), {bnd[0] / ms:.1%} of the bound")
         if split:
-            per, counts, idle = kernel_timeline(rotate, names, p.n, want=(2 if new else 3) * p.n + new)
+            per, counts, idle = kernel_timeline(rotate, ("rev_digits_kernel", "rev_gemm"), p.n, want=2 * p.n + 1)
             r.update(kernels_ms=per, launches=counts, gap_ms=idle)
             log("rev-sweep", t0, f"{p.name} B={B} per step (profiler timeline): "
                 + ", ".join(f"{k} {1e3 * v:.2f} us ({counts[k]} launches)" for k, v in per.items())
@@ -1457,8 +1424,7 @@ def phase_neg_kernel():
     widths, #3 and #5 also at the ragged edges of the GEMM's 128-gate tile
     and at N=512, #2 at the edges of its GEMMs' gate tiles, #1 and #7 at
     both plane counts and N=512; then their device times, plain times,
-    bounds and library calls.  On a parent's package #2 is its mma.sync
-    int8_mm_kernel."""
+    bounds and library calls."""
     import itertools
 
     import torch
@@ -1531,7 +1497,6 @@ def phase_neg_kernel():
     ext, block = ext16, ng.build_diagonals(ext16)
     conj = ng.build_rev_conj(ext)
     blocks = [ng.build_diagonals(rand8(R, 16, 2 * N)) for _ in range(8)]  # 126 MB, > L2
-    new = new_window()
     res = {}
     for B in (4, 2048):
         dig, P, acc, amt = inputs[B]
@@ -1541,13 +1506,11 @@ def phase_neg_kernel():
         # #2: the transpose, then #8's GEMM; the split GEMM (B <= 16) adds
         # partial sums that rev_reduce_kernel takes mod Q (its zeroing
         # memset, 64 KB at B=4, is not timed)
-        window_names = (("transpose_kernel", "rev_gemm") + (("rev_reduce_kernel",) if B <= 16 else ())) \
-            if new else ("int8_mm_kernel",)
-        if new:
-            names = kernel_names(lambda: ng.window_matmul(dig, block, R, Q))
-            if any("int8_mm_kernel" in k for k in names) or not all(any(n in k for k in names) for n in window_names):
-                fail(f"neg-kernel: #2 at B={B} launched {sorted(names)}: want {window_names}, no int8_mm_kernel")
-            log("neg-kernel", t0, f"kernels of #2 at B={B}: {sorted(k[:48] for k in names)}")
+        window_names = ("transpose_kernel", "rev_gemm") + (("rev_reduce_kernel",) if B <= 16 else ())
+        names = kernel_names(lambda: ng.window_matmul(dig, block, R, Q))
+        if any("int8_mm_kernel" in k for k in names) or not all(any(n in k for k in names) for n in window_names):
+            fail(f"neg-kernel: #2 at B={B} launched {sorted(names)}: want {window_names}, no int8_mm_kernel")
+        log("neg-kernel", t0, f"kernels of #2 at B={B}: {sorted(k[:48] for k in names)}")
         kernels = {  # name: (call, its plain twin, its device kernels, (int8 ops, bytes))
             "window": (lambda: ng.window_matmul(dig, block, R, Q), lambda: ng.window_matmul_plain(dig, block, Q),
                        window_names, (mm_ops, dig.numel() + block.numel() + comb)),
@@ -2805,7 +2768,10 @@ def main() -> None:
     for name in sys.argv[1:] or PHASES:
         res[name] = PHASES[name]()
     print(f"total {time.time() - t_all:.1f}s", flush=True)
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
     if sys.argv[1:]:
+        print(json.dumps({"ok": True, "device": device, "phases": sys.argv[1:]}), flush=True)
         return
 
     std_res, rev_res = res["std-kernel"], res["rev-kernel"]
@@ -2841,11 +2807,7 @@ def main() -> None:
               ("build_conj", "int8_mm.cuh", 687, "build_rev_conj"),
               ("build", "int8_mm.cuh", 71, "build_diagonals"))],
     ]}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu",
-        "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}), flush=True)
+    print(json.dumps({"ok": True, "device": device}), flush=True)
 
 
 if __name__ == "__main__":

@@ -33,7 +33,9 @@
 //       only finalizes.
 //   the step GEMM    64 key columns (the 4 limbs of 16 coefficients of one
 //       output poly) on wgmma's M and the live gates on its N, as
-//       rot_step.cu's two GEMMs, with the digits fed by TMA:
+//       rot_step.cu's two GEMMs, with the digits fed by TMA; the host loop
+//       picks each live step's instance by L (step_gemm.cuh: gemm_tile,
+//       rot.py's gemm_config, and with_tile):
 //     ap_split_kernel<NB>  (L <= 16, NB = 8 or 16) a block owns one column
 //       chunk and a group of dpg diagonals; one m64n(8NB)k32 per 32 bytes
 //       serves all 8 output tiles against digit tiles kept in shared
@@ -121,13 +123,11 @@ namespace apg {
 using rotg::CHUNK;
 using rotg::COLS;
 using rotg::Cfg;
-using rotg::SMEM_MAX;
 using rotg::Shape;
 using rotg::tile_coords;
 
 constexpr int BK = wgmm::BK;
 constexpr int A_TILE = COLS * BK;  // one 64 x 128-byte key tile
-constexpr int SPLIT_GROUPS = 8;    // diagonal groups of the split GEMM, at most
 constexpr int SPLIT_MAX = 16;      // live gates of the split GEMM, at most
 
 // The live-gate table of one step: bit b%32 of mask[w] says whether gate
@@ -578,12 +578,6 @@ cudaError_t run_tiled(Rotation& A, int slot, const int8_t* ext_s, int L) {
                       C::SMEM, A.st, *map, ext_s, A.res, g);
 }
 
-// Whether L live gates take the split GEMM (ap.py: gemm_config).
-bool split_fits(const Rotation& A, int L) {
-  return L <= SPLIT_MAX && A.N / T <= 8 &&
-         split_smem(L <= 8 ? 8 : 16, A.R, A.dpg) <= SMEM_MAX;
-}
-
 }  // namespace apg
 }  // namespace
 
@@ -609,8 +603,10 @@ extern "C" int oece_blind_rotate_ap(void* acc, void* res, void* sums, void* dig,
                                     int Q, void* stream) {
   using namespace apg;
   if (d_used > MAX_DIGITS) return (int)cudaErrorInvalidValue;
-  const int nt = N / T, R = 2 * d_used;
-  const int dpg = (2 * nt - 1 + SPLIT_GROUPS - 1) / SPLIT_GROUPS;
+  const int R = 2 * d_used, dpg = rotg::split_dpg(N, 2);
+  // where the split GEMM of 8 and of 16 live gates fits (rotg::gemm_tile)
+  const bool fits[2] = {rotg::split_fits(N, split_smem(8, R, dpg)),
+                        rotg::split_fits(N, split_smem(16, R, dpg))};
   Rotation A{(int*)acc, (int*)res, (int*)sums, (int8_t*)dig, (const int8_t*)ap_ext,
              Live{(const uint32_t*)mask, (const int*)rank0, (B + 31) / 32},
              B, L_max, N, R, d_used, log_bg, shift, Q, dpg, (cudaStream_t)stream};
@@ -622,22 +618,18 @@ extern "C" int oece_blind_rotate_ap(void* acc, void* res, void* sums, void* dig,
     const int L = count[s];
     if (L == 0) continue;
     const int8_t* ext_s = A.ap_ext + s * ext_step;
-    const bool split = split_fits(A, L);
+    const int NB = rotg::gemm_tile(L, fits);
+    const bool split = NB <= 16;
     int* out = split ? A.sums + (live_steps & 1) * sum_plane : A.res;
     e = digits(A, prev_res, prev, split ? out : nullptr, s);
     if (e != cudaSuccess) break;
-    if (split)
-      e = L <= 8 ? run_split<8>(A, ext_s, out, L) : run_split<16>(A, ext_s, out, L);
-    else if (L <= 32)
-      e = run_tiled<32, 1>(A, 2, ext_s, L);
-    else if (L <= 64)
-      e = run_tiled<64, 1>(A, 3, ext_s, L);
-    else if (L <= 128)
-      e = run_tiled<128, 1>(A, 4, ext_s, L);
-    else if (L <= 256)
-      e = run_tiled<256, 1>(A, 5, ext_s, L);
-    else
-      e = run_tiled<256, 2>(A, 6, ext_s, L);
+    e = (cudaError_t)rotg::with_tile(NB, L, fits[NB == 16], [&](auto t) {
+      using Tl = decltype(t);
+      if constexpr (Tl::SPLIT)
+        return (int)run_split<Tl::NB>(A, ext_s, out, L);
+      else
+        return (int)run_tiled<Tl::NB, Tl::MW>(A, Tl::INDEX, ext_s, L);
+    });
     prev_res = out;
     prev = s;
     ++live_steps;

@@ -88,21 +88,21 @@ extern "C" int oece_diag_matmul(const void* dig, const void* block, void* blockT
 }
 
 // #8 alone (rev_step.cu).
-extern "C" int oece_rev_window_matmul(const void* dig, const void* blockT, void* out, int B, int N,
-                                      int R, int polys, int Q, void* stream);
+extern "C" int oece_rev_window_matmul(const void* dig, const void* blockT, void* out, int B, int nb,
+                                      int N, int R, int polys, int Q, void* stream);
 
 // #2: dig int8 [B, nt*R*T] x one step's row-major block int8
 // [(2nt-1)*R*T, 4*polys*T] -> out int32 [B, polys, N] mod Q in two
 // launches: the block transposed into blockT (scratch of its size, K-major
-// [4*polys, T, rows]), then #8 on it.
+// [4*polys, T, rows]), then #8 on it with the GEMM of gate tile nb.
 extern "C" int oece_window_matmul(const void* dig, const void* block, void* blockT, void* out, int B,
-                                  int N, int R, int polys, int Q, void* stream) {
+                                  int nb, int N, int R, int polys, int Q, void* stream) {
   if (polys != 4 && polys != 2) return (int)cudaErrorInvalidValue;
   const int rows = (2 * (N / T) - 1) * R * T, cols = 4 * polys * T;
   wgmm::transpose_kernel<<<dim3(cols / 128, rows / 128), 256, 0, (cudaStream_t)stream>>>(
       (const int8_t*)block, (int8_t*)blockT, rows, cols);
   const int rc = check_launch();
-  return rc ? rc : oece_rev_window_matmul(dig, blockT, out, B, N, R, polys, Q, stream);
+  return rc ? rc : oece_rev_window_matmul(dig, blockT, out, B, nb, N, R, polys, Q, stream);
 }
 
 // #5: dig int8 [B, nt*R*T] x the negacyclic product of one step's compact

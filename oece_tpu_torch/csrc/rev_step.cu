@@ -71,8 +71,9 @@
 //       so the CMUX cannot move into the GEMM's epilogue (a rotation
 //       crosses output tiles).  After the last step it runs once more
 //       without digits: the last CMUX alone.
-//   the step GEMM (rev.py: gemm_config)
-//     rev_gemm_split_kernel<NB>  (B <= 16, NB = 8 or 16) each key tile is
+//   the step GEMM, the instance of the gate tile NB that the caller passes
+//   (rot.py: gemm_config; step_gemm.cuh: with_tile)
+//     rev_gemm_split_kernel<NB>  (NB = 8 or 16, B <= NB) each key tile is
 //       read once per step: a block owns one column chunk and dpg of the
 //       2nt-1 diagonals (at most 128 blocks: 4 diagonal groups of 32
 //       chunks at 16 planes), one m64n(8NB)k32 wgmma per 32 bytes serves
@@ -83,8 +84,8 @@
 //       for the digits kernel, as in rot_step.cu.  The sums
 //       ping-pong between two buffers: the next digits kernel reads the
 //       one at rotated positions while it zeroes the other.
-//     rev_gemm_kernel<NB, MW>  (B > 16, NB = 32 .. 256, two math
-//       warpgroups above 256 gates) persistent blocks walk tiles of
+//     rev_gemm_kernel<NB, MW>  (NB = 32 .. 256, two math warpgroups at
+//       NB = 256 above 256 gates) persistent blocks walk tiles of
 //       (output tile k, MW column chunks, NB gates), from digits padded
 //       with zero rows to the gate tile, as in rot_step.cu, and write P
 //       in [0, Q) with the limb combine in the epilogue.
@@ -243,7 +244,6 @@ namespace revg {
 using rotg::Cfg;
 using rotg::CHUNK;
 using rotg::Shape;
-using rotg::SMEM_MAX;
 
 // P = the limb-combined products of key step `step` in [0, Q), out
 // [B, polys, N]; step_gemm.cuh's gemm_tiled.
@@ -263,8 +263,6 @@ __global__ void __launch_bounds__(256, 1) rev_gemm_split_kernel(
   rotg::gemm_split<NB>(&dig_map, &key_map, sum, g, step, dpg, early);
 }
 
-constexpr int SPLIT_BLOCKS = 128;  // the split GEMM's blocks, at most: one wave on 132 SMs
-
 enum Mode { ROTATE, MATMUL_DEC, MATMUL };
 
 // A run of the GEMM against the K-major key keyT [n, 4*polys, T,
@@ -277,6 +275,7 @@ enum Mode { ROTATE, MATMUL_DEC, MATMUL };
 //   MATMUL_DEC  #9: the digits of acc into dig, then the GEMM into prod =
 //               the output [B, polys, N];
 //   MATMUL      #8: the GEMM on the given digits into prod.
+// NB is the GEMM's gate tile (rot.py: gemm_config).
 struct Run {
   Mode mode;
   int* acc;
@@ -289,14 +288,8 @@ struct Run {
   cudaStream_t st;
   const int8_t* ext;
   int dig_rows;  // rows of dig (>= B); from B on zero
+  int NB;
 };
-
-// (diagonals per group) of the split GEMM: the 2nt-1 diagonals in at most
-// SPLIT_BLOCKS / (polys * T/16) groups (rev.py: split_groups).
-int split_dpg(int N, int polys) {
-  const int ndiag = 2 * (N / T) - 1, groups = SPLIT_BLOCKS / (polys * (T / CHUNK));
-  return (ndiag + groups - 1) / groups;
-}
 
 cudaError_t digits(const Run& A, const int* P, int summed, int* sum_zero, int pstep, int8_t* dig) {
   return rotg::launch(rev_digits_kernel, blocks_for((long long)A.B * 2 * A.N / 4), 256, 0, A.st,
@@ -371,41 +364,39 @@ int run(const Run& A, int dpg) {
   return (int)(e == cudaSuccess ? cudaGetLastError() : e);
 }
 
-// The GEMM for B gates (rev.py: gemm_config): up to 16 gates the split
-// GEMM where its shared memory holds the digits it needs (nt <= 8), else
-// the narrowest NB >= B, two math warpgroups on one 256-gate digit tile
-// above 256 gates.  The digits kernel of ROTATE and MATMUL_DEC needs R =
-// 2*d_used, d_used <= MAX_DIGITS.
+// The run with the GEMM instance of the given gate tile A.NB.  The digits
+// kernel of ROTATE and MATMUL_DEC needs R = 2*d_used, d_used <=
+// MAX_DIGITS.
 int dispatch(const Run& A) {
   const bool digits = A.mode == ROTATE || A.mode == MATMUL_DEC;
   if (A.R < 1 || (digits && (A.R % 2 || A.R / 2 > MAX_DIGITS)) || A.n < 1 ||
-      (A.polys != 4 && A.polys != 2) || A.N % T)
+      (A.polys != 4 && A.polys != 2) || A.N % T || A.dig_rows < A.B)
     return (int)cudaErrorInvalidValue;
-  const int nt = A.N / T, NB = A.B <= 8 ? 8 : 16, dpg = split_dpg(A.N, A.polys);
-  if (A.B <= 16 && nt <= 8 && rotg::split_smem(NB, A.R, dpg) <= SMEM_MAX)
-    return NB == 8 ? run<8, 1, true>(A, dpg) : run<16, 1, true>(A, dpg);
-  if (A.B <= 32) return run<32, 1, false>(A, 1);
-  if (A.B <= 64) return run<64, 1, false>(A, 1);
-  if (A.B <= 128) return run<128, 1, false>(A, 1);
-  if (A.B <= 256) return run<256, 1, false>(A, 1);
-  return run<256, 2, false>(A, 1);
+  const int dpg = rotg::split_dpg(A.N, A.polys);
+  return rotg::with_tile(A.NB, A.B, rotg::split_fits(A.N, rotg::split_smem(A.NB, A.R, dpg)),
+                         [&](auto t) {
+                           using Tl = decltype(t);
+                           return run<Tl::NB, Tl::MW, Tl::SPLIT>(A, dpg);
+                         });
 }
 
 }  // namespace revg
 }  // namespace
 
 // The whole rotation: n steps of (digits with the previous CMUX, GEMM),
-// then the last CMUX, on acc int32 [B, 2, N] in place.  prod is int32
-// scratch [B, 4, N] (tiled GEMM, B > 16) or [2, B, 4, N] (split GEMM),
-// dig int8 scratch [dig_rows, nt*RT], its rows from B on zero, for the
-// tiled GEMM B rounded up to its gate tile (rev.py: step_digits), keyT
-// the K-major rev key [n, 16, T, (2nt-1)*RT], a2N int32 [B, n].  Returns
-// 0 or the first cudaError_t of a launch.
+// then the last CMUX, on acc int32 [B, 2, N] in place.  nb is the GEMM's
+// gate tile (rot.py: gemm_config; 8 or 16 the split GEMM); prod is int32
+// scratch [B, 4, N] (tiled GEMM) or [2, B, 4, N] (split GEMM), dig int8
+// scratch [dig_rows, nt*RT], its rows from B on zero, B rounded up to nb
+// (rev.py: step_scratch), keyT the K-major rev key [n, 16, T,
+// (2nt-1)*RT], a2N int32 [B, n].  Returns 0 or the first cudaError_t of a
+// launch (cudaErrorInvalidValue for a tile the loop has no instance of).
 extern "C" int oece_blind_rotate_rev(void* acc, void* prod, void* dig, const void* keyT,
-                                     const void* a2N, int B, int dig_rows, int n, int N, int d_used,
-                                     int log_bg, int shift, int Q, void* stream) {
+                                     const void* a2N, int B, int nb, int dig_rows, int n, int N,
+                                     int d_used, int log_bg, int shift, int Q, void* stream) {
   const revg::Run A{revg::ROTATE, (int*)acc, (int*)prod, (int8_t*)dig, keyT, 4, (const int*)a2N,
-                    B, n, N, 2 * d_used, log_bg, shift, Q, (cudaStream_t)stream, nullptr, dig_rows};
+                    B, n, N, 2 * d_used, log_bg, shift, Q, (cudaStream_t)stream, nullptr, dig_rows,
+                    nb};
   return revg::dispatch(A);
 }
 
@@ -414,12 +405,12 @@ extern "C" int oece_blind_rotate_rev(void* acc, void* prod, void* dig, const voi
 // last CMUX, on acc in place; ring int8 scratch [2, 16, T, (2nt-1)*RT],
 // the rest as oece_blind_rotate_rev's.
 extern "C" int oece_blind_rotate_std(void* acc, void* prod, void* dig, void* ring,
-                                     const void* ginx_ext, const void* a2N, int B, int dig_rows,
-                                     int n, int N, int d_used, int log_bg, int shift, int Q,
-                                     void* stream) {
+                                     const void* ginx_ext, const void* a2N, int B, int nb,
+                                     int dig_rows, int n, int N, int d_used, int log_bg, int shift,
+                                     int Q, void* stream) {
   const revg::Run A{revg::ROTATE, (int*)acc, (int*)prod, (int8_t*)dig, ring, 4, (const int*)a2N,
                     B, n, N, 2 * d_used, log_bg, shift, Q, (cudaStream_t)stream,
-                    (const int8_t*)ginx_ext, dig_rows};
+                    (const int8_t*)ginx_ext, dig_rows, nb};
   return revg::dispatch(A);
 }
 
@@ -434,21 +425,23 @@ extern "C" int oece_std_build(const void* ext, void* out, int N, int R, void* st
 
 // #8 alone: dig int8 [B, nt*R*T] x the K-major block blockT int8
 // [4*polys, T, (2nt-1)*R*T] -> out int32 [B, polys, N] mod Q, polys = 4
-// (M = 16) or 2 (M = 8).
-extern "C" int oece_rev_window_matmul(const void* dig, const void* blockT, void* out, int B, int N,
-                                      int R, int polys, int Q, void* stream) {
+// (M = 16) or 2 (M = 8), with the GEMM of gate tile nb (rot.py:
+// gemm_config).
+extern "C" int oece_rev_window_matmul(const void* dig, const void* blockT, void* out, int B, int nb,
+                                      int N, int R, int polys, int Q, void* stream) {
   const revg::Run A{revg::MATMUL, nullptr, (int*)out, (int8_t*)dig, blockT, polys, nullptr,
-                    B, 1, N, R, 0, 0, Q, (cudaStream_t)stream, nullptr, B};
+                    B, 1, N, R, 0, 0, Q, (cudaStream_t)stream, nullptr, B, nb};
   return revg::dispatch(A);
 }
 
 // #9 alone: the gadget digits of acc int32 [B, 2, N] into scratch dig
-// [dig_rows, nt*RT] (as oece_blind_rotate_rev's), then #8 against blockT
-// into out.
+// [dig_rows, nt*RT] (as oece_blind_rotate_rev's, for gate tile nb), then
+// #8 against blockT into out.
 extern "C" int oece_rev_matmul_dec(const void* acc, void* dig, const void* blockT, void* out,
-                                   int B, int dig_rows, int N, int d_used, int log_bg, int shift,
-                                   int polys, int Q, void* stream) {
+                                   int B, int nb, int dig_rows, int N, int d_used, int log_bg,
+                                   int shift, int polys, int Q, void* stream) {
   const revg::Run A{revg::MATMUL_DEC, (int*)acc, (int*)out, (int8_t*)dig, blockT, polys, nullptr,
-                    B, 1, N, 2 * d_used, log_bg, shift, Q, (cudaStream_t)stream, nullptr, dig_rows};
+                    B, 1, N, 2 * d_used, log_bg, shift, Q, (cudaStream_t)stream, nullptr, dig_rows,
+                    nb};
   return revg::dispatch(A);
 }

@@ -25,11 +25,13 @@
 // 64-row A tile.  Both GEMMs put these 64 key columns (the 4 limbs of 16
 // coefficients of one output poly) on wgmma's M and the gates on its N
 // ("swap AB"), so the 4 limb sums of a coefficient meet in one warpgroup
-// and a narrow batch pays for no padded rows:
+// and a narrow batch pays for no padded rows.  The caller passes the gate
+// tile NB, which rot.py's gemm_config chooses from B, and the loop runs
+// that instance (step_gemm.cuh: with_tile):
 //
-//   rot_gemm_kernel<NB, MW>    (B > 16) persistent blocks walk tiles of
-//       (output tile k, MW column chunks, NB gates), NB = 32 .. 256 from B;
-//       at B = 2048 two math warpgroups share each 256-gate digit tile, the
+//   rot_gemm_kernel<NB, MW>    (NB = 32 .. 256) persistent blocks walk tiles
+//       of (output tile k, MW column chunks, NB gates); at NB = 256 above
+//       256 gates two math warpgroups share each 256-gate digit tile, the
 //       shape of wgmma_mm.cuh's GEMM for #3.  The digits are read from
 //       scratch whose rows run to the last gate tile's end, zeros from B
 //       on: where the TMA unit filled rows past the end of the map with
@@ -43,7 +45,7 @@
 //       its acc_in values before the tile's products, so their latency
 //       hides behind the MMAs (waited for in the epilogue, they cost a
 //       third of the step at B = 2048).
-//   rot_gemm_split_kernel<NB>  (B <= 16) each key tile is read once per
+//   rot_gemm_split_kernel<NB>  (NB = 8 or 16) each key tile is read once per
 //       step: a block owns a column chunk and 2 of the block's 15
 //       diagonals, and one wgmma per 32 bytes serves all 8 output tiles
 //       (below); the partial sums meet in an int32 sum by atomics, which
@@ -212,9 +214,9 @@ __global__ void __launch_bounds__(256, 1) rot_gemm_split_kernel(
 // below B, the rest stay as they are: zeros, which the GEMMs' boxes read
 // up to the last gate tile's end), sums int32 scratch [2, B, 2, N] (the
 // split GEMM's).  `early`: no kernel writes the key during the call, so
-// the split GEMM issues key tiles before it waits (gemm_split).
-// Step i reads the accumulator in bufs[i%2]; the result ends in
-// bufs[n%2].
+// the split GEMM issues key tiles before it waits (gemm_split).  NB: the
+// GEMM's gate tile (rot.py: gemm_config).  Step i reads the accumulator in
+// bufs[i%2]; the result ends in bufs[n%2].
 struct Loop {
   int* bufs[2];
   int8_t* dig;
@@ -223,11 +225,9 @@ struct Loop {
   const void* keyT;
   int key_steps;
   const int* amt;
-  int a_stride, pair, B, n, N, d_used, log_bg, shift, Q, early;
+  int a_stride, pair, B, NB, n, N, d_used, log_bg, shift, Q, early;
   cudaStream_t st;
 };
-
-constexpr int SPLIT_GROUPS = 8;  // diagonal groups of the split GEMM, at most
 
 Shape shape_of(const Loop& L, int NB, int MW) {
   return step_shape(L.B, L.N, L.Q, 4 * L.d_used * T, 2, NB, MW);
@@ -293,38 +293,36 @@ int run_split(const Loop& L, int dpg) {
   return (int)(e == cudaSuccess ? cudaGetLastError() : e);
 }
 
-// The GEMM for B gates (rot.py: gemm_config): up to 16 gates the split
-// GEMM where its shared memory holds the digits it needs (nt <= 8), else
-// the narrowest NB >= B, two math warpgroups on one 256-gate digit tile
-// above 256 gates.
+// The loop with the GEMM instance of the given gate tile L.NB.
 int dispatch(const Loop& L) {
-  if (L.d_used > MAX_DIGITS || L.n < 1) return (int)cudaErrorInvalidValue;
-  const int nt = L.N / T, NB = L.B <= 8 ? 8 : 16;
-  const int dpg = (2 * nt - 1 + SPLIT_GROUPS - 1) / SPLIT_GROUPS;
-  if (L.B <= 16 && nt <= 8 && split_smem(NB, 4 * L.d_used, dpg) <= SMEM_MAX)
-    return NB == 8 ? run_split<8>(L, dpg) : run_split<16>(L, dpg);
-  if (L.B <= 32) return run_tiled<32, 1>(L);
-  if (L.B <= 64) return run_tiled<64, 1>(L);
-  if (L.B <= 128) return run_tiled<128, 1>(L);
-  if (L.B <= 256) return run_tiled<256, 1>(L);
-  return run_tiled<256, 2>(L);
+  if (L.d_used > MAX_DIGITS || L.n < 1 || L.dig_rows < L.B) return (int)cudaErrorInvalidValue;
+  const int dpg = split_dpg(L.N, 2);
+  return with_tile(L.NB, L.B, split_fits(L.N, split_smem(L.NB, 4 * L.d_used, dpg)), [&](auto t) {
+    using Tl = decltype(t);
+    if constexpr (Tl::SPLIT)
+      return run_split<Tl::NB>(L, dpg);
+    else
+      return run_tiled<Tl::NB, Tl::MW>(L);
+  });
 }
 
 }  // namespace rotg
 }  // namespace
 
 // The whole rotation: n steps of (digits, GEMM).  acc0 holds the initial
-// accumulator; the result is in buffer n%2 of (acc0, acc1).  dig is int8
-// scratch [dig_rows, K], its rows from B on zero, B rounded up to the
-// GEMM's gate tile (rot.py: digit_scratch); sums int32 scratch
-// [2, B, 2, N] (used up to 16 gates); keyT the K-major rev2 key [n, 8T,
-// (2nt-1)*2RT].  Returns 0 or the first cudaError_t of a launch.
+// accumulator; the result is in buffer n%2 of (acc0, acc1).  nb is the
+// GEMM's gate tile (rot.py: gemm_config; 8 or 16 the split GEMM); dig is
+// int8 scratch [dig_rows, K], its rows from B on zero, B rounded up to nb
+// (rot.py: digit_scratch); sums int32 scratch [2, B, 2, N] (the split
+// GEMM's); keyT the K-major rev2 key [n, 8T, (2nt-1)*2RT].  Returns 0 or
+// the first cudaError_t of a launch (cudaErrorInvalidValue for a tile the
+// loop has no instance of).
 extern "C" int oece_blind_rotate_rot(void* acc0, void* acc1, void* dig, void* sums,
-                                     const void* keyT, const void* a2N, int B, int dig_rows,
-                                     int n, int N, int d_used, int log_bg,
+                                     const void* keyT, const void* a2N, int B, int nb,
+                                     int dig_rows, int n, int N, int d_used, int log_bg,
                                      int shift, int Q, void* stream) {
   const rotg::Loop L{{(int*)acc0, (int*)acc1}, (int8_t*)dig, dig_rows, (int*)sums, keyT, n,
-                     (const int*)a2N, n, 0, B, n, N, d_used, log_bg, shift, Q, 1,
+                     (const int*)a2N, n, 0, B, nb, n, N, d_used, log_bg, shift, Q, 1,
                      (cudaStream_t)stream};
   return rotg::dispatch(L);
 }
@@ -333,14 +331,14 @@ extern "C" int oece_blind_rotate_rot(void* acc0, void* acc1, void* dig, void* su
 // int32 [B, 2, N] -> out, which must not overlap acc (blocks of the GEMM
 // read the old accumulator while others write the new one).  keyT_i is
 // the step's K-major block [8T, (2nt-1)*2RT], which a kernel just before
-// may have written, so the GEMM waits before it loads; dig and sums as
-// above.
+// may have written, so the GEMM waits before it loads; nb, dig and sums
+// as above.
 extern "C" int oece_rot_step(const void* acc, void* out, void* dig, void* sums,
-                             const void* keyT_i, const void* amt, int B, int dig_rows,
+                             const void* keyT_i, const void* amt, int B, int nb, int dig_rows,
                              int N, int d_used, int log_bg, int shift, int Q,
                              void* stream) {
   const rotg::Loop L{{(int*)acc, (int*)out}, (int8_t*)dig, dig_rows, (int*)sums, keyT_i, 1,
-                     (const int*)amt, 0, 1, B, 1, N, d_used, log_bg, shift, Q, 0,
+                     (const int*)amt, 0, 1, B, nb, 1, N, d_used, log_bg, shift, Q, 0,
                      (cudaStream_t)stream};
   return rotg::dispatch(L);
 }

@@ -461,6 +461,59 @@ inline int split_smem(int NB, int sub, int dpg) {
   return 1024 + sub * (dpg + 7) * NB * wgmm::BK + 8 * (COLS * wgmm::BK + 16) + 8 + COLS * (NB + 1) * 4;
 }
 
+constexpr int SPLIT_BLOCKS = 128;  // the split GEMM's blocks, at most: one wave on 132 SMs
+
+// Diagonals per group of the split GEMM (rot.py: split_groups): the 2nt-1
+// diagonals in at most SPLIT_BLOCKS / (polys * T/16) groups, one block per
+// (group, column chunk).
+inline int split_dpg(int N, int polys) {
+  const int ndiag = 2 * (N / T) - 1, groups = SPLIT_BLOCKS / (polys * (T / CHUNK));
+  return (ndiag + groups - 1) / groups;
+}
+
+// Whether a split GEMM block of `smem` bytes runs at N: its shared memory
+// fits and one wgmma's 8NB columns hold every output tile (nt <= 8).
+inline bool split_fits(int N, int smem) { return N / T <= 8 && smem <= SMEM_MAX; }
+
+// The gate tile of a step GEMM of B gates, rot.py's gemm_config, for the
+// AP step loop, which chooses per live step: the split GEMM at NB = 8 or
+// 16 where fits[NB == 16] (split_fits at that NB), else the narrowest of
+// 32 .. 256 that holds B, or 256 (two warpgroups) above 256 gates.
+inline int gemm_tile(int B, const bool (&fits)[2]) {
+  if (B <= 16 && fits[B > 8]) return B <= 8 ? 8 : 16;
+  for (int nb = 32; nb < 256; nb *= 2)
+    if (B <= nb) return nb;
+  return 256;
+}
+
+// One instance of the step GEMMs: NB gates per tile, MW math warpgroups;
+// INDEX is its place among the seven (ap_step.cu's digit-map slots).
+template <int NB_, int MW_>
+struct Tile {
+  static constexpr int NB = NB_, MW = MW_;
+  static constexpr bool SPLIT = NB <= 16;
+  static constexpr int INDEX = (NB > 8) + (NB > 16) + (NB > 32) + (NB > 64) + (NB > 128) + (MW - 1);
+};
+
+// f(Tile<NB, MW>{}) for the gate tile NB that the caller was given or
+// chose (gemm_tile): the split GEMM at NB = 8 or 16 for B <= NB gates
+// where it `fits` (split_fits), the tiled GEMM at NB = 32 .. 256, with two
+// math warpgroups at NB = 256 above 256 gates.  cudaErrorInvalidValue for
+// any other tile, or a split that does not fit.
+template <typename F>
+int with_tile(int NB, int B, bool fits, F&& f) {
+  if (NB <= 16 && (B > NB || !fits)) return (int)cudaErrorInvalidValue;
+  switch (NB) {
+    case 8: return f(Tile<8, 1>{});
+    case 16: return f(Tile<16, 1>{});
+    case 32: return f(Tile<32, 1>{});
+    case 64: return f(Tile<64, 1>{});
+    case 128: return f(Tile<128, 1>{});
+    case 256: return B > 256 ? f(Tile<256, 2>{}) : f(Tile<256, 1>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 // The TMA maps of a step GEMM: the key keyT as [steps, planes, T,
 // row_bytes], boxes of 4 planes x 16 coefficients x 128 bytes; the digits
 // dig as [dig_rows, K] with boxes of NB gates x 128 bytes (dpg = 0, the

@@ -104,21 +104,21 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.oece_blind_rotate_rot.restype = i32
-    lib.oece_blind_rotate_rot.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
+    lib.oece_blind_rotate_rot.argtypes = [ptr] * 6 + [i32] * 9 + [ptr]
     lib.oece_blind_rotate_ap.restype = i32
     lib.oece_blind_rotate_ap.argtypes = [ptr] * 8 + [i32] * 8 + [ptr]
     lib.oece_ap_live_table.restype = i32
     lib.oece_ap_live_table.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
     lib.oece_blind_rotate_std.restype = i32
-    lib.oece_blind_rotate_std.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
+    lib.oece_blind_rotate_std.argtypes = [ptr] * 6 + [i32] * 9 + [ptr]
     lib.oece_std_build.restype = i32
     lib.oece_std_build.argtypes = [ptr] * 2 + [i32] * 2 + [ptr]
     lib.oece_blind_rotate_rev.restype = i32
-    lib.oece_blind_rotate_rev.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
+    lib.oece_blind_rotate_rev.argtypes = [ptr] * 5 + [i32] * 9 + [ptr]
     lib.oece_rev_window_matmul.restype = i32
-    lib.oece_rev_window_matmul.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+    lib.oece_rev_window_matmul.argtypes = [ptr] * 3 + [i32] * 6 + [ptr]
     lib.oece_rev_matmul_dec.restype = i32
-    lib.oece_rev_matmul_dec.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
+    lib.oece_rev_matmul_dec.argtypes = [ptr] * 4 + [i32] * 9 + [ptr]
     lib.oece_cmux_epilogue_true.restype = i32
     lib.oece_cmux_epilogue_true.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
     lib.oece_diag_matmul.restype = i32
@@ -126,11 +126,11 @@ def load() -> ctypes.CDLL:
     lib.oece_negacyclic_matmul.restype = i32
     lib.oece_negacyclic_matmul.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
     lib.oece_window_matmul.restype = i32
-    lib.oece_window_matmul.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
+    lib.oece_window_matmul.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
     lib.oece_build_rev.restype = i32
     lib.oece_build_rev.argtypes = [ptr] * 2 + [i32] * 4 + [ptr]
     lib.oece_rot_step.restype = i32
-    lib.oece_rot_step.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
+    lib.oece_rot_step.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
     lib.oece_error_string.restype = ctypes.c_char_p
     lib.oece_error_string.argtypes = [ctypes.c_int]
     _lib = lib

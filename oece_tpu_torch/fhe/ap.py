@@ -22,7 +22,9 @@ kernel per rotation) gives each step's live gates, their count comes to
 the host in one transfer, and the step loop launches nothing for a step
 without a live gate and, for a live one, a digits kernel and a wgmma GEMM
 over its live gates only, in compact rows: the split GEMM up to 16 live
-gates, the tiled one above (``gemm_config``).  The GEMMs make the step's
+gates, the tiled one above, chosen per live step on the host side of
+csrc/ap_step.cu by step_gemm.cuh's gemm_tile, rot.py's ``gemm_config``
+with this GEMM's ``split_smem``.  The GEMMs make the step's
 key tiles on chip from ``ap_ext`` as it is (no card layout; the CPU's
 [n*d_r, R, 8, 2N] int8 planes): ``span_start``, ``span_offset`` and
 ``swizzled_chunk`` repeat their arithmetic for the CPU layout tests.
@@ -58,7 +60,7 @@ from ..utils import trace
 from . import _build
 from .keys import TILE, rev_block, rev_index
 from .params import BinFHEParams
-from .rot import SMEM_MAX, check_operands, combine_planes, split_groups, tile_digits, tile_products
+from .rot import check_operands, combine_planes, tile_digits, tile_products
 
 GEMM_BK = 128  # contraction bytes of a key tile row
 GEMM_CHUNK = 16  # coefficients of a key tile: 4 limbs x 16 = 64 rows
@@ -147,26 +149,13 @@ def live_table(a2N: torch.Tensor, p: BinFHEParams):
 
 
 def split_smem(NB: int, R: int, dpg: int) -> int:
-    """Shared memory of the split GEMM: dpg*R key tiles of 8 KB, the digit
-    chunks of R substages x (dpg + 7) chunks x NB gates, a barrier, the
-    tiles' spans (4 x SPAN bytes each) and the epilogue's staging buffer."""
+    """Shared memory of the split GEMM (ap_step.cu: split_smem): dpg*R key
+    tiles of 8 KB, the digit chunks of R substages x (dpg + 7) chunks x NB
+    gates, a barrier, the tiles' spans (4 x SPAN bytes each) and the
+    epilogue's staging buffer; rot.py's ``gemm_config`` takes it as
+    ``smem`` for AP's steps."""
     return (1024 + dpg * R * 64 * GEMM_BK + R * (dpg + 7) * NB * GEMM_BK + 16 + dpg * R * 4 * SPAN
             + 64 * (NB + 1) * 4)
-
-
-def gemm_config(L: int, N: int, d_used: int) -> tuple[int, int, bool]:
-    """(NB gates per tile, MW math warpgroups, split) of the GEMM of a step
-    with L live gates: the split GEMM (NB = 8 or 16) up to 16 where nt <=
-    8 and its key tiles and digit chunks fit in shared memory, else the
-    tiled GEMM at the narrowest NB >= L of 32 .. 256, two math warpgroups
-    above 256."""
-    NB = 8 if L <= 8 else 16
-    if L <= SPLIT_MAX and N // TILE <= 8 and split_smem(NB, 2 * d_used, split_groups(N)[0]) <= SMEM_MAX:
-        return NB, 1, True
-    for nb in (32, 64, 128, 256):
-        if L <= nb:
-            return nb, 1, False
-    return 256, 2, False
 
 
 def span_start(dp: int, t0: int, N: int) -> int:

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ..utils import trace
-from . import modmath, rev, rot
+from . import modmath
 from .ap import blind_rotate_ap, blind_rotate_ap_generic
 from .keys import BootKeys
 from .rot import (  # noqa: F401  (re-export: the gadget helpers live with the rotation)
@@ -132,41 +132,15 @@ def blind_rotation(acc: torch.Tensor, a2N: torch.Tensor, keys: BootKeys) -> torc
     raise ValueError("keys hold no rotation key (ap_ext, ginx_ext, rev or rev2)")
 
 
-def gemm_rows(B: int, keys: BootKeys) -> int:
-    """The gate rows that the step GEMM of a GINX rotation of B gates
-    computes on the card: its digit scratch's (``rot.digit_scratch``), B
-    rounded up to the tiled GEMM's gate tile, by the key layout's
-    ``gemm_config``."""
-    p = keys.params
-    config = rot.gemm_config if keys.rev2 is not None else rev.gemm_config
-    NB, _, split = config(B, p.N, p.d_g_used)
-    return rot.gemm_rows(B, NB, split)
-
-
-def key_prefetch_bytes(B: int, keys: BootKeys) -> int:
-    """The key bytes that the split GEMMs of a GINX rotation of B gates
-    load on the card ahead of the step chain, before each waits for its
-    digits kernel: the step loops of whole rotations on prebuilt keys
-    (rev2 with ``ROT_MEGA``, rev); none on ginx_ext (its ring's slots are
-    built per step) or in one call per step (#11)."""
-    p = keys.params
-    if keys.ginx_ext is not None:
-        return 0
-    if keys.rev is not None:
-        return rev.rotation_prefetch_bytes(B, p)
-    return rot.rotation_prefetch_bytes(B, p) if ROT_MEGA else 0
-
-
 def bootstrap_batch(prep: torch.Tensor, gate_ids: torch.Tensor, keys: BootKeys, tp=None) -> torch.Tensor:
     """Bootstrap prepared LWE cts [B, n+1] mod q -> fresh cts [B, n+1].
     With ``tp`` (a parallel.mesh.Mesh with tp > 1) ``keys`` is this rank's
     tp shard of host GINX keys, and the rotation and the key switch sum
     their partial products over the tp group.  Under a traced Clock it is
     span ``boot`` with ``boot.pre``, ``boot.rotation`` and ``boot.post``,
-    and counts the rotation, its lanes, (GINX: all n) its steps and (GINX
-    without tp) its step GEMM's gate rows, ``padded_lanes``, and the key
-    bytes its split GEMMs load ahead of the step chain,
-    ``key_prefetch_bytes``."""
+    and counts the rotation, its lanes and (GINX: all n) its steps; inside
+    ``boot.rotation`` a GINX rotation without tp counts its own step GEMM
+    (rot.py's ``count_gemm``) and AP its live steps."""
     p = keys.params
     Q, N, q, Qks = p.Q, p.N, p.q, p.Q_ks
     log_q, log_qks = int(math.log2(q)), int(math.log2(Qks))
@@ -180,9 +154,6 @@ def bootstrap_batch(prep: torch.Tensor, gate_ids: torch.Tensor, keys: BootKeys, 
             trace.count("lanes", prep.shape[0])
             if keys.ap_ext is None:
                 trace.count("steps", p.n)  # AP counts its live steps
-                if trace.ACTIVE is not None and tp is None:
-                    trace.count("padded_lanes", gemm_rows(prep.shape[0], keys))
-                    trace.count("key_prefetch_bytes", key_prefetch_bytes(prep.shape[0], keys))
             if tp is None:
                 acc = blind_rotation(acc, a2N, keys)
             else:

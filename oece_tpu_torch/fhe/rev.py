@@ -27,15 +27,16 @@ raises.  On the card ``blind_rotate_rev``, ``window_matmul_true`` and
 step's block [M, T, rows]; keys.py), and refuse a row-major one: they run
 csrc/rev_step.cu, two kernels per step, the digits (with the previous
 step's CMUX) and a TMA + wgmma GEMM with 64 key columns on wgmma's M and
-the gates on its N (``gemm_config``): up to 16 gates a split GEMM that
-reads each key tile once and adds partial sums by atomics, above 16 a
-tiled one that reads its digits from scratch padded to the gate tile
-(``step_digits``, rot.py's) and writes the products mod Q.
-``gemm_config``, ``split_groups`` and ``gemm_tiles`` repeat the kernels'
-tiling for the CPU layout tests, ``rotation_prefetch_bytes`` the key
-bytes its split GEMMs load before they wait; the TMA boxes start where rot.py's
-``key_box_origin`` and ``split_digit_box`` say, with RT contraction
-bytes per diagonal instead of 2RT.  ``window_matmul_counted`` (#2: #8's
+the gates on its N: up to 16 gates a split GEMM that reads each key tile
+once and adds partial sums by atomics, above 16 a tiled one that reads
+its digits from scratch padded to the gate tile (``step_scratch``) and
+writes the products mod Q.  Each wrapper takes the gate tile from rot.py's
+``gemm_config`` (RT/128 digit substages, 4 output polys, or M/4), passes
+it to the kernels and sizes its scratch by it; ``blind_rotate_rev``
+counts it (rot.py's ``count_gemm``).  rot.py's ``split_groups`` and
+``gemm_tiles`` repeat the kernels' tiling for the CPU layout tests; the
+TMA boxes start where rot.py's ``key_box_origin`` and ``split_digit_box``
+say, with RT contraction bytes per diagonal instead of 2RT.  ``window_matmul_counted`` (#2: #8's
 function on a row-major block, for fhe/negacyclic.py) runs the same
 GEMMs on the block transposed K-major into scratch by #3's
 transpose_kernel (csrc/negacyclic.cu, one call of both launches);
@@ -59,14 +60,12 @@ from . import _build, keys
 from .keys import TILE
 from .modmath import red31
 from .params import BinFHEParams
-from .rot import (GEMM_CHUNK, SMEM_MAX, amount_pairs, check_operands, digit_scratch,
-                  key_prefetch_bytes, monomial_rotate, split_smem, tile_digits, tile_products)
+from .rot import (amount_pairs, check_operands, count_gemm, digit_scratch, gemm_config,
+                  monomial_rotate, tile_digits, tile_products)
 
 LAUNCHES = 0  # wrapper calls that launched CUDA kernels
 PLAIN_LAUNCHES = 0  # wrapper calls that ran a plain twin
 STEP_LAUNCHES = 0  # steps of blind_rotate_rev's step loop launched on the card
-
-SPLIT_BLOCKS = 128  # the split GEMM's blocks, at most (one wave on the H100's 132 SMs)
 
 
 def window_matmul_true_plain(digs_rows: torch.Tensor, rev_flat: torch.Tensor, Q: int) -> torch.Tensor:
@@ -206,8 +205,9 @@ def window_matmul_true(digs_rows: torch.Tensor, rev_flat: torch.Tensor, R: int, 
     if B == 0:
         return out
     lib = _build.load()
+    NB = gemm_config(B, nt * TILE, R, M // 4)[0]
     rc = lib.oece_rev_window_matmul(digs_rows.data_ptr(), rev_flat.data_ptr(), out.data_ptr(), B,
-                                    nt * TILE, R, M // 4, Q, _stream(out))
+                                    NB, nt * TILE, R, M // 4, Q, _stream(out))
     _rev_launch(name, rc, lib)
     return out
 
@@ -231,8 +231,9 @@ def window_matmul_counted(name: str, digs_rows: torch.Tensor, rev_flat: torch.Te
         return out
     lib = _build.load()
     scratch = torch.empty((M * TILE, rev_flat.shape[0]), dtype=torch.int8, device=digs_rows.device)
+    NB = gemm_config(B, nt * TILE, R, M // 4)[0]
     rc = lib.oece_window_matmul(
-        digs_rows.data_ptr(), rev_flat.data_ptr(), scratch.data_ptr(), out.data_ptr(), B,
+        digs_rows.data_ptr(), rev_flat.data_ptr(), scratch.data_ptr(), out.data_ptr(), B, NB,
         nt * TILE, R, M // 4, Q, _stream(out),
     )
     launch(name, rc, lib)
@@ -264,9 +265,10 @@ def window_matmul_dec_true(acc: torch.Tensor, rev_flat: torch.Tensor, p: BinFHEP
     if B == 0:
         return out
     lib = _build.load()
-    dig = step_digits(B, N, p.d_g_used, acc.device, M // 4)
+    NB = gemm_config(B, N, R, M // 4)[0]
+    dig = digit_scratch(B, nt * R * TILE, NB, acc.device)
     rc = lib.oece_rev_matmul_dec(
-        acc.data_ptr(), dig.data_ptr(), rev_flat.data_ptr(), out.data_ptr(), B, dig.shape[0], N,
+        acc.data_ptr(), dig.data_ptr(), rev_flat.data_ptr(), out.data_ptr(), B, NB, dig.shape[0], N,
         p.d_g_used, int(math.log2(p.B_g)), p.g_shift, M // 4, p.Q, _stream(out),
     )
     _rev_launch(name, rc, lib)
@@ -310,57 +312,13 @@ def cmux_epilogue_counted(name: str, P: torch.Tensor, acc: torch.Tensor, amt: to
     return out
 
 
-def split_groups(N: int, polys: int = 4) -> tuple[int, int]:
-    """(diagonals per group, groups) of the split GEMM: the 2nt-1 diagonals
-    of a block in at most SPLIT_BLOCKS / (polys * T/16) groups of
-    consecutive ones (4 at 16 planes, 8 at 8), one block per (group,
-    column chunk)."""
-    ndiag = 2 * (N // TILE) - 1
-    dpg = -(-ndiag // (SPLIT_BLOCKS // (polys * (TILE // GEMM_CHUNK))))
-    return dpg, -(-ndiag // dpg)
-
-
-def gemm_config(B: int, N: int, d_used: int, polys: int = 4) -> tuple[int, int, bool]:
-    """(NB gates per tile, MW math warpgroups, split) of the step GEMM for B
-    gates (csrc/rev_step.cu: dispatch): up to 16 gates the split GEMM (NB
-    = 8 or 16) where nt <= 8 and its shared memory holds the digit chunks
-    a block needs (the R substages of dpg + 7 digit tiles of NB gates)
-    beside 8 stages of key tiles; else the narrowest NB >= 32 that holds
-    B, two warpgroups sharing one 256-gate digit tile above 256 gates."""
-    nt, NB = N // TILE, 8 if B <= 8 else 16
-    if B <= 16 and nt <= 8 and split_smem(NB, 2 * d_used, split_groups(N, polys)[0]) <= SMEM_MAX:
-        return NB, 1, True
-    for nb in (32, 64, 128, 256):
-        if B <= nb:
-            return nb, 1, False
-    return 256, 2, False
-
-
-def gemm_tiles(B: int, N: int, d_used: int, polys: int = 4) -> list[tuple[int, int, int]]:
-    """The tiled GEMM's tiles (gate tile gt, output tile k, column tile ct)
-    in the order the persistent blocks take them, gate tile fastest; math
-    warpgroup w of tile ct takes column chunk cc = ct*MW + w (poly cc //
-    8, coefficients 16*(cc % 8) ..)."""
-    NB, MW, _ = gemm_config(B, N, d_used, polys)
-    col_tiles = polys * (TILE // GEMM_CHUNK) // MW
-    return [(gt, k, ct) for k in range(N // TILE) for ct in range(col_tiles)
-            for gt in range(-(-B // NB))]
-
-
-def rotation_prefetch_bytes(B: int, p: BinFHEParams) -> int:
-    """Key bytes that ``blind_rotate_rev``'s split GEMMs load ahead of the
-    step chain on B gates (rot.py: ``key_prefetch_bytes``; 4 output polys,
-    RT bytes a diagonal): its prebuilt key, as the rotated form's, is
-    read-only for the whole rotation."""
-    split = gemm_config(B, p.N, p.d_g_used)[2]
-    return key_prefetch_bytes(p.n, p.N, 2 * p.d_g_used * TILE, 4, *split_groups(p.N), split)
-
-
-def step_digits(B: int, N: int, d_used: int, device, polys: int = 4) -> torch.Tensor:
-    """The digit scratch of the rev step GEMM for B gates (rot.py's
-    ``digit_scratch``): int8 [rows, nt*RT]."""
-    NB = gemm_config(B, N, d_used, polys)[0]
-    return digit_scratch(B, N // TILE * 2 * d_used * TILE, NB, device)
+def step_scratch(B: int, N: int, d_used: int, NB: int, device):
+    """The step loop's scratch for gate tile NB (fhe/std.py's too): the
+    digits (rot.py's ``digit_scratch``) and the products, P int32 [B, 4, N]
+    for the tiled GEMM or the split GEMM's two sums [2, B, 4, N]."""
+    dig = digit_scratch(B, N // TILE * 2 * d_used * TILE, NB, device)
+    prod = torch.empty((2, B, 4, N) if NB <= 16 else (B, 4, N), dtype=torch.int32, device=device)
+    return dig, prod
 
 
 def _check(acc, rev_all, a2N, p: BinFHEParams) -> None:
@@ -383,7 +341,7 @@ def _check(acc, rev_all, a2N, p: BinFHEParams) -> None:
         )
 
 
-def _blind_rotate_rev_cuda(acc, rev_all, a2N, p: BinFHEParams) -> torch.Tensor:
+def _blind_rotate_rev_cuda(acc, rev_all, a2N, p: BinFHEParams, NB: int) -> torch.Tensor:
     global STEP_LAUNCHES
     B, _, N = acc.shape
     n = rev_all.shape[0]
@@ -391,12 +349,10 @@ def _blind_rotate_rev_cuda(acc, rev_all, a2N, p: BinFHEParams) -> torch.Tensor:
     if B == 0 or n == 0:
         return out
     lib = _build.load()
-    split = gemm_config(B, N, p.d_g_used)[2]
-    dig = step_digits(B, N, p.d_g_used, acc.device)
-    prod = torch.empty((2, B, 4, N) if split else (B, 4, N), dtype=torch.int32, device=acc.device)
+    dig, prod = step_scratch(B, N, p.d_g_used, NB, acc.device)
     rc = lib.oece_blind_rotate_rev(
         out.data_ptr(), prod.data_ptr(), dig.data_ptr(), rev_all.data_ptr(), a2N.data_ptr(),
-        B, dig.shape[0], n, N, p.d_g_used, int(math.log2(p.B_g)), p.g_shift, p.Q, _stream(out),
+        B, NB, dig.shape[0], n, N, p.d_g_used, int(math.log2(p.B_g)), p.g_shift, p.Q, _stream(out),
     )
     _rev_launch("blind_rotate_rev", rc, lib)
     STEP_LAUNCHES += n
@@ -409,10 +365,14 @@ def blind_rotate_rev(
     """The whole rotation: acc int32 [B, 2, N], the rev key of n steps,
     a2N int32 [B, n] in [0, 2N).  CPU tensors run the plain version on the
     row-major key; CUDA tensors launch csrc/rev_step.cu's step loop on the
-    K-major key (or raise); any other device raises."""
+    K-major key (or raise); any other device raises.  Under a traced Clock
+    it counts its step GEMM (rot.py's ``count_gemm``), on either device."""
     _check(acc, rev_all, a2N, p)
+    B, R = acc.shape[0], 2 * p.d_g_used
+    NB = gemm_config(B, p.N, R, 4)[0]
+    count_gemm(B, NB, p.N, R * TILE, 4, rev_all.shape[0])
     if acc.device.type == "cpu":
         return blind_rotate_rev_plain(acc, rev_all, a2N, p)
     if acc.device.type != "cuda":
         raise ValueError(f"blind_rotate_rev: no kernel for device {acc.device}")
-    return _blind_rotate_rev_cuda(acc, rev_all, a2N, p)
+    return _blind_rotate_rev_cuda(acc, rev_all, a2N, p, NB)

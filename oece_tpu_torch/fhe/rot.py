@@ -25,9 +25,17 @@ sums into a scratch sum, which the next step's digits kernel (or, after
 the last step, a finalize kernel) adds to the accumulator.  Over a whole
 rotation the key is read-only, so each split GEMM block loads its first
 key tiles before it waits for the digits kernel (``early_boxes``,
-``key_prefetch_bytes``).  ``gemm_config``, ``split_groups``,
-``split_digit_box``, ``gemm_tiles`` and ``key_box_origin`` repeat the
-kernels' tiling for the CPU layout tests.
+``key_prefetch_bytes``).
+
+``gemm_config`` is the one rule of the step GEMM's shape for every
+rotation (this form's, fhe/rev.py's and fhe/std.py's, and AP's per live
+step through csrc/step_gemm.cuh's gemm_tile), with ``split_groups`` the
+split GEMM's diagonal groups: the GINX wrappers pass the gate tile NB it
+chooses to the kernels, which run that instance, size their digit scratch
+and sums by it, and count it under a traced Clock (``count_gemm``:
+``padded_lanes``, ``key_prefetch_bytes``).  ``split_digit_box``,
+``gemm_tiles`` and ``key_box_origin`` repeat the kernels' tiling for the
+CPU layout tests.
 
 ``rot_step_true`` is one step for any amount pair (c_pos, c_neg) per gate,
 the counterpart of Pallas kernel #11 ``pallas_kernels.rot_step_true``
@@ -48,6 +56,7 @@ import math
 
 import torch
 
+from ..utils import trace
 from . import _build, keys
 from .modmath import combine_limbs_mod_q, red31
 from .params import BinFHEParams
@@ -195,15 +204,18 @@ def blind_rotate_rot_plain(
     return acc
 
 
-SPLIT_GROUPS = 8  # the split GEMM's diagonal groups, at most
+SPLIT_BLOCKS = 128  # the split GEMM's blocks, at most (one wave on the H100's 132 SMs)
 SMEM_MAX = 232448  # shared memory a block can use on the H100
 
 
-def split_groups(N: int) -> tuple[int, int]:
-    """(diagonals per group, groups) of the split GEMM: the 2nt-1 diagonals
-    of a block in at most SPLIT_GROUPS groups of consecutive ones."""
+def split_groups(N: int, polys: int) -> tuple[int, int]:
+    """(diagonals per group, groups) of the split GEMM (step_gemm.cuh:
+    split_dpg): the 2nt-1 diagonals of a block in at most SPLIT_BLOCKS /
+    (polys * T/16) groups of consecutive ones, one block per (group, column
+    chunk): 8 groups at 2 output polys (the rotated form, AP, #8 at 8
+    planes), 4 at 4 (the standard form)."""
     ndiag = 2 * (N // TILE) - 1
-    dpg = -(-ndiag // SPLIT_GROUPS)
+    dpg = -(-ndiag // (SPLIT_BLOCKS // (polys * (TILE // GEMM_CHUNK))))
     return dpg, -(-ndiag // dpg)
 
 
@@ -215,15 +227,20 @@ def split_smem(NB: int, sub: int, dpg: int) -> int:
             + 4 * GEMM_CHUNK * (NB + 1) * 4)
 
 
-def gemm_config(B: int, N: int, d_used: int) -> tuple[int, int, bool]:
-    """(NB gates per tile, MW math warpgroups, split) of the step GEMM for B
-    gates: up to 16 gates the split GEMM (NB = 8 or 16) where nt <= 8 and
-    its shared memory holds the digit chunks a block needs (the 2RT/128
-    chunks of dpg + 7 digit tiles of NB gates) beside 8 stages of key
-    tiles; else the narrowest NB >= 32 that holds B, two warpgroups sharing
-    one 256-gate digit tile above 256 gates."""
-    nt, NB = N // TILE, 8 if B <= 8 else 16
-    if B <= 16 and nt <= 8 and split_smem(NB, 4 * d_used, split_groups(N)[0]) <= SMEM_MAX:
+def gemm_config(B: int, N: int, sub: int, polys: int, smem=split_smem) -> tuple[int, int, bool]:
+    """(NB gates per tile, MW math warpgroups, split) of a step GEMM for B
+    gates, the one rule of every rotation's GEMM: the GINX wrappers pass NB
+    to the kernels and size their scratch by it (split and MW follow from
+    NB and B), and csrc/step_gemm.cuh's gemm_tile repeats it for AP's
+    steps.  Up to 16 gates the split GEMM (NB = 8 or 16) where nt <= 8 and
+    ``smem(NB, sub, dpg)``, the family's split GEMM block's shared memory
+    (``split_smem`` here, ``ap.split_smem``) for sub = 2RT/128 (the rotated
+    form) or RT/128 (the standard form, AP) digit substages and dpg
+    diagonals of ``split_groups(N, polys)``, fits; else the narrowest NB
+    >= 32 that holds B, two warpgroups sharing one 256-gate digit tile
+    above 256 gates."""
+    NB = 8 if B <= 8 else 16
+    if B <= 16 and N // TILE <= 8 and smem(NB, sub, split_groups(N, polys)[0]) <= SMEM_MAX:
         return NB, 1, True
     for nb in (32, 64, 128, 256):
         if B <= nb:
@@ -262,38 +279,32 @@ def early_boxes(cc: int, grp: int, step: int, N: int, d_used: int,
     substage).  None where the call is not a whole rotation on the
     prebuilt key (``whole`` False: #11's one step, the ginx_ext ring), whose
     GEMMs wait before they load."""
-    R2T, dpg = 4 * d_used * TILE, split_groups(N)[0]
+    R2T, dpg = 4 * d_used * TILE, split_groups(N, 2)[0]
     sub, d_lo = R2T // GEMM_BK, grp * dpg
     stages = (min(d_lo + dpg, 2 * (N // TILE) - 1) - d_lo) * sub
     return [(*key_box_origin((d_lo + q // sub) * R2T + q % sub * GEMM_BK, cc), step)
             for q in range(min(EARLY_STAGES, stages) if whole else 0)]
 
 
-def key_prefetch_bytes(n: int, N: int, R2T: int, polys: int, dpg: int, groups: int,
-                       split: bool) -> int:
-    """Key bytes that a whole rotation's split GEMMs load ahead of the
-    step chain, before their wait for the digits kernel: each block's
-    first EARLY_STAGES stages (at most its stages) at each of the n steps;
-    none for the tiled GEMM (B > 16)."""
-    if not split:
+def key_prefetch_bytes(n: int, N: int, R2T: int, polys: int, NB: int) -> int:
+    """Key bytes that the split GEMMs (NB <= 16) of n steps of a whole
+    rotation on a prebuilt key load ahead of the step chain, before their
+    wait for the digits kernel: each block's first EARLY_STAGES stages (at
+    most its stages) at each step, R2T contraction bytes a diagonal and
+    ``polys`` output polys; none for the tiled GEMM (NB >= 32)."""
+    if NB > 16:
         return 0
-    blocks = split_blocks(N, R2T, polys, dpg, groups)
+    blocks = split_blocks(N, R2T, polys, *split_groups(N, polys))
     return n * sum(min(EARLY_STAGES, st) for _, _, st in blocks) * KEY_STAGE_BYTES
 
 
-def rotation_prefetch_bytes(B: int, p: BinFHEParams) -> int:
-    """``key_prefetch_bytes`` of ``blind_rotate_rot``'s step loop on B gates
-    (2 output polys, 2RT bytes a diagonal)."""
-    split = gemm_config(B, p.N, p.d_g_used)[2]
-    return key_prefetch_bytes(p.n, p.N, 4 * p.d_g_used * TILE, 2, *split_groups(p.N), split)
-
-
-def gemm_tiles(B: int, N: int, d_used: int) -> list[tuple[int, int, int]]:
+def gemm_tiles(B: int, N: int, sub: int, polys: int) -> list[tuple[int, int, int]]:
     """The tiled GEMM's tiles (gate tile gt, output tile k, column tile ct)
     in the order the persistent blocks take them, gate tile fastest; math
-    warpgroup w of tile ct takes column chunk cc = ct*MW + w."""
-    NB, MW, _ = gemm_config(B, N, d_used)
-    col_tiles = 2 * (TILE // GEMM_CHUNK) // MW
+    warpgroup w of tile ct takes column chunk cc = ct*MW + w (poly cc //
+    8, coefficients 16*(cc % 8) ..)."""
+    NB, MW, _ = gemm_config(B, N, sub, polys)
+    col_tiles = polys * (TILE // GEMM_CHUNK) // MW
     return [(gt, k, ct) for k in range(N // TILE) for ct in range(col_tiles)
             for gt in range(-(-B // NB))]
 
@@ -346,10 +357,21 @@ def _check(acc, rev2, amounts, p: BinFHEParams, name="blind_rotate_rot", one_ste
         )
 
 
-def gemm_rows(B: int, NB: int, split: bool) -> int:
-    """The gate rows the step GEMM computes for B gates: B for the split
-    GEMM, B rounded up to the tiled GEMM's gate tile of NB gates."""
-    return B if split else -(-B // NB) * NB
+def gemm_rows(B: int, NB: int) -> int:
+    """The gate rows the step GEMM of gate tile NB computes for B gates: B
+    for the split GEMM (NB <= 16), B rounded up to the tiled GEMM's gate
+    tile."""
+    return B if NB <= 16 else -(-B // NB) * NB
+
+
+def count_gemm(B: int, NB: int, N: int, R2T: int, polys: int, early_steps: int) -> None:
+    """Count, under a traced Clock, a GINX rotation's step GEMM of gate
+    tile NB on B gates: its gate rows, ``padded_lanes``, and the key bytes
+    its split GEMMs load ahead of the step chain over ``early_steps``
+    steps (0 where no GEMM loads before its wait), ``key_prefetch_bytes``."""
+    if trace.ACTIVE is not None:
+        trace.count("padded_lanes", gemm_rows(B, NB))
+        trace.count("key_prefetch_bytes", key_prefetch_bytes(early_steps, N, R2T, polys, NB))
 
 
 def digit_scratch(B: int, K: int, NB: int, device) -> torch.Tensor:
@@ -367,19 +389,23 @@ def digit_scratch(B: int, K: int, NB: int, device) -> torch.Tensor:
     return dig
 
 
-def _scratch(acc, p: BinFHEParams):
-    """The step loop's scratch: the digits (``digit_scratch``) and the
-    split GEMM's two sums of products int32 [2, B, 2, N] (empty for the
-    tiled GEMM)."""
+def _tile(B: int, p: BinFHEParams) -> int:
+    """The gate tile NB of the rotated form's step GEMM for B gates."""
+    return gemm_config(B, p.N, 4 * p.d_g_used, 2)[0]
+
+
+def _scratch(acc, p: BinFHEParams, NB: int):
+    """The step loop's scratch for gate tile NB: the digits
+    (``digit_scratch``) and the split GEMM's two sums of products int32
+    [2, B, 2, N] (empty for the tiled GEMM)."""
     B, _, N = acc.shape
     K = N // TILE * 2 * 2 * p.d_g_used * TILE
-    NB, _, split = gemm_config(B, N, p.d_g_used)
     dig = digit_scratch(B, K, NB, acc.device)
-    sums = torch.empty((2, B, 2, N) if split else (0,), dtype=torch.int32, device=acc.device)
+    sums = torch.empty((2, B, 2, N) if NB <= 16 else (0,), dtype=torch.int32, device=acc.device)
     return dig, sums
 
 
-def _blind_rotate_rot_cuda(acc, rev2_all, a2N, p: BinFHEParams) -> torch.Tensor:
+def _blind_rotate_rot_cuda(acc, rev2_all, a2N, p: BinFHEParams, NB: int) -> torch.Tensor:
     global LAUNCHES, STEP_LAUNCHES
     B, _, N = acc.shape
     n = rev2_all.shape[0]
@@ -387,11 +413,11 @@ def _blind_rotate_rot_cuda(acc, rev2_all, a2N, p: BinFHEParams) -> torch.Tensor:
         return acc.clone()
     lib = _build.load()
     bufs = (acc.clone(), torch.empty_like(acc))
-    dig, sums = _scratch(acc, p)
+    dig, sums = _scratch(acc, p, NB)
     stream = torch.cuda.current_stream(acc.device).cuda_stream
     rc = lib.oece_blind_rotate_rot(
         bufs[0].data_ptr(), bufs[1].data_ptr(), dig.data_ptr(), sums.data_ptr(),
-        rev2_all.data_ptr(), a2N.data_ptr(), B, dig.shape[0], n, N, p.d_g_used,
+        rev2_all.data_ptr(), a2N.data_ptr(), B, NB, dig.shape[0], n, N, p.d_g_used,
         int(math.log2(p.B_g)), p.g_shift, p.Q, stream,
     )
     if rc != 0:
@@ -407,13 +433,17 @@ def blind_rotate_rot(
     acc: torch.Tensor, rev2_all: torch.Tensor, a2N: torch.Tensor, p: BinFHEParams
 ) -> torch.Tensor:
     """The whole rotation.  CPU tensors run the plain version; CUDA tensors
-    launch the kernel (or raise); any other device raises."""
+    launch the kernel (or raise); any other device raises.  Under a traced
+    Clock it counts its step GEMM (``count_gemm``), on either device."""
     _check(acc, rev2_all, a2N, p)
+    B, n = acc.shape[0], rev2_all.shape[0]
+    NB = _tile(B, p)
+    count_gemm(B, NB, p.N, 4 * p.d_g_used * TILE, 2, n)
     if acc.device.type == "cpu":
         return blind_rotate_rot_plain(acc, rev2_all, a2N, p)
     if acc.device.type != "cuda":
         raise ValueError(f"blind_rotate_rot: no kernel for device {acc.device}")
-    return _blind_rotate_rot_cuda(acc, rev2_all, a2N, p)
+    return _blind_rotate_rot_cuda(acc, rev2_all, a2N, p, NB)
 
 
 def _rot_step_cuda(acc, rev2_i, amt, p: BinFHEParams, out) -> torch.Tensor:
@@ -431,10 +461,11 @@ def _rot_step_cuda(acc, rev2_i, amt, p: BinFHEParams, out) -> torch.Tensor:
     if B == 0:
         return out
     lib = _build.load()
-    dig, sums = _scratch(acc, p)
+    NB = _tile(B, p)
+    dig, sums = _scratch(acc, p, NB)
     rc = lib.oece_rot_step(
         acc.data_ptr(), out.data_ptr(), dig.data_ptr(), sums.data_ptr(), rev2_i.data_ptr(), amt.data_ptr(),
-        B, dig.shape[0], N, p.d_g_used, int(math.log2(p.B_g)), p.g_shift, p.Q,
+        B, NB, dig.shape[0], N, p.d_g_used, int(math.log2(p.B_g)), p.g_shift, p.Q,
         torch.cuda.current_stream(acc.device).cuda_stream,
     )
     if rc != 0:
@@ -469,8 +500,11 @@ def blind_rotate_rot_steps(
     """The whole rotation as a Python loop of ``rot_step_true``, one call
     per step, as the JAX package's ``OECE_ROT_MEGA=0`` scan: the same
     values as ``blind_rotate_rot``.  On the card the accumulator ping-pongs
-    between two buffers; acc itself is not written."""
+    between two buffers; acc itself is not written.  Under a traced Clock
+    it counts the steps' GEMM (``count_gemm``), whose GEMMs wait before
+    they load: no key bytes ahead of the step chain."""
     _check(acc, rev2_all, a2N, p, name="blind_rotate_rot_steps")
+    count_gemm(acc.shape[0], _tile(acc.shape[0], p), p.N, 4 * p.d_g_used * TILE, 2, 0)
     if acc.device.type not in ("cpu", "cuda"):
         raise ValueError(f"blind_rotate_rot_steps: no kernel for device {acc.device}")
     n = rev2_all.shape[0]

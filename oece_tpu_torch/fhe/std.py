@@ -24,7 +24,7 @@ step is the step of fhe/rev.py on a block prebuilt at keygen
 (csrc/rev_step.cu) with a ring of two blocks as its key source: per step
 ``std_build_kernel`` writes step i's block K-major into slot i & 1, then
 rev's digits kernel (with the previous step's CMUX) and its GEMM read it
-(``rev.gemm_config``).  ``build_span`` repeats the build kernel's staging
+(the gate tile from rot.py's ``gemm_config``, as rev's).  ``build_span`` repeats the build kernel's staging
 for the CPU layout tests.  The ginx_ext key stays compact (131 KB per
 step); a prebuilt block per step is ``OECE_LAYOUT=rev``.
 
@@ -64,7 +64,8 @@ from . import _build, negacyclic, rev
 from .keys import TILE, rev_block, rev_block_kmajor, rev_index
 from .params import BinFHEParams
 from .rev import cmux_epilogue_true_plain, rev_step_plain
-from .rot import amount_pairs, check_operands, combine_planes, tile_digits, tile_products
+from .rot import (amount_pairs, check_operands, combine_planes, count_gemm, gemm_config,
+                  tile_digits, tile_products)
 
 LAUNCHES = 0  # wrapper calls that launched CUDA kernels
 PLAIN_LAUNCHES = 0  # wrapper calls that ran the plain version
@@ -171,7 +172,7 @@ def _check(acc, ginx_ext, a2N, p: BinFHEParams) -> None:
         )
 
 
-def _blind_rotate_std_cuda(acc, ginx_ext, a2N, p: BinFHEParams) -> torch.Tensor:
+def _blind_rotate_std_cuda(acc, ginx_ext, a2N, p: BinFHEParams, NB: int) -> torch.Tensor:
     """rev's step loop (csrc/rev_step.cu) on a ring of two K-major blocks
     [2, 16, T, (2nt-1)*RT] that the build fills from ginx_ext per step; the
     digits and the products (P, or the split GEMM's two sums) as rev's."""
@@ -184,14 +185,12 @@ def _blind_rotate_std_cuda(acc, ginx_ext, a2N, p: BinFHEParams) -> torch.Tensor:
     rev._aligned("blind_rotate_std", ginx_ext)
     lib = _build.load()
     nt, RT = N // TILE, 2 * p.d_g_used * TILE
-    split = rev.gemm_config(B, N, p.d_g_used)[2]
-    dig = rev.step_digits(B, N, p.d_g_used, acc.device)
-    prod = torch.empty((2, B, 4, N) if split else (B, 4, N), dtype=torch.int32, device=acc.device)
+    dig, prod = rev.step_scratch(B, N, p.d_g_used, NB, acc.device)
     ring = torch.empty((2, 16, TILE, (2 * nt - 1) * RT), dtype=torch.int8, device=acc.device)
     rc = lib.oece_blind_rotate_std(
         out.data_ptr(), prod.data_ptr(), dig.data_ptr(), ring.data_ptr(), ginx_ext.data_ptr(),
-        a2N.data_ptr(), B, dig.shape[0], n, N, p.d_g_used, int(math.log2(p.B_g)), p.g_shift, p.Q,
-        rev._stream(out),
+        a2N.data_ptr(), B, NB, dig.shape[0], n, N, p.d_g_used, int(math.log2(p.B_g)), p.g_shift,
+        p.Q, rev._stream(out),
     )
     if rc != 0:
         raise RuntimeError(f"rev_step.cu launch failed: {lib.oece_error_string(rc).decode()}")
@@ -230,10 +229,16 @@ def blind_rotate_std(
     acc: torch.Tensor, ginx_ext: torch.Tensor, a2N: torch.Tensor, p: BinFHEParams
 ) -> torch.Tensor:
     """The whole rotation.  CPU tensors run the plain version; CUDA tensors
-    launch the kernels (or raise); any other device raises."""
+    launch the kernels (or raise); any other device raises.  Under a traced
+    Clock it counts its step GEMM (rot.py's ``count_gemm``), whose GEMMs
+    wait for the ring's build before they load: no key bytes ahead of the
+    step chain."""
     _check(acc, ginx_ext, a2N, p)
+    B, R = acc.shape[0], 2 * p.d_g_used
+    NB = gemm_config(B, p.N, R, 4)[0]
+    count_gemm(B, NB, p.N, R * TILE, 4, 0)
     if acc.device.type == "cpu":
         return blind_rotate_std_plain(acc, ginx_ext, a2N, p)
     if acc.device.type != "cuda":
         raise ValueError(f"blind_rotate_std: no kernel for device {acc.device}")
-    return _blind_rotate_std_cuda(acc, ginx_ext, a2N, p)
+    return _blind_rotate_std_cuda(acc, ginx_ext, a2N, p, NB)

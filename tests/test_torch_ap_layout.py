@@ -9,7 +9,8 @@ place, reverses their bytes and stores them in the 128-byte swizzle
 (``ap.span_start``, ``ap.span_offset``, ``ap.swizzled_chunk``).  Once per rotation a
 kernel writes each step's live-gate table (``ap.live_table_plain`` is its
 twin); a step without a live gate launches nothing, a live step runs its
-digits and GEMM over its live gates in compact rows (``ap.gemm_config``:
+digits and GEMM over its live gates in compact rows (``rot.gemm_config``
+with ``ap.split_smem``:
 the split GEMM's diagonal groups add combined partial sums, the tiled GEMM
 stores the combine) and the next digits kernel writes the products back
 to their gates.  Here:
@@ -109,23 +110,6 @@ def test_swizzle_and_spans():
     assert [ap.span_offset(tt, q) for tt, q in ((0, 7), (15, 0))] == [1, 128]
 
 
-def test_gemm_config():
-    N, d = STD128_OPT.N, STD128_OPT.d_g_used
-    for L in range(1, 600):
-        NB, MW, split = ap.gemm_config(L, N, d)
-        if L <= 16:
-            assert split and MW == 1 and NB == (8 if L <= 8 else 16)
-        elif L > 256:
-            assert (NB, MW, split) == (256, 2, False)
-        else:
-            assert MW == 1 and not split and L <= NB and (NB == 32 or NB // 2 < L)
-    # exact gadget at N = 1024 (R = 8): 16 gates' digits do not fit beside the key tiles
-    assert ap.gemm_config(8, 1024, 4)[2] and not ap.gemm_config(9, 1024, 4)[2]
-    assert ap.gemm_config(16, 512, 4)[2] and ap.gemm_config(16, 128, 2)[2]
-    assert not ap.gemm_config(4, 2048, 2)[2]  # nt > 8: one wgmma cannot hold every output tile
-    assert max(ap.split_smem(16, 4, 2), ap.split_smem(8, 8, 2)) <= rot.SMEM_MAX
-
-
 def _amounts(p, B, kind, seed):
     rng = np.random.default_rng(seed)
     if kind == "zero":
@@ -169,9 +153,9 @@ def _rotate_by_tiles(acc, ap_ext, a2N, p):
         dig8 = rot.tile_digits(out[gates], p)  # [L, nt*RT], compact rows
         dig, rev8 = dig8.double(), keys.rev_block(ap_ext[s], idx)
         rev = rev8.double()
-        _, _, split = ap.gemm_config(L, N, p.d_g_used)
+        _, _, split = rot.gemm_config(L, N, 2 * p.d_g_used, 2, ap.split_smem)
         if split:
-            dpg, groups = rot.split_groups(N)
+            dpg, groups = rot.split_groups(N, 2)
             total = torch.zeros((L, 2, N), dtype=torch.int64)
             for grp in range(groups):
                 part = torch.zeros((L, 8, N), dtype=torch.float64)

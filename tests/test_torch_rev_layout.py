@@ -10,10 +10,11 @@ warpgroup and the digits by boxes of NB gates, and writes the
 limb-combined products mod Q; the split GEMM (B <= 16) one per stage of a
 diagonal, all output tiles at once against digit tiles it keeps in shared
 memory, and adds partial sums that the next digits kernel reduces mod Q
-and applies in its CMUX.  ``rev.gemm_config``, ``rev.split_groups``,
-``rev.gemm_tiles`` and the box origins (``rot.key_box_origin``,
-``rot.split_digit_box``, the rotated form's) repeat the kernels'
-choices.  Here:
+and applies in its CMUX.  The one rule of the GEMM's shape and its tiling
+(``rot.gemm_config``, ``rot.split_groups``, ``rot.gemm_tiles``, at RT/128
+digit substages and 4 or 2 output polys) and the box origins
+(``rot.key_box_origin``, ``rot.split_digit_box``, the rotated form's)
+repeat the kernels' choices.  Here:
 
   * the K-major conversion (``keys.rev_to``) and the K-major step blocks
     that ``build_rev`` writes on the card (``kmajor=True`` here) equal each
@@ -23,7 +24,7 @@ choices.  Here:
     the K-major key (STD128_OPT widths with n=2, MICRO, TOY);
   * the digits times those tiles, summed stage by stage over NB-gate tiles
     padded with zero rows (the tiled GEMM's from the digit scratch,
-    ``rev.step_digits``, the split GEMM's as the TMA unit pads them; digit
+    ``rot.digit_scratch``, the split GEMM's as the TMA unit pads them; digit
     chunks outside the key's range read as zeros), combined through the
     epilogue's (limb, coefficient) rows, equal
     ``rev.window_matmul_true_plain`` (#8, M = 16 and 8) and
@@ -143,33 +144,6 @@ def test_key_boxes_rebuild_every_tile(p):
             assert torch.equal(full, rm[i][:, cols].t())
 
 
-def test_gemm_config_picks_the_narrowest_tile():
-    N, d = STD128_OPT.N, STD128_OPT.d_g_used
-    for B in range(1, 600):
-        for polys in (4, 2):
-            NB, MW, split = rev.gemm_config(B, N, d, polys)
-            if B <= 16:
-                assert split and MW == 1 and NB == (8 if B <= 8 else 16)
-            elif B > 256:
-                assert (NB, MW, split) == (256, 2, False)
-            else:
-                assert MW == 1 and not split and NB in (32, 64, 128, 256) and B <= NB
-                assert NB == 32 or NB // 2 < B
-    # STD128 (exact gadget, R = 8): 16 gates' digits do not fit beside the ring
-    assert rev.gemm_config(8, 1024, 4)[2] and not rev.gemm_config(9, 1024, 4)[2]
-    # 4 diagonal groups of the 32 column chunks at 16 planes, 8 of 16 at 8
-    assert rev.split_groups(1024) == (4, 4) and rev.split_groups(1024, 2) == (2, 8)
-    assert rev.split_groups(512) == (2, 4) and rev.split_groups(128) == (1, 1)
-    for N in (128, 512, 1024):
-        for polys in (4, 2):
-            dpg, groups = rev.split_groups(N, polys)
-            assert groups * polys * T // CHUNK <= rev.SPLIT_BLOCKS and groups <= 8
-            assert (groups - 1) * dpg < 2 * N // T - 1 <= groups * dpg
-    assert rev.gemm_tiles(300, 1024, 2)[:3] == [(0, 0, 0), (1, 0, 0), (0, 0, 1)]
-    assert len(rev.gemm_tiles(300, 1024, 2)) == 2 * 8 * 16
-    assert len(rev.gemm_tiles(17, 512, 2, polys=2)) == 1 * 4 * 16
-
-
 def _combine(d, Q):
     """[64 key columns x NB gates] limb sums -> their combine mod Q, [NB
     gates, 16 coefficients]: coefficient t combines rows 16l + t."""
@@ -180,7 +154,7 @@ def _combine(d, Q):
 def _gemm_by_tiles(dig, keyT_i, R, Q):
     """The step GEMM as rev_step.cu computes it, on digits int8 [B, K] and
     one step's K-major block [4*polys, T, rows], the digits in the step's
-    digit scratch (``rev.step_digits``): gates padded to the NB-gate tile
+    digit scratch (``rot.digit_scratch``): gates padded to the NB-gate tile
     with zero rows (the tiled GEMM's from the scratch, the split GEMM's as
     the TMA unit pads them), A tiles from the key's boxes, sums of A_c x
     dig_c^T stage by stage (float64, exact: |sum| <= 2**26), each coefficient t of a 16-coefficient chunk combining
@@ -192,15 +166,15 @@ def _gemm_by_tiles(dig, keyT_i, R, Q):
     RT = R * T
     nt = K // RT
     N, sub = nt * T, RT // BK
-    NB, MW, split = rev.gemm_config(B, N, R // 2, polys)
-    scratch = rev.step_digits(B, N, R // 2, dig.device, polys)
+    NB, MW, split = rot.gemm_config(B, N, R, polys)
+    scratch = rot.digit_scratch(B, K, NB, dig.device)
     scratch[:B] = dig
     padded = torch.zeros((-(-B // NB) * NB, K), dtype=torch.float64)
     padded[:scratch.shape[0]] = scratch.double()
     chunk = lambda q, rows: rows[:, q * BK:(q + 1) * BK]  # noqa: E731
     out = torch.zeros((B, polys, N), dtype=torch.int64)
     if split:  # per block (group, cc): one [64 x 8NB] product per stage, k = column // NB
-        dpg, groups = rev.split_groups(N, polys)
+        dpg, groups = rot.split_groups(N, polys)
         for grp in range(groups):
             d_lo, d_hi = grp * dpg, min(grp * dpg + dpg, 2 * nt - 1)
             tiles = torch.zeros((sub, dpg + 7, NB, BK), dtype=torch.float64)
@@ -224,7 +198,7 @@ def _gemm_by_tiles(dig, keyT_i, R, Q):
         assert (out < 8 * Q).all()
         return out.to(torch.int32), True
     out -= 1
-    for gt, k, ct in rev.gemm_tiles(B, N, R // 2, polys):
+    for gt, k, ct in rot.gemm_tiles(B, N, R, polys):
         b_tile = padded[gt * NB:(gt + 1) * NB]
         for w in range(MW):
             cc = ct * MW + w
@@ -289,7 +263,7 @@ def test_gemm_by_tiles_equals_plain_products(p, M, B):
     for digits, want in ((dig, rev.window_matmul_true_plain(dig, block, p.Q)),
                          (rot.tile_digits(acc, p), rev.window_matmul_dec_true_plain(acc, block, p))):
         out, split = _gemm_by_tiles(digits, blockT, R, p.Q)
-        assert split == (B <= 16 and rev.gemm_config(B, p.N, p.d_g_used, M // 4)[2])
+        assert split == (B <= 16 and rot.gemm_config(B, p.N, 2 * p.d_g_used, M // 4)[2])
         got = modmath.red31(out, p.Q) if split else out
         assert torch.equal(got, want)
 

@@ -12,10 +12,14 @@ the split GEMM (B <= 16) one per stage of a diagonal, all output tiles at
 once against digit tiles it keeps in shared memory (from NB rows of the
 same scratch), and adds partial sums; over a whole rotation each of its
 blocks loads its first key stages before it waits for the digits kernel
-(``rot.early_boxes``).  ``rot.gemm_config``, ``rot.split_groups``,
-``rot.split_digit_box``, ``rot.gemm_tiles`` and ``rot.key_box_origin``
-repeat the kernels' choices.  Here:
+(``rot.early_boxes``).  ``rot.gemm_config`` is the one rule of every
+rotation's step GEMM, which the GINX wrappers pass to the kernels;
+``rot.split_groups``, ``rot.split_digit_box``, ``rot.gemm_tiles`` and
+``rot.key_box_origin`` repeat the kernels' choices.  Here:
 
+  * ``rot.gemm_config`` for each family (the rotated form, the standard
+    form at 16 and 8 planes, AP) picks the narrowest tile, and each GINX
+    wrapper's card path passes that tile and sizes its scratch by it;
   * the K-major conversion (``keys.rev2_to``) and the K-major step blocks
     that ``build_rev2`` writes on the card equal each step's block
     transposed, for a ``keys.from_jax`` rev2 and for ``build_rev2``, and
@@ -47,7 +51,7 @@ import pytest
 import torch
 
 from oece_tpu.fhe import devkeygen as jdevkeygen
-from oece_tpu_torch.fhe import keys, modmath, rev, rot
+from oece_tpu_torch.fhe import _build, ap, keys, modmath, rev, rot, std
 from oece_tpu_torch.fhe.params import MICRO_A, STD128, STD128_OPT, TOY
 from test_torch_copies import jax_params
 from test_torch_std import one_torch_thread  # noqa: F401
@@ -140,21 +144,57 @@ def test_key_boxes_rebuild_every_tile(p):
             assert torch.equal(full, rm[i][:, cols].t())
 
 
-def test_gemm_config_picks_the_narrowest_tile():
+# The step GEMM's families: (digit substages per d_used, output polys,
+# split GEMM's shared memory, the last split batch at STD128's N = 1024,
+# d = 4, and the split_groups pins of their polys).
+FAMILIES = {
+    "rot": (4, 2, rot.split_smem, 8),
+    "rev": (2, 4, rot.split_smem, 8),
+    "rev_m8": (2, 2, rot.split_smem, 16),
+    "ap": (2, 2, ap.split_smem, 8),
+}
+SPLIT_GROUPS = {2: {1024: (2, 8), 512: (1, 7), 128: (1, 1)},
+                4: {1024: (4, 4), 512: (2, 4), 128: (1, 1)}}
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_gemm_config_picks_the_narrowest_tile(family):
+    """The one rule of the step GEMM's shape (``rot.gemm_config``) for each
+    family: the rotated form (2RT/128 substages, 2 polys), the standard
+    form's 16 planes and #8's 8 (RT/128, 4 or 2 polys) and AP's steps (RT/128,
+    2 polys, its own split GEMM's shared memory); ``rot.split_groups`` and
+    ``rot.gemm_tiles`` at the family's polys."""
+    per_d, polys, smem, last_split = FAMILIES[family]
+    config = lambda B, N, d: rot.gemm_config(B, N, per_d * d, polys, smem)  # noqa: E731
     N, d = STD128_OPT.N, STD128_OPT.d_g_used
     for B in range(1, 600):
-        NB, MW, split = rot.gemm_config(B, N, d)
+        NB, MW, split = config(B, N, d)
         if B <= 16:
             assert split and MW == 1 and NB == (8 if B <= 8 else 16)
+            assert smem(NB, per_d * d, rot.split_groups(N, polys)[0]) <= rot.SMEM_MAX
         elif B > 256:
             assert (NB, MW, split) == (256, 2, False)
         else:
             assert MW == 1 and not split and NB in (32, 64, 128, 256) and B <= NB
             assert NB == 32 or NB // 2 < B
-    # STD128 (exact gadget, K = 16384): 16 gates' digits do not fit beside the ring
-    assert rot.gemm_config(8, 1024, 4)[2] and not rot.gemm_config(9, 1024, 4)[2]
-    assert rot.split_groups(1024) == (2, 8) and rot.split_groups(512) == (1, 7)
-    assert rot.split_groups(128) == (1, 1)
+    # STD128 (exact gadget, d = 4): 16 gates' digits do not fit beside the
+    # ring (or, for AP, the key tiles), except at 2 polys of 8 planes
+    assert config(last_split, 1024, 4)[2] and not config(last_split + 1, 1024, 4)[2]
+    assert not config(4, 2048, 2)[2]  # nt > 8: one wgmma cannot hold every output tile
+    for N, groups in SPLIT_GROUPS[polys].items():
+        assert rot.split_groups(N, polys) == groups
+    for N in (128, 512, 1024):
+        dpg, groups = rot.split_groups(N, polys)
+        assert groups * polys * T // rot.GEMM_CHUNK <= rot.SPLIT_BLOCKS and groups <= 8
+        assert (groups - 1) * dpg < 2 * N // T - 1 <= groups * dpg
+    if family == "ap":
+        assert config(16, 512, 4)[2] and config(16, 128, 2)[2]
+        assert max(ap.split_smem(16, 4, 2), ap.split_smem(8, 8, 2)) <= rot.SMEM_MAX
+    if family == "rev":
+        assert rot.gemm_tiles(300, 1024, 4, 4)[:3] == [(0, 0, 0), (1, 0, 0), (0, 0, 1)]
+        assert len(rot.gemm_tiles(300, 1024, 4, 4)) == 2 * 8 * 16
+    if family == "rev_m8":
+        assert len(rot.gemm_tiles(17, 512, 4, 2)) == 1 * 4 * 16
 
 
 def test_digit_scratch_runs_to_the_gate_tile_in_zeros():
@@ -165,19 +205,94 @@ def test_digit_scratch_runs_to_the_gate_tile_in_zeros():
     for p in (STD128, STD128_OPT):
         K = p.N // T * 4 * p.d_g_used * T
         for B in (1, 4, 8, 9, 16, 17, 132, 256, 257, 4096):
-            NB, _, split = rot.gemm_config(B, p.N, p.d_g_used)
+            NB, _, split = rot.gemm_config(B, p.N, 4 * p.d_g_used, 2)
             acc = torch.zeros((B, 2, p.N), dtype=torch.int32)
-            dig, sums = rot._scratch(acc, p)
+            dig, sums = rot._scratch(acc, p, NB)
             assert dig.shape == (-(-B // NB) * NB, K) and dig.dtype == torch.int8
             assert not dig[B:].any() and (dig.shape[0] == NB or not split)
             assert sums.shape == ((2, B, 2, p.N) if split else (0,))
+
+
+class _Recorder:
+    """A stand-in for ``_build.load()``: records each entry's arguments
+    and returns 0."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls[name] = args
+            return 0
+        return call
+
+
+@pytest.mark.parametrize("p", [TOY, STD128_OPT], ids=_id)
+@pytest.mark.parametrize("B", [1, 8, 9, 16, 17, 200, 257])
+def test_wrappers_size_their_scratch_by_the_tile_they_pass(monkeypatch, p, B):
+    """Each GINX wrapper's card path, run on the CPU against a recording
+    library: the gate tile it passes is ``rot.gemm_config``'s for its form,
+    its digit scratch has the rows it passes (B rounded up to that tile)
+    and its sums or products are the split GEMM's at NB <= 16, the tiled
+    GEMM's above."""
+    made = {}
+    empty = torch.empty
+
+    def recorded_empty(*args, **kwargs):
+        t = empty(*args, **kwargs)
+        made[t.data_ptr()] = t
+        return t
+
+    lib = _Recorder()
+    monkeypatch.setattr(torch, "empty", recorded_empty)
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: type("S", (), {"cuda_stream": 0}))
+    monkeypatch.setattr(rev, "_on_card", lambda name, *ts: True)
+    N, d, n = p.N, p.d_g_used, 3
+    R, nt = 2 * d, N // T
+    rows = lambda NB: -(-B // NB) * NB  # noqa: E731
+    acc = torch.zeros((B, 2, N), dtype=torch.int32)
+    a2N = torch.zeros((B, n), dtype=torch.int32)
+    key = torch.zeros((n, 1), dtype=torch.int8)
+
+    NB = rot.gemm_config(B, N, 4 * d, 2)[0]
+    rot._blind_rotate_rot_cuda(acc, key, a2N, p, NB)
+    rot._rot_step_cuda(acc, key[0], a2N[:, :2].contiguous(), p, None)
+    for name in ("oece_blind_rotate_rot", "oece_rot_step"):
+        args = lib.calls[name]
+        dig, sums = made[args[2]], made[args[3]]
+        assert args[6:8] == (B, NB) and dig.shape == (args[8], nt * 2 * R * T) == (rows(NB), nt * 2 * R * T)
+        assert sums.shape == ((2, B, 2, N) if NB <= 16 else (0,))
+
+    NB = rot.gemm_config(B, N, R, 4)[0]
+    rev._blind_rotate_rev_cuda(acc, key, a2N, p, NB)
+    std._blind_rotate_std_cuda(acc, torch.zeros((n, R, 16, 2 * N), dtype=torch.int8), a2N, p, NB)
+    for name, dig_at in (("oece_blind_rotate_rev", 2), ("oece_blind_rotate_std", 2)):
+        args = lib.calls[name]
+        dig, prod = made[args[dig_at]], made[args[1]]
+        i = 5 if name.endswith("rev") else 6
+        assert args[i:i + 2] == (B, NB) and dig.shape == (args[i + 2], nt * R * T) == (rows(NB), nt * R * T)
+        assert prod.shape == ((2, B, 4, N) if NB <= 16 else (B, 4, N))
+
+    for M in (16, 8):
+        NB = rot.gemm_config(B, N, R, M // 4)[0]
+        block = torch.zeros((M, T, (2 * nt - 1) * R * T), dtype=torch.int8)
+        rev.window_matmul_dec_true(acc, block, p)
+        args = lib.calls["oece_rev_matmul_dec"]
+        assert args[4:6] == (B, NB) and made[args[1]].shape == (args[6], nt * R * T) == (rows(NB), nt * R * T)
+        rev.window_matmul_true(torch.zeros((B, nt * R * T), dtype=torch.int8), block, R, p.Q)
+        assert lib.calls["oece_rev_window_matmul"][3:5] == (B, NB)
+        rev.window_matmul_counted("w", torch.zeros((B, nt * R * T), dtype=torch.int8),
+                                  torch.zeros(((2 * nt - 1) * R * T, M * T), dtype=torch.int8), R, p.Q,
+                                  None, lambda *a: None)
+        assert lib.calls["oece_window_matmul"][4:6] == (B, NB)
 
 
 def _loader_boxes(cc, grp, step, N, d_used):
     """The key boxes the split GEMM's loader of block (cc, grp) takes at
     key step ``step``, in order: diagonals d_lo .. d_hi-1, substages 0 ..
     2RT/128 - 1 of each."""
-    R2T, (dpg, _) = 4 * d_used * T, rot.split_groups(N)
+    R2T, (dpg, _) = 4 * d_used * T, rot.split_groups(N, 2)
     d_lo, d_hi = grp * dpg, min(grp * dpg + dpg, 2 * (N // T) - 1)
     return [(*rot.key_box_origin(dd * R2T + c * rot.GEMM_BK, cc), step)
             for dd in range(d_lo, d_hi) for c in range(R2T // rot.GEMM_BK)]
@@ -195,7 +310,7 @@ def test_early_boxes_are_each_blocks_first_ring_stages(p):
     ring = re.search(r"A_BYTES = COLS \* BK, STAGES = (\d+), EPI_PITCH", src).group(1)
     assert int(early) == rot.EARLY_STAGES <= int(ring)  # gemm_split's, within its ring
     N, d = p.N, p.d_g_used
-    dpg, groups = rot.split_groups(N)
+    dpg, groups = rot.split_groups(N, 2)
     chunks = 2 * T // rot.GEMM_CHUNK
     total = 0
     for grp in range(groups):
@@ -206,8 +321,8 @@ def test_early_boxes_are_each_blocks_first_ring_stages(p):
             total += len(got)
     assert [st for _, _, st in rot.split_blocks(N, 4 * d * T, 2, dpg, groups)] == [
         len(_loader_boxes(cc, grp, 0, N, d)) for grp in range(groups) for cc in range(chunks)]
-    q = dataclasses.replace(p, n=5)
-    assert rot.rotation_prefetch_bytes(4, q) == 5 * total * rot.KEY_STAGE_BYTES
+    NB = rot.gemm_config(4, N, 4 * d, 2)[0]
+    assert rot.key_prefetch_bytes(5, N, 4 * d * T, 2, NB) == 5 * total * rot.KEY_STAGE_BYTES
     if p is STD128:
         assert groups * chunks == 128 and total * rot.KEY_STAGE_BYTES == 4 * 2**20
         assert len(_loader_boxes(0, 0, 1, N, d)) == 32 and len(_loader_boxes(0, 7, 1, N, d)) == 16
@@ -220,17 +335,18 @@ def test_no_early_boxes_off_the_rotation_or_in_the_tiled_gemm(p):
     GEMM (B > 16) counts none, in either form; both prebuilt forms' split
     GEMMs count theirs at every step."""
     N, d = p.N, p.d_g_used
-    dpg, groups = rot.split_groups(N)
+    dpg, groups = rot.split_groups(N, 2)
     for grp in range(groups):
         for cc in range(2 * T // rot.GEMM_CHUNK):
             assert rot.early_boxes(cc, grp, 0, N, d, whole=False) == []
+    forms = ((4 * d, 2), (2 * d, 4))  # (digit substages, output polys): rev2, rev
+    prefetch = lambda n, B, sub, polys: rot.key_prefetch_bytes(  # noqa: E731
+        n, N, sub * rot.GEMM_BK, polys, rot.gemm_config(B, N, sub, polys)[0])
     for B in (17, 132, 256, 257, 4096):
-        assert not rot.gemm_config(B, N, d)[2]
-        assert rot.rotation_prefetch_bytes(B, p) == 0 and rev.rotation_prefetch_bytes(B, p) == 0
-    one = dataclasses.replace(p, n=1)
+        assert not rot.gemm_config(B, N, 4 * d, 2)[2]
+        assert all(prefetch(p.n, B, *form) == 0 for form in forms)
     for B in (1, 4, 8):
-        assert rot.rotation_prefetch_bytes(B, p) == p.n * rot.rotation_prefetch_bytes(B, one) > 0
-        assert rev.rotation_prefetch_bytes(B, p) == p.n * rev.rotation_prefetch_bytes(B, one) > 0
+        assert all(prefetch(p.n, B, *form) == p.n * prefetch(1, B, *form) > 0 for form in forms)
 
 
 WIDE = (17, 33, 65, 129, 132, 200, 256, 257, 1000, 4096)
@@ -245,17 +361,17 @@ def test_tile_walk_covers_every_tile_once_inside_the_digit_scratch(p, B):
     scratch, whose rows past B are zeros: no box reads past the map's
     end."""
     N, d = p.N, p.d_g_used
-    NB, MW, split = rot.gemm_config(B, N, d)
+    NB, MW, split = rot.gemm_config(B, N, 4 * d, 2)
     assert not split
     nt, col_tiles, gate_tiles = N // T, 2 * (T // rot.GEMM_CHUNK) // MW, -(-B // NB)
-    tiles = rot.gemm_tiles(B, N, d)
+    tiles = rot.gemm_tiles(B, N, 4 * d, 2)
     assert sorted(tiles) == [(gt, k, ct) for gt in range(gate_tiles) for k in range(nt)
                              for ct in range(col_tiles)]
     assert [gt for gt, _, _ in tiles] == [i % gate_tiles for i in range(len(tiles))]
     for grid in (1, 7, 66, 132):  # block b takes tiles b, b + grid, ...
         walked = [tiles[i] for b in range(min(grid, len(tiles))) for i in range(b, len(tiles), grid)]
         assert sorted(walked) == sorted(tiles)
-    dig = rot._scratch(torch.zeros((B, 2, N), dtype=torch.int32), p)[0]
+    dig = rot._scratch(torch.zeros((B, 2, N), dtype=torch.int32), p, NB)[0]
     assert dig.shape[0] == gate_tiles * NB and not dig[B:].any()
 
 
@@ -279,15 +395,15 @@ def _step_by_tiles(acc, keyT_i, amt, p):
     B, _, N = acc.shape
     nt, R2T = N // T, 4 * p.d_g_used * T
     sub = R2T // rot.GEMM_BK
-    NB, MW, split = rot.gemm_config(B, N, p.d_g_used)
-    dig, _ = rot._scratch(acc, p)
+    NB, MW, split = rot.gemm_config(B, N, 4 * p.d_g_used, 2)
+    dig, _ = rot._scratch(acc, p, NB)
     dig[:B] = rot.rot_diff_digits(acc, amt, p)
     gates = -(-B // NB) * NB
     assert dig.shape[0] == gates  # every box's NB rows lie in the scratch
     padded = dig.double()
     chunk = lambda q, rows: rows[:, q * rot.GEMM_BK:(q + 1) * rot.GEMM_BK]  # noqa: E731
     if split:  # per block (group, cc): one [64 x 8NB] product per stage, k = column // NB
-        dpg, groups = rot.split_groups(N)
+        dpg, groups = rot.split_groups(N, 2)
         total = torch.zeros((B, 2, N), dtype=torch.int64)
         for grp in range(groups):
             d_lo, d_hi = grp * dpg, min(grp * dpg + dpg, 2 * nt - 1)
@@ -312,7 +428,7 @@ def _step_by_tiles(acc, keyT_i, amt, p):
         assert (total < 8 * p.Q).all()
         return modmath.red31((acc + total).to(torch.int32), p.Q)
     out = torch.full_like(acc, -1)
-    for gt, k, ct in rot.gemm_tiles(B, N, p.d_g_used):
+    for gt, k, ct in rot.gemm_tiles(B, N, 4 * p.d_g_used, 2):
         b_tile = padded[gt * NB:(gt + 1) * NB]
         for w in range(MW):
             cc = ct * MW + w

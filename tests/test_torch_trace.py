@@ -116,9 +116,17 @@ def test_rotation_counts_match_the_gates(traced):
     assert tr.counters["host_waits"] == 2 * rotating + len(c.netlist.outputs)
 
 
+def gate_tile(B: int, p) -> int:
+    """The rotated form's step GEMM tile for B gates (rev2 keys)."""
+    return rot.gemm_config(B, p.N, 4 * p.d_g_used, 2)[0]
+
+
 def gemm_rows(B: int, p) -> int:
-    NB, _, split = rot.gemm_config(B, p.N, p.d_g_used)
-    return rot.gemm_rows(B, NB, split)
+    return rot.gemm_rows(B, gate_tile(B, p))
+
+
+def prefetch_bytes(B: int, p) -> int:
+    return rot.key_prefetch_bytes(p.n, p.N, 4 * p.d_g_used * rot.TILE, 2, gate_tile(B, p))
 
 
 def test_padded_lanes_are_the_step_gemms_gate_rows(traced):
@@ -142,8 +150,8 @@ def test_padded_lanes_are_the_step_gemms_gate_rows(traced):
 def test_key_prefetch_bytes_are_the_plans_sum(traced):
     """A narrow GINX rotation counts the key bytes its split GEMMs load
     ahead of the step chain, before their wait for the digits kernel
-    (``rot.rotation_prefetch_bytes``); a rotation over 16 lanes and AP
-    count none."""
+    (``rot.key_prefetch_bytes`` over ``rot.gemm_config``'s tile); a
+    rotation over 16 lanes and AP count none."""
     method, c, traces, _ = traced
     tr = traces[-1]
     rots = [s for s in tr.spans if s.name == "boot.rotation"]
@@ -154,9 +162,9 @@ def test_key_prefetch_bytes_are_the_plans_sum(traced):
     p = c.params
     assert boot.ROT_MEGA and any(s.attrs["lanes"] <= 16 for s in rots)
     for s in rots:
-        want = rot.rotation_prefetch_bytes(s.attrs["lanes"], p)
+        want = prefetch_bytes(s.attrs["lanes"], p)
         assert s.attrs["key_prefetch_bytes"] == want and (want > 0) == (s.attrs["lanes"] <= 16)
-    want = sum(rot.rotation_prefetch_bytes(len(level["boot_op"]) * T, p)
+    want = sum(prefetch_bytes(len(level["boot_op"]) * T, p)
                for level in c.plan.levels if len(level["boot_op"]))
     assert tr.counters["key_prefetch_bytes"] == want > 0
 
