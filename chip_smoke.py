@@ -249,6 +249,16 @@ before the result lines):
              lines): no failure (|e| >= q/8) anywhere; sigma, max |e| and
              margin/sigma beside NOISE.md's TPU sigma, and each key's mean
              beside the one its key-switch key predicts.
+ 30. level-edges  pure-encrypted STD128 Clocks at T=4, recovery off (the
+             benchmark's evaluation): GINX adder_32bit and mult_32x32 on
+             device rev2 keys, and AP adder_32bit, the control.  After a
+             warm Clock, one with the card's sync debug mode at "warn" from
+             SetInput's end to collect: GINX must not warn, AP warns once
+             a rotating level (its live count); every output bit equals
+             the plaintext evaluation's; the levels' device walls (wall_s)
+             sum to within 2% of the Clock's host total.  The second of
+             two traced Clocks prints edge_overlap_levels over the rotating
+             levels and the host waits inside levels.
 
 The phases run in that order, except that 28 and 29 come right after 17.
 Each main-path run (phases 4, 7, 9, 10, 14, 15, 17-21, 27 and 28) sets every
@@ -278,6 +288,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 ADDER = os.path.join(REPO, "examples", "old_bristol_ckts", "arith", "adder_32bit.txt")
+MULT = os.path.join(REPO, "examples", "old_bristol_ckts", "arith", "mult_32x32.txt")
 
 # One NVIDIA H100 SXM (data sheet, dense): int8 tensor-core peak and HBM rate.
 INT8_OPS_PER_S = 1979e12
@@ -2588,6 +2599,120 @@ def without_host_wait(fn):
     return wrapped
 
 
+def clock_sync_warnings(c) -> list:
+    """Clock ``c`` with the card's sync debug mode at "warn" until its
+    output collection; returns, for each operation that made the host wait
+    for the card, the innermost frames of the program's stack there."""
+    import traceback
+    import warnings
+
+    import torch
+
+    collect = c._collect_outputs
+    stacks = []
+
+    def unwatched():
+        torch.cuda.set_sync_debug_mode("default")
+        collect()
+
+    def seen(message, *args, **kwargs):
+        if "synchroniz" in str(message):
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if os.path.basename(f.filename) != "warnings.py"]
+            stacks.append(f"{str(message)[:60]}: " + " <- ".join(
+                f"{os.path.basename(f.filename)}:{f.lineno} {f.name}" for f in reversed(frames[-6:])))
+
+    c._collect_outputs = unwatched
+    torch.cuda.set_sync_debug_mode("warn")  # which itself warns on some versions
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = seen
+            c.Clock()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        del c._collect_outputs
+    return stacks
+
+
+def phase_level_edges():
+    """GINX adder_32bit and mult_32x32 and AP adder_32bit at STD128, T=4,
+    pure-encrypted with recovery off: no host wait between SetInput and
+    collect but AP's live counts, right outputs, device level walls that
+    add up to the Clock; prints edge_overlap_levels (phase 30)."""
+    import torch
+    from oece_tpu_torch.runtime.evaluator import Circuit
+
+    t0 = time.time()
+    keys, out = {}, {}
+    for method, path in (("GINX", ADDER), ("GINX", MULT), ("AP", ADDER)):
+        name = f"{method} {os.path.basename(path)[:-4]}"
+        if method not in keys:
+            kc = Circuit(set="STD128", method=method, seed=0, device="cuda")
+            keys[method] = (kc.keys, kc.sk)
+            log("level-edges", t0, f"{method} STD128 keygen {kc.keygen_s:.1f}s")
+            del kc
+        k, sk = keys[method]
+        c = Circuit(set="STD128", method=method, device="cuda", keys=k, sk=sk,
+                    rng=np.random.default_rng(5), generate_keys=False)
+        c.ReadFile(path)
+        c.setPlaintext(False)
+        c.setEncrypted(True)
+        c.setRecovery(False)
+        rng = np.random.default_rng(99)
+        words = [rng.integers(0, 2, (4, len(w))) for w in c.netlist.inputs]
+        plain = Circuit(set="STD128", device="cuda", generate_keys=False)
+        plain.ReadFile(path)
+        plain.SetInput(words)
+        plain.Clock()
+        rotating = sum(1 for level in c.plan.levels if len(level["boot_op"]))
+        c.SetInput(words)
+        c.Clock()  # warm: the level index's upload, the allocator's blocks
+        c.Reset()
+        c.SetInput(words)
+        syncs = clock_sync_warnings(c)
+        want = rotating if method == "AP" else 0
+        if len(syncs) != want:
+            fail(f"level-edges {name}: {len(syncs)} synchronizing operations before collect, "
+                 f"want {want}: {sorted(set(syncs))}")
+        for got, ref in zip(c.GetOutput(), plain.GetOutput()):
+            if not np.array_equal(got, ref):
+                fail(f"level-edges {name}: {int((got != ref).sum())} output bits differ from "
+                     f"the plaintext evaluation")
+        levels_s, total_s = sum(r.wall_s for r in c.trace.records), c.trace.total_s
+        if abs(levels_s - total_s) > 0.02 * total_s:
+            fail(f"level-edges {name}: level walls sum to {levels_s:.4f}s, the Clock took "
+                 f"{total_s:.4f}s on the host")
+        walls = level_walls(c)
+        c.setTrace(True)
+        overlaps = []
+        for _ in range(2):  # the first traced Clock also creates the spans' events
+            c.Reset()
+            c.SetInput(words)
+            c.Clock()
+            overlaps.append(c.trace.counters.get("edge_overlap_levels", 0))
+        tr = c.trace
+        edges = overlaps[-1]
+        waits = sum(s.attrs.get("host_waits", 0) for s in tr.spans if s.name == "level")
+        rots = [s for s in tr.spans if s.name == "boot.rotation"]
+        rot_host = 1e3 * float(np.median([s.seconds for s in rots]))
+        rot_dev = float(np.median([s.device_ms for s in rots]))
+        out[name] = dict(total_s=total_s, levels_s=levels_s,
+                         edge_overlap_levels=edges, rotating_levels=rotating,
+                         level_host_waits=waits, rotation_host_ms=rot_host,
+                         rotation_device_ms=rot_dev)
+        log("level-edges", t0, f"{name}: {len(syncs)} sync warnings before collect (want "
+            f"{want}), outputs == plaintext; Clock {total_s:.4f}s on the host, "
+            f"level walls {levels_s:.4f}s ({100 * levels_s / total_s:.2f}%), {walls}; traced: "
+            f"edge_overlap_levels {edges} of {rotating} rotating levels "
+            f"({edges / rotating:.3f}; {overlaps[0]} in the first traced Clock), host waits in "
+            f"levels {waits}; a rotation's median "
+            f"{rot_host:.3f} ms on the host, {rot_dev:.3f} ms on the card")
+        del c, plain
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_noise():
     """The port's noise tools at STD128_OPT through their functions: 20
     chained batches of 1024 mixed gates on rev2 and rev device keys and on
@@ -2745,6 +2870,7 @@ PHASES = {
     "ntt": phase_ntt,
     "native": phase_native,
     "mesh": phase_mesh,
+    "level-edges": phase_level_edges,
 }
 
 

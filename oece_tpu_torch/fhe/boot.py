@@ -138,7 +138,9 @@ def bootstrap_batch(prep: torch.Tensor, gate_ids: torch.Tensor, keys: BootKeys, 
     tp shard of host GINX keys, and the rotation and the key switch sum
     their partial products over the tp group.  Under a traced Clock it is
     span ``boot`` with ``boot.pre``, ``boot.rotation`` and ``boot.post``,
-    and counts the rotation, its lanes and (GINX: all n) its steps; inside
+    and counts the rotation, its lanes and (GINX: all n) its steps, and at
+    a level's first rotation whether the card still ran the level before
+    (``trace.edge``); inside
     ``boot.rotation`` a GINX rotation without tp counts its own step GEMM
     (rot.py's ``count_gemm``) and AP its live steps."""
     p = keys.params
@@ -150,6 +152,7 @@ def bootstrap_batch(prep: torch.Tensor, gate_ids: torch.Tensor, keys: BootKeys, 
             a2N = ct2N[:, :-1].contiguous()
             acc = acc_init(keys.tv_table[gate_ids.long()], ct2N[:, -1], N, Q)
         with trace.span("boot.rotation", device=True):
+            trace.edge()
             trace.count("rotations")
             trace.count("lanes", prep.shape[0])
             if keys.ap_ext is None:

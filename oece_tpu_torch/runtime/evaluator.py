@@ -72,9 +72,13 @@ gate's place in the level's bootstrap order, also under compound XOR,
 counters in each request's ``trace`` (utils/trace.py): ``set_input``, then
 under ``clock`` each ``level`` (``level.host``, per gate group
 ``group.gather``, the gate batches' ``boot`` spans, ``group.check``,
-``group.scatter``, then ``level.linear`` and ``level.sync``) and
-``collect``, with the host waits counted where they happen and the linear
-runs and gates (``linear_runs``, ``linear_gates``) in ``level.linear``.
+``group.scatter``, then ``level.linear``) and ``collect``, with the host
+waits counted where they happen, the linear runs and gates
+(``linear_runs``, ``linear_gates``) in ``level.linear``, and
+``edge_overlap_levels``, the levels whose first rotation the host reached
+while the card still ran the level before (utils/trace.py).  No level ends
+in a synchronize: on the card each ``LevelRecord.wall_s`` is read from
+CUDA events after the Clock.
 """
 
 from __future__ import annotations
@@ -509,6 +513,7 @@ class Circuit:
             b0 = self._bootstraps_run
             with span("level", level=lv):
                 self._run_level(level)
+            # the host's wall; on the card Trace.finish sets the device's
             self.trace.add(LevelRecord(
                 level=lv, boot_gates=len(level["boot_op"]),
                 linear_gates=len(level["lin_op"]), batch=self._batch,
@@ -542,7 +547,9 @@ class Circuit:
     def _run_level(self, level: dict) -> None:
         """Level ``self._cur_level``: gate counts, its plaintext pass
         (unless the device branch ran them all first), its bootstrap groups
-        with their checks, and its linear runs."""
+        with their checks, and its linear runs.  It waits for the card only
+        where it reads device data (the host branch's checks, AP's live
+        count): the next level queues behind it on the stream."""
         with span("level.host"):
             self._count_level(level)
             if self.plaintext_flag and self._plain_dev is None:
@@ -556,10 +563,6 @@ class Circuit:
                     count("linear_runs", len(segments))
                     count("linear_gates", len(level["lin_op"]))
                 self._run_linear_encrypted(segments)
-            if self.device.type == "cuda":
-                with span("level.sync"):
-                    torch.cuda.synchronize(self.device)
-                    count("host_waits")
 
     def _lane_width(self) -> int:
         """The lane trace's width: the widest level's bootstrap gates."""

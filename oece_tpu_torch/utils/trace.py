@@ -27,10 +27,20 @@ for a Circuit with ``setTrace(True)``:
     attribute ``name`` of every open span, so a level span holds the counts
     made inside it.
 
+On a CUDA circuit, traced or not, a level's ``wall_s`` is its time on the
+device: ``begin`` records a timing event at the Clock's start, ``add`` one
+at each level's end, and ``finish`` reads them once, after the Clock's last
+host wait, so the host never waits for a level to time it.  Under
+``setTrace(True)`` a level's first rotation also asks whether the previous
+level's end event has completed (``edge``): where it has not, the host
+queued this level while the device still ran the previous one, and the
+Clock's counter ``edge_overlap_levels`` counts it.  Every event, the
+spans' and the levels', comes from the circuit's ``event_pool``.
+
 Code without a Circuit (fhe/boot.py, fhe/ap.py) finds the Clock's trace
 through the module handle ``ACTIVE``, which is None unless a traced Clock
-is running: ``span`` and ``count`` then cost one None check and make no
-event, no profiler range and no record.
+is running: ``span``, ``count`` and ``edge`` then cost one None check and
+make no event, no profiler range and no record.
 """
 
 from __future__ import annotations
@@ -87,7 +97,7 @@ class Trace:
     t_start: float = 0.0
     total_s: float = 0.0
     recording: bool = False  # spans and counters on (Circuit.setTrace)
-    cuda: bool = False       # device spans take CUDA events
+    cuda: bool = False       # level walls and device spans take CUDA events
     clock: Tuple[int, int] = (0, 0)
     spans: List[Span] = dataclasses.field(default_factory=list)
     counters: Dict[str, int] = dataclasses.field(default_factory=dict)
@@ -96,15 +106,42 @@ class Trace:
     event_pool: list = dataclasses.field(default_factory=list)
     _open: List[int] = dataclasses.field(default_factory=list)
     _events: list = dataclasses.field(default_factory=list)
+    _marks: list = dataclasses.field(default_factory=list)  # the Clock's start, then each level's end
+    _edge: object = None  # the last mark, until a level's first rotation queries it
 
     def begin(self) -> None:
         self.t_start = time.perf_counter()
+        if self.cuda:
+            self._mark()
 
     def end(self) -> None:
         self.total_s = time.perf_counter() - self.t_start
 
     def add(self, rec: LevelRecord) -> None:
+        """A level's record, added at the level's end; on the card it records
+        the level's end event, and finish() sets ``rec.wall_s`` to the
+        device time since the previous one."""
         self.records.append(rec)
+        if self.cuda:
+            self._mark()
+
+    def _event(self):
+        pool = self.event_pool
+        return pool.pop() if pool else torch.cuda.Event(enable_timing=True)
+
+    def _mark(self) -> None:
+        ev = self._event()
+        ev.record()
+        self._marks.append(ev)
+        self._edge = ev
+
+    def edge(self) -> None:
+        """At a rotation: the level's first counts ``edge_overlap_levels``
+        where the previous level's end event (the Clock's start before the
+        first level) has not completed."""
+        ev, self._edge = self._edge, None
+        if ev is not None and not ev.query():
+            self.count("edge_overlap_levels")
 
     def span(self, name: str, device: bool = False, **attrs: int) -> "_Open":
         """Record the enclosed block as span ``name``."""
@@ -118,8 +155,14 @@ class Trace:
             attrs[name] = attrs.get(name, 0) + k
 
     def finish(self) -> None:
-        """Read the device spans' events; the caller has waited for the
-        work they enclose."""
+        """Read the level walls' and the device spans' events; the caller
+        has waited for the work they enclose."""
+        marks, self._marks, self._edge = self._marks, [], None
+        if marks:
+            marks[-1].synchronize()
+            for rec, e0, e1 in zip(self.records, marks, marks[1:]):
+                rec.wall_s = e0.elapsed_time(e1) / 1e3
+            self.event_pool += marks
         if self._events:
             self._events[-1][2].synchronize()
             for s, e0, e1 in self._events:
@@ -184,9 +227,7 @@ class _Open:
         tr._open.append(len(tr.spans))
         tr.spans.append(s)
         if self.device and tr.cuda:
-            pool = tr.event_pool
-            self.events = tuple(pool.pop() if pool else torch.cuda.Event(enable_timing=True)
-                                for _ in range(2))
+            self.events = (tr._event(), tr._event())
             self.events[0].record()
         if torch.autograd._profiler_enabled():
             # a device span is a user range, of which the profiler also makes a
@@ -220,3 +261,10 @@ def count(name: str, k: int = 1) -> None:
     tr = ACTIVE
     if tr is not None:
         tr.count(name, k)
+
+
+def edge() -> None:
+    """``ACTIVE.edge()`` when a traced Clock runs."""
+    tr = ACTIVE
+    if tr is not None:
+        tr.edge()
