@@ -16,8 +16,9 @@ before the result lines):
              against its plain torch version on the row-major key, on the
              card, bit-exact: STD128_OPT (n=8), MICRO_A and TOY (exact
              gadget, N=512; n=4) at B = 1, 4, 8, 13, 37, 64, 65, 256,
-             2048, STD128 (exact gadget, d = 4; n=2) at B = 17, 132, 256,
-             257, 4096 (the tiled GEMM's padded digit scratch) and (n=3)
+             2048, STD128 (exact gadget, d = 4; n=2) at B = 17, 132, 180,
+             256, 257, 300, 512, 4096 (WIDE_BATCHES: the tiled GEMM's
+             gate tiles fitted to B, its padded digit scratch) and (n=3)
              at B = 4, 8 (the split GEMM: digit chunks loaded only inside
              the key's range, key tiles issued before the wait); lanes with
              a=0; a row-major key on the card must be refused.  Times one
@@ -82,8 +83,8 @@ before the result lines):
              plain version on the row-major key, bit-exact:
              blind_rotate_rev at STD128_OPT (n=8) B = 1, 4, 8, 13, 16, 17,
              37, 64, 256, 2048, STD128 (R=8, n=2), MICRO (n=4) and TOY
-             (n=3) at B = 4, 13, 37, STD128 (n=2) at B = 17, 132, 256, 257,
-             4096, random int8 blocks, a=0 lanes unchanged, each with the
+             (n=3) at B = 4, 13, 37, STD128 (n=2) at WIDE_BATCHES,
+             random int8 blocks, a=0 lanes unchanged, each with the
              step GEMM that rot.gemm_config chooses; #8 and #9
              alone on K-major blocks of 16 and 8 planes and #10 (any
              amount pairs) at B = 4, 13, 37, 2048; a
@@ -93,6 +94,14 @@ before the result lines):
              at B=2048 over 8 distinct blocks (126 MB, more than the L2),
              whole (CUDA events) and per kernel (device time), with
              bounds.
+     gemm-tiles  every template instance of the tiled step GEMM (gate
+             tiles NB = 32, 48 .. 256 with one math warpgroup, 144 .. 256
+             with two) against its plain twin at STD128, bit-exact:
+             rot_gemm_kernel (#12, n=2), rev_gemm_kernel (the rev
+             rotation, n=2) and ap_gemm_kernel (#13, n=1, every gate live
+             at every step) at B = 17, 33, 132, 144, 200, 256, 257, 300,
+             512, 684 (every epilogue shape) and a ragged B for each
+             instance those miss; each line prints rot.gemm_config's tile.
      ap-sweep   one STD128_OPT step of #13 by batch size (B = 1, 4, 8, 16,
              64, 256, 1024, 2048; a rotation of n=8, 88 steps with
              mod-switch amounts, dead steps included; CUDA events) against
@@ -111,10 +120,10 @@ before the result lines):
              block's HBM floor, 9.4 us, and the compact-key roofline;
              the rotation == its plain version bit for bit; and the GEMM
              of one step by #11 calls on one block, L2-warm, against
-             calls on 16 blocks) and at B = 17, 132, 256, 257, 4096, each
-             split.  It runs after the long phases: in runs
-             where its profiler windows came before the AP phases'
-             million launches, later windows lost records.
+             calls on 16 blocks) and at WIDE_BATCHES, each split.  It
+             runs after the long phases: in runs where its profiler
+             windows came before the AP phases' million launches, later
+             windows lost records.
      rev-sweep  the same for the rev step (#9/#8, csrc/rev_step.cu): 16
              distinct random blocks, B = 1 ... 2048 and STD128's, against
              the bound, with rot.gemm_config's step GEMM; split into its
@@ -547,7 +556,9 @@ def rotation_inputs(p, B, n, layout, seed):
 
 
 ROT_BATCHES = (1, 4, 8, 13, 37, 64, 65, 256, 2048)
-WIDE_BATCHES = (17, 132, 256, 257, 4096)  # STD128's tiled GEMMs around the 256-gate tile
+# STD128's tiled GEMMs: gate tiles fitted to B (144 at 132, 192 at 180, 2 x
+# 144 at 257, 2 x 160 at 300), around the 256-gate tile, and 16 x 256
+WIDE_BATCHES = (17, 132, 180, 256, 257, 300, 512, 4096)
 NARROW_BATCHES = (4, 8)  # STD128's split GEMM: the narrow circuits' lanes, and B = NB
 
 
@@ -701,8 +712,9 @@ def _ap_inputs(p, B, seed, kind="modswitch", steps=None):
     n*d_r by default) and rotation amounts: multiples of 2N/q (what the mod
     switch gives: at STD128_OPT even, so every step j = 0 is dead), any
     value in [0, 2N) (every step selects for about half the gates), or all
-    0 (nothing selected).  Lane 0 of a batch of more than one has a=0, so
-    it selects nothing."""
+    0 (nothing selected), or all 1 (every gate live at every step).  Lane 0
+    of a batch of more than one has a=0, so it selects nothing, except
+    under "all"."""
     import torch
 
     g = torch.Generator(device="cuda")
@@ -713,12 +725,14 @@ def _ap_inputs(p, B, seed, kind="modswitch", steps=None):
                         dtype=torch.int8)
     if kind == "any":
         a2N = torch.randint(0, 2 * p.N, (B, p.n), generator=g, device="cuda", dtype=torch.int32)
+    elif kind == "all":  # a = 1: every bit of 2N - a set, so every gate live at every step
+        a2N = torch.ones((B, p.n), device="cuda", dtype=torch.int32)
     else:
         scale = 2 * p.N // p.q
         a2N = scale * torch.randint(0, p.q, (B, p.n), generator=g, device="cuda", dtype=torch.int32)
         if kind == "zero":
             a2N.zero_()
-    if B > 1:
+    if B > 1 and kind != "all":
         a2N[0] = 0
     return acc, ext, a2N.contiguous()
 
@@ -1324,6 +1338,67 @@ def phase_rev_kernel():
     return res
 
 
+# Every epilogue shape of the tiled GEMM: NB % 64 = 0, 16, 32 and 48, one
+# and two math warpgroups, and three gate tiles (684 = 3 x 228 in 3 x 240)
+TILE_BATCHES = (17, 33, 132, 144, 200, 256, 257, 300, 512, 684)
+
+
+def tile_batches(p) -> list:
+    """TILE_BATCHES, then a ragged B for every other (NB, MW) that
+    rot.gemm_config returns above 16 gates (NB - 5 gates in one
+    warpgroup's tile, 2NB - 7 in two of two warpgroups'): every template
+    instance of the tiled GEMM (step_gemm.cuh: with_tile)."""
+    from oece_tpu_torch.fhe import rot
+
+    config = lambda B: rot.gemm_config(B, p.N, 4 * p.d_g_used, 2)[:2]  # noqa: E731
+    want = {config(B) for B in range(17, 4097)}
+    batches = list(TILE_BATCHES)
+    batches += [nb - 5 if mw == 1 else 2 * nb - 7 for nb, mw in sorted(want - {config(B) for B in batches})]
+    if {config(B) for B in batches} != want:
+        fail(f"gemm-tiles: {batches} miss instances of {sorted(want)}")
+    return batches
+
+
+def phase_gemm_tiles():
+    """Every instance of the tiled step GEMM against its plain twin, bit for
+    bit, at STD128 (exact gadget, d = 4): rot_gemm_kernel (#12, n=2),
+    rev_gemm_kernel (the rev rotation, n=2) and AP's ap_gemm_kernel (n=1,
+    11 steps, every gate live at every step, so each step runs the tile
+    of L = B), at tile_batches' B; random keys, a=0 lanes (GINX)."""
+    import torch
+    from oece_tpu_torch.fhe import ap, rev, rot
+    from oece_tpu_torch.fhe.params import STD128
+
+    t0 = time.time()
+    p, pa = dataclasses.replace(STD128, n=2), dataclasses.replace(STD128, n=1)
+    batches = tile_batches(p)
+    err = 0
+    for i, B in enumerate(batches):
+        tile = rot.gemm_config(B, p.N, 4 * p.d_g_used, 2)
+        acc, rev2, a2N = rotation_inputs(p, B, p.n, "rev2", seed=3000 + i)
+        got = rot.blind_rotate_rot(acc, card_key(rev2), a2N, p)
+        err = max(err, _check_same("gemm-tiles", f"rot_gemm_kernel B={B} (NB, MW, split) {tile}", got,
+                                   rot.blind_rotate_rot_plain(acc, rev2, a2N, p), t0))
+        del rev2
+        acc, rev_all, a2N = rotation_inputs(p, B, p.n, "rev", seed=4000 + i)
+        got = rev.blind_rotate_rev(acc, card_rev(rev_all), a2N, p)
+        err = max(err, _check_same("gemm-tiles", f"rev_gemm_kernel B={B} "
+                                   f"{rot.gemm_config(B, p.N, 2 * p.d_g_used, 4)}", got,
+                                   rev.blind_rotate_rev_plain(acc, rev_all, a2N, p), t0))
+        del rev_all
+        acc, ext, a2N = _ap_inputs(pa, B, seed=5000 + i, kind="all")
+        steps0 = ap.STEP_LAUNCHES
+        got = ap.blind_rotate_ap(acc, ext, a2N, pa)
+        steps = ap.STEP_LAUNCHES - steps0
+        err = max(err, _check_same("gemm-tiles", f"ap_gemm_kernel L=B={B} ({steps} live steps) "
+                                   f"{rot.gemm_config(B, pa.N, 2 * pa.d_g_used, 2, ap.split_smem)}", got,
+                                   ap.blind_rotate_ap_plain(acc, ext, a2N, pa), t0))
+        if steps != pa.n * pa.d_r:
+            fail(f"gemm-tiles: {steps} AP steps launched at B={B}, want all {pa.n * pa.d_r} live")
+    log("gemm-tiles", t0, f"{len(batches)} batches, every tiled instance == its plain twin: {batches}")
+    return {"batches": batches, "max_abs_err": err}
+
+
 def phase_rev_sweep():
     """The rev step by batch size against its bound (sweep_cases; a
     rotation over 16 distinct random blocks, so each step reads its block
@@ -1487,8 +1562,9 @@ def phase_neg_kernel():
                                    ng.diag_matmul_plain(dig, block), t0))
         err = max(err, _check_same("neg-kernel", f"#5 {what}", ng.negacyclic_matmul(dig, ext),
                                    ng.negacyclic_matmul_plain(dig, ext), t0))
-    # #2 at the edges of its split (<= 16) and tiled (32 .. 256, 2 x 256)
-    # GEMMs' gate tiles, both plane counts, and at N=512; #1 and #7 there
+    # #2 around its split (<= 16) and tiled GEMMs' gate tiles (fitted to B,
+    # two warpgroups above 256 gates), both plane counts, and at N=512; #1
+    # and #7 there
     window_shapes = [(N, M, B) for B in (1, 4, 13, 16, 17, 63, 64, 65, 127, 129, 2048) for M in (16, 8)]
     for n_, M, B in window_shapes + [(512, M, B) for B in (4, 17, 129) for M in (16, 8)]:
         ext = ext16[:, :M].contiguous() if n_ == N else rand8(R, M, 2 * n_)
@@ -2848,6 +2924,7 @@ PHASES = {
     "context": phase_context,
     "std-circuit": lambda: phase_circuit("std-circuit", "GINX", host_keys=True),
     "rev-kernel": phase_rev_kernel,
+    "gemm-tiles": phase_gemm_tiles,
     "ap-sweep": phase_ap_sweep,
     "rot-sweep": phase_rot_sweep,
     "rev-sweep": phase_rev_sweep,

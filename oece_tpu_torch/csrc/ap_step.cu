@@ -43,10 +43,11 @@
 //       as zeros); limb-combined partial sums meet by atomics in the
 //       zeroed sum [16, 2, N] (< 8Q: the combine is linear mod Q), which
 //       the next digits kernel reduces with red31.
-//     ap_gemm_kernel<NB, MW>  (L > 16, NB = 32 .. 256, two math
-//       warpgroups above 256 live gates) persistent blocks walk tiles of
-//       (NB live gates, output tile k, MW column chunks); the Horner
-//       combine is fused in the epilogue, which stores res [L, 2, N].
+//     ap_gemm_kernel<NB, MW>  (L > 16, NB = 32, 48, .. 256 fitted to L,
+//       two math warpgroups above 256 live gates) persistent blocks walk
+//       tiles of (NB live gates, output tile k, MW column chunks); the
+//       Horner combine is fused in the epilogue, which stores res [L, 2,
+//       N].
 //
 // The key tiles are made on chip from the step's compact key (64 KB at
 // STD128_OPT), so no block is written to global memory and nothing is
@@ -485,7 +486,7 @@ __global__ void __launch_bounds__(GemmCfg<NB, MW>::THREADS, 1) ap_gemm_kernel(
     // warpgroup's 64 (limb = warp), gate 8*(i/4) + 2*(lane%4) + (i & 1)
     const long long at0 = (long long)o * g.N + k * T + t0 + lt % CHUNK;
 #pragma unroll
-    for (int q = 0; q < NB / C::EPI_G; ++q) {
+    for (int q = 0; q < C::EPI_PASSES; ++q) {
       rotg::wg_sync(wg);  // the previous pass has read cs
 #pragma unroll
       for (int i = 0; i < NB / 2; ++i) {  // this pass's gates: i / (EPI_G/2) == q
@@ -497,6 +498,7 @@ __global__ void __launch_bounds__(GemmCfg<NB, MW>::THREADS, 1) ap_gemm_kernel(
       rotg::wg_sync(wg);
 #pragma unroll
       for (int it = 0; it < C::EPI_G / 8; ++it) {  // one (gate, coefficient t) each
+        if (q * C::EPI_G + 8 * it >= NB) break;     // the last pass's NB % 64 gates
         const int gg = lt / CHUNK + 8 * it, b = gt * NB + q * C::EPI_G + gg;
         if (b >= g.B) continue;
         res[(long long)b * 2 * g.N + at0] = rotg::combine_staged(cs, C::EPI_PITCH, lt % CHUNK, gg, g.Q);
@@ -512,7 +514,9 @@ inline int split_smem(int NB, int R, int dpg) {
 }
 
 // The rotation's arguments (oece_blind_rotate_ap) and the digit maps,
-// made at first use for each GEMM shape.
+// made at first use for each gate tile NB, at slot NB / 8.
+constexpr int MAP_SLOTS = 256 / 8 + 1;
+
 struct Rotation {
   int* acc;
   int* res;   // [L_max, 2, N]: the tiled GEMM's products
@@ -522,18 +526,20 @@ struct Rotation {
   Live lv;
   int B, L_max, N, R, d_used, log_bg, shift, Q, dpg;
   cudaStream_t st;
-  CUtensorMap maps[7];  // split NB = 8, 16; tiled NB = 32, 64, 128, 256 (MW 1 and 2)
-  bool made[7] = {false, false, false, false, false, false, false};
+  CUtensorMap maps[MAP_SLOTS];  // split NB = 8, 16; tiled NB = 32, 48, .. 256
+  bool made[MAP_SLOTS] = {};
 };
 
-// The digit map of GEMM shape `slot`: for the split GEMM [R substages, nt
-// chunks j, L_max, 128 bytes] (strides 128, RT, K) with boxes of dpg+7
-// chunks x NB rows, for the tiled GEMM [L_max, K] with boxes of NB rows.
-const CUtensorMap* digit_map(Rotation& A, int slot, int NB) {
+// The digit map of gate tile NB: for the split GEMM (NB <= 16) [R
+// substages, nt chunks j, L_max, 128 bytes] (strides 128, RT, K) with
+// boxes of dpg+7 chunks x NB rows, for the tiled GEMM [L_max, K] with
+// boxes of NB rows.
+const CUtensorMap* digit_map(Rotation& A, int NB) {
+  const int slot = NB / 8;
   if (!A.made[slot]) {
     const long long RT = (long long)A.R * T, K = A.N / T * RT;
     bool ok;
-    if (slot < 2) {
+    if (NB <= 16) {
       const long long dims[4] = {BK, A.L_max, A.N / T, A.R}, strides[3] = {K, RT, BK};
       const int box[4] = {BK, NB, A.dpg + 7, 1};
       ok = wgmm::make_map_nd(&A.maps[slot], A.dig, 4, dims, strides, box);
@@ -555,7 +561,7 @@ template <int NB>
 cudaError_t run_split(Rotation& A, const int8_t* ext_s, int* sum, int L) {
   static bool smem_set = false;
   cudaError_t e = rotg::allow_smem((const void*)ap_split_kernel<NB>, smem_set);
-  const CUtensorMap* map = digit_map(A, NB == 8 ? 0 : 1, NB);
+  const CUtensorMap* map = digit_map(A, NB);
   if (e != cudaSuccess) return e;
   if (map == nullptr) return cudaErrorInvalidValue;
   const int groups = (2 * (A.N / T) - 1 + A.dpg - 1) / A.dpg;
@@ -564,11 +570,11 @@ cudaError_t run_split(Rotation& A, const int8_t* ext_s, int* sum, int L) {
 }
 
 template <int NB, int MW>
-cudaError_t run_tiled(Rotation& A, int slot, const int8_t* ext_s, int L) {
+cudaError_t run_tiled(Rotation& A, const int8_t* ext_s, int L) {
   using C = GemmCfg<NB, MW>;
   static bool smem_set = false;
   cudaError_t e = rotg::allow_smem((const void*)ap_gemm_kernel<NB, MW>, smem_set);
-  const CUtensorMap* map = digit_map(A, slot, NB);
+  const CUtensorMap* map = digit_map(A, NB);
   if (e != cudaSuccess) return e;
   if (map == nullptr) return cudaErrorInvalidValue;
   const int nt = A.N / T;
@@ -628,7 +634,7 @@ extern "C" int oece_blind_rotate_ap(void* acc, void* res, void* sums, void* dig,
       if constexpr (Tl::SPLIT)
         return (int)run_split<Tl::NB>(A, ext_s, out, L);
       else
-        return (int)run_tiled<Tl::NB, Tl::MW>(A, Tl::INDEX, ext_s, L);
+        return (int)run_tiled<Tl::NB, Tl::MW>(A, ext_s, L);
     });
     prev_res = out;
     prev = s;

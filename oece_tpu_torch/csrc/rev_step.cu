@@ -84,8 +84,8 @@
 //       for the digits kernel, as in rot_step.cu.  The sums
 //       ping-pong between two buffers: the next digits kernel reads the
 //       one at rotated positions while it zeroes the other.
-//     rev_gemm_kernel<NB, MW>  (NB = 32 .. 256, two math warpgroups at
-//       NB = 256 above 256 gates) persistent blocks walk tiles of
+//     rev_gemm_kernel<NB, MW>  (NB = 32, 48, .. 256 fitted to B, two math
+//       warpgroups above 256 gates) persistent blocks walk tiles of
 //       (output tile k, MW column chunks, NB gates), from digits padded
 //       with zero rows to the gate tile, as in rot_step.cu, and write P
 //       in [0, Q) with the limb combine in the epilogue.

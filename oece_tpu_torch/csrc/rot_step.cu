@@ -29,11 +29,13 @@
 // tile NB, which rot.py's gemm_config chooses from B, and the loop runs
 // that instance (step_gemm.cuh: with_tile):
 //
-//   rot_gemm_kernel<NB, MW>    (NB = 32 .. 256) persistent blocks walk tiles
-//       of (output tile k, MW column chunks, NB gates); at NB = 256 above
-//       256 gates two math warpgroups share each 256-gate digit tile, the
-//       shape of wgmma_mm.cuh's GEMM for #3.  The digits are read from
-//       scratch whose rows run to the last gate tile's end, zeros from B
+//   rot_gemm_kernel<NB, MW>    (NB = 32, 48, .. 256) persistent blocks walk
+//       tiles of (output tile k, MW column chunks, NB gates), B gates in
+//       ceil(B/256) gate tiles of NB = 16*ceil(B / (16*tiles)) (144 gate
+//       rows for 132 gates); above 256 gates two math warpgroups share
+//       each digit tile, the shape of wgmma_mm.cuh's GEMM for #3.  The
+//       digits are read from scratch whose rows run to the last gate
+//       tile's end, zeros from B
 //       on: where the TMA unit filled rows past the end of the map with
 //       zeros itself, at ~3.4 ns a row and block, a 132-gate STD128 step's
 //       GEMM took twice the 256-gate one's (PERF.md §5).  One thread of
@@ -87,16 +89,15 @@
 // a quarter of a narrow step); prefetching the split GEMM's remaining key
 // stages into L2 (cp.async.bulk.prefetch) before its wait, or the next
 // step's after its last load, measured no faster: the prefetch slows the
-// digits kernel, or the GEMM's tail, by what it saves elsewhere; fitting
-// the tiled GEMM's NB to B in steps of 32 (132
-// gates pay for 256 in the MMAs: a 128-tile STD128 step of 256 gates reads
-// ~50 us against 36 us of MMAs at the int8 peak), reusing key tiles across
-// output tiles (tile k at chunk c reads what tile k+1 reads at chunk c +
-// 2RT/128), thread-block clusters that multicast each stage's digit tile
-// to blocks of one gate tile (with the padded scratch they paid only where
-// two warpgroups stream a 4,096-gate step through several rounds, 687
-// against 825 us, ~1% of the multiplier; one warpgroup stalled on its
-// peers' stages, 63 against 50 us), fusing the digits into the GEMM (one
+// digits kernel, or the GEMM's tail, by what it saves elsewhere; reusing
+// key tiles across output tiles (tile k at chunk c reads what tile k+1
+// reads at chunk c + 2RT/128; ~26 us of a one-warpgroup STD128 step's
+// GEMM does not shrink with NB, PERF.md §6), thread-block clusters that
+// multicast each stage's digit tile to blocks of one gate tile (with the
+// padded scratch they paid only where two warpgroups stream a 4,096-gate
+// step through several rounds, 687 against 825 us, ~1% of the
+// multiplier; one warpgroup stalled on its peers' stages, 63 against 50
+// us), fusing the digits into the GEMM (one
 // launch per step), a CUDA graph of the step loop, keeping the
 // accumulator resident across steps in a persistent kernel, overlapping
 // the tiled GEMM's epilogue with the next tile's MMAs, and gathering the

@@ -66,15 +66,18 @@ constexpr int COLS = 64;   // key columns per math warpgroup: 4 limbs x 16 coeff
 constexpr int CHUNK = 16;  // coefficients per math warpgroup
 constexpr int SMEM_MAX = 232448;
 
-// The tiled GEMMs' shapes: NB gates per tile, MW math warpgroups (64 key
-// columns each) sharing the digit tile, as many stages as fit (at most 8)
-// beside EXTRA bytes of the kernel's own, the epilogue's staging buffer
-// of [64 columns x EPI_G gates] per warpgroup.
+// The tiled GEMMs' shapes: NB gates per tile (a multiple of 16), MW math
+// warpgroups (64 key columns each) sharing the digit tile, as many stages
+// as fit (at most 8) beside EXTRA bytes of the kernel's own, the
+// epilogue's staging buffer of [64 columns x EPI_G gates] per warpgroup,
+// which the epilogue fills EPI_PASSES times (the last pass NB % 64 gates
+// where 64 does not divide NB).
 template <int NB, int MW, int EXTRA = 0>
 struct Cfg {
   static constexpr int A_BYTES = MW * COLS * wgmm::BK;
   static constexpr int STAGE = A_BYTES + NB * wgmm::BK;
   static constexpr int EPI_G = NB < 64 ? NB : 64;
+  static constexpr int EPI_PASSES = (NB + EPI_G - 1) / EPI_G;
   static constexpr int EPI_PITCH = EPI_G + 1;  // int32 words
   static constexpr int EPI_BYTES = MW * COLS * EPI_PITCH * 4;
   static constexpr int FIT = (SMEM_MAX - 1024 - EPI_BYTES - EXTRA) / (STAGE + 16);
@@ -161,6 +164,7 @@ __device__ __forceinline__ void gemm_tiled(const CUtensorMap* dig_map, const CUt
                                            const int* __restrict__ acc_in, int* __restrict__ out,
                                            const Shape& g, int step) {
   using C = Cfg<NB, MW>;
+  static_assert(C::STAGES >= 4, "every gate tile keeps at least 4 stages in flight");
   constexpr int BK = wgmm::BK;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = wgmm::smem_addr(smem_raw);
@@ -262,7 +266,7 @@ __device__ __forceinline__ void gemm_tiled(const CUtensorMap* dig_map, const CUt
     // accumulator i: key column 16*warp + lane/4 (+8 for i & 2) of the
     // warpgroup's 64 (limb = warp), gate 8*(i/4) + 2*(lane%4) + (i & 1)
 #pragma unroll
-    for (int q = 0; q < NB / C::EPI_G; ++q) {
+    for (int q = 0; q < C::EPI_PASSES; ++q) {
       wg_sync(wg);  // the previous pass has read cs
 #pragma unroll
       for (int i = 0; i < NB / 2; ++i) {  // this pass's gates: i / (EPI_G/2) == q
@@ -275,6 +279,7 @@ __device__ __forceinline__ void gemm_tiled(const CUtensorMap* dig_map, const CUt
       const int t = lt % CHUNK;
 #pragma unroll
       for (int it = 0; it < C::EPI_G / 8; ++it) {  // one (gate, coefficient t) each
+        if (q * C::EPI_G + 8 * it >= NB) break;     // the last pass's NB % 64 gates
         const int gg = lt / CHUNK + 8 * it, b = gt * NB + q * C::EPI_G + gg;
         if (b >= g.B) continue;
         const int comb = combine_staged(cs, C::EPI_PITCH, t, gg, g.Q);
@@ -477,41 +482,50 @@ inline bool split_fits(int N, int smem) { return N / T <= 8 && smem <= SMEM_MAX;
 
 // The gate tile of a step GEMM of B gates, rot.py's gemm_config, for the
 // AP step loop, which chooses per live step: the split GEMM at NB = 8 or
-// 16 where fits[NB == 16] (split_fits at that NB), else the narrowest of
-// 32 .. 256 that holds B, or 256 (two warpgroups) above 256 gates.
+// 16 where fits[NB == 16] (split_fits at that NB), else the tiled GEMM on
+// ceil(B / 256) gate tiles of NB = 16 * ceil(B / (16 * tiles)) gates (at
+// least 32), two math warpgroups above 256 gates.
 inline int gemm_tile(int B, const bool (&fits)[2]) {
   if (B <= 16 && fits[B > 8]) return B <= 8 ? 8 : 16;
-  for (int nb = 32; nb < 256; nb *= 2)
-    if (B <= nb) return nb;
-  return 256;
+  const int tiles = (B + 255) / 256, nb = 16 * ((B + 16 * tiles - 1) / (16 * tiles));
+  return nb < 32 ? 32 : nb;
 }
 
-// One instance of the step GEMMs: NB gates per tile, MW math warpgroups;
-// INDEX is its place among the seven (ap_step.cu's digit-map slots).
+// One instance of the step GEMMs: NB gates per tile, MW math warpgroups.
 template <int NB_, int MW_>
 struct Tile {
   static constexpr int NB = NB_, MW = MW_;
   static constexpr bool SPLIT = NB <= 16;
-  static constexpr int INDEX = (NB > 8) + (NB > 16) + (NB > 32) + (NB > 64) + (NB > 128) + (MW - 1);
 };
+
+// The narrowest gate tile of the rule above 256 gates (257 in two tiles),
+// so the narrowest two-warpgroup instance.
+constexpr int NB_TWO_WG = 144;
+
+// f(Tile<NB, MW>{}) for the tiled GEMM's NB = nb (one of 32, 48, .. 256),
+// two math warpgroups above 256 gates.
+template <int NB, typename F>
+int with_tiled(int nb, int B, F& f) {
+  if (nb != NB) {
+    if constexpr (NB < 256) return with_tiled<NB + 16>(nb, B, f);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (B <= 256) return f(Tile<NB, 1>{});
+  if constexpr (NB >= NB_TWO_WG) return f(Tile<NB, 2>{});
+  return (int)cudaErrorInvalidValue;
+}
 
 // f(Tile<NB, MW>{}) for the gate tile NB that the caller was given or
 // chose (gemm_tile): the split GEMM at NB = 8 or 16 for B <= NB gates
-// where it `fits` (split_fits), the tiled GEMM at NB = 32 .. 256, with two
-// math warpgroups at NB = 256 above 256 gates.  cudaErrorInvalidValue for
-// any other tile, or a split that does not fit.
+// where it `fits` (split_fits), the tiled GEMM at NB = 32, 48, .. 256,
+// with two math warpgroups above 256 gates (NB >= NB_TWO_WG there).
+// cudaErrorInvalidValue for any other tile, or a split that does not fit.
 template <typename F>
 int with_tile(int NB, int B, bool fits, F&& f) {
   if (NB <= 16 && (B > NB || !fits)) return (int)cudaErrorInvalidValue;
-  switch (NB) {
-    case 8: return f(Tile<8, 1>{});
-    case 16: return f(Tile<16, 1>{});
-    case 32: return f(Tile<32, 1>{});
-    case 64: return f(Tile<64, 1>{});
-    case 128: return f(Tile<128, 1>{});
-    case 256: return B > 256 ? f(Tile<256, 2>{}) : f(Tile<256, 1>{});
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (NB == 8) return f(Tile<8, 1>{});
+  if (NB == 16) return f(Tile<16, 1>{});
+  return with_tiled<32>(NB, B, f);
 }
 
 // The TMA maps of a step GEMM: the key keyT as [steps, planes, T,

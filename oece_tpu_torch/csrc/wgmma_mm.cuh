@@ -139,108 +139,96 @@ __device__ __forceinline__ void fence_acc(int (&d)[NR]) {
   for (int i = 0; i < NR; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-// d (+)= A[64 x 32] * B[256 x 32]^T, int8 -> int32; scale_d = 0 overwrites.
-__device__ __forceinline__ void wgmma_256(int (&d)[128], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p;\n"
-      "}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
-        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
-        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
-        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
-        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
-        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
-        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
-        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
-        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
+// wgmma_s8<N>: d (+)= A[64 x 32] * B[N x 32]^T, int8 -> int32, N/2
+// accumulators a thread; scale_d = 0 overwrites.  N is any multiple of 16
+// from 16 to 256: the gate tiles of the step GEMMs (step_gemm.cuh) and 8NB
+// of their split GEMM, and 256 for raw_gemm_kernel.  WGMMA_S8(N, K, ...)
+// below makes the instance of N from K = N/16 groups of 8 accumulator
+// operands (%0 .. %(N/2 - 1)), then da, db and scale_d (%(N/2) ..
+// %(N/2 + 2)).
+template <int N>
+__device__ void wgmma_s8(int (&d)[N / 2], uint64_t da, uint64_t db, int scale_d);
 
-// wgmma_s8<NB>: d (+)= A[64 x 32] * B[NB x 32]^T, int8 -> int32, NB/2
-// accumulators a thread; the N of the rotation GEMM (rot_step.cu).
-template <int NB>
-__device__ void wgmma_s8(int (&d)[NB / 2], uint64_t da, uint64_t db, int scale_d);
+#define WG_S0 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define WG_S1 "%8, %9, %10, %11, %12, %13, %14, %15"
+#define WG_S2 "%16, %17, %18, %19, %20, %21, %22, %23"
+#define WG_S3 "%24, %25, %26, %27, %28, %29, %30, %31"
+#define WG_S4 "%32, %33, %34, %35, %36, %37, %38, %39"
+#define WG_S5 "%40, %41, %42, %43, %44, %45, %46, %47"
+#define WG_S6 "%48, %49, %50, %51, %52, %53, %54, %55"
+#define WG_S7 "%56, %57, %58, %59, %60, %61, %62, %63"
+#define WG_S8 "%64, %65, %66, %67, %68, %69, %70, %71"
+#define WG_S9 "%72, %73, %74, %75, %76, %77, %78, %79"
+#define WG_S10 "%80, %81, %82, %83, %84, %85, %86, %87"
+#define WG_S11 "%88, %89, %90, %91, %92, %93, %94, %95"
+#define WG_S12 "%96, %97, %98, %99, %100, %101, %102, %103"
+#define WG_S13 "%104, %105, %106, %107, %108, %109, %110, %111"
+#define WG_S14 "%112, %113, %114, %115, %116, %117, %118, %119"
+#define WG_S15 "%120, %121, %122, %123, %124, %125, %126, %127"
+#define WG_O8(i)                                                                                   \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), "+r"(d[i + 5]),     \
+      "+r"(d[i + 6]), "+r"(d[i + 7])
+#define WG_REGS1 WG_S0
+#define WG_OUTS1 WG_O8(0)
+#define WG_REGS2 WG_REGS1 ", " WG_S1
+#define WG_OUTS2 WG_OUTS1, WG_O8(8)
+#define WG_REGS3 WG_REGS2 ", " WG_S2
+#define WG_OUTS3 WG_OUTS2, WG_O8(16)
+#define WG_REGS4 WG_REGS3 ", " WG_S3
+#define WG_OUTS4 WG_OUTS3, WG_O8(24)
+#define WG_REGS5 WG_REGS4 ", " WG_S4
+#define WG_OUTS5 WG_OUTS4, WG_O8(32)
+#define WG_REGS6 WG_REGS5 ", " WG_S5
+#define WG_OUTS6 WG_OUTS5, WG_O8(40)
+#define WG_REGS7 WG_REGS6 ", " WG_S6
+#define WG_OUTS7 WG_OUTS6, WG_O8(48)
+#define WG_REGS8 WG_REGS7 ", " WG_S7
+#define WG_OUTS8 WG_OUTS7, WG_O8(56)
+#define WG_REGS9 WG_REGS8 ", " WG_S8
+#define WG_OUTS9 WG_OUTS8, WG_O8(64)
+#define WG_REGS10 WG_REGS9 ", " WG_S9
+#define WG_OUTS10 WG_OUTS9, WG_O8(72)
+#define WG_REGS11 WG_REGS10 ", " WG_S10
+#define WG_OUTS11 WG_OUTS10, WG_O8(80)
+#define WG_REGS12 WG_REGS11 ", " WG_S11
+#define WG_OUTS12 WG_OUTS11, WG_O8(88)
+#define WG_REGS13 WG_REGS12 ", " WG_S12
+#define WG_OUTS13 WG_OUTS12, WG_O8(96)
+#define WG_REGS14 WG_REGS13 ", " WG_S13
+#define WG_OUTS14 WG_OUTS13, WG_O8(104)
+#define WG_REGS15 WG_REGS14 ", " WG_S14
+#define WG_OUTS15 WG_OUTS14, WG_O8(112)
+#define WG_REGS16 WG_REGS15 ", " WG_S15
+#define WG_OUTS16 WG_OUTS15, WG_O8(120)
 
-template <>
-__device__ __forceinline__ void wgmma_s8<256>(int (&d)[128], uint64_t da, uint64_t db, int scale_d) {
-  wgmma_256(d, da, db, scale_d);
-}
+#define WGMMA_S8(N, K, A, B, P)                                                                  \
+  template <>                                                                                    \
+  __device__ __forceinline__ void wgmma_s8<N>(int(&d)[N / 2], uint64_t da, uint64_t db,          \
+                                              int scale_d) {                                     \
+    static_assert(8 * K == N / 2 && A == N / 2 && B == A + 1 && P == A + 2, "operand numbers");  \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"                               \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k32.s32.s8.s8 {" WG_REGS##K "}, %" #A   \
+                 ", %" #B ", p;\n}\n"                                                            \
+                 : WG_OUTS##K                                                                    \
+                 : "l"(da), "l"(db), "r"(scale_d));                                              \
+  }
 
-template <>
-__device__ __forceinline__ void wgmma_s8<32>(int (&d)[16], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p;\n"
-      "}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_s8<64>(int (&d)[32], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p;\n"
-      "}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_s8<128>(int (&d)[64], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p;\n"
-      "}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
+WGMMA_S8(16, 1, 8, 9, 10)
+WGMMA_S8(32, 2, 16, 17, 18)
+WGMMA_S8(48, 3, 24, 25, 26)
+WGMMA_S8(64, 4, 32, 33, 34)
+WGMMA_S8(80, 5, 40, 41, 42)
+WGMMA_S8(96, 6, 48, 49, 50)
+WGMMA_S8(112, 7, 56, 57, 58)
+WGMMA_S8(128, 8, 64, 65, 66)
+WGMMA_S8(144, 9, 72, 73, 74)
+WGMMA_S8(160, 10, 80, 81, 82)
+WGMMA_S8(176, 11, 88, 89, 90)
+WGMMA_S8(192, 12, 96, 97, 98)
+WGMMA_S8(208, 13, 104, 105, 106)
+WGMMA_S8(224, 14, 112, 113, 114)
+WGMMA_S8(240, 15, 120, 121, 122)
+WGMMA_S8(256, 16, 128, 129, 130)
 
 struct GemmShape {
   int B, N, R, M;        // gates, ring size, digit rows, planes
@@ -328,7 +316,7 @@ __global__ void __launch_bounds__(THREADS, 1) raw_gemm_kernel(
       fence_acc(d);
       asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
-      for (int kk = 0; kk < BK / 32; ++kk) wgmma_256(d, da + 2 * kk, db + 2 * kk, c > 0 || kk > 0);
+      for (int kk = 0; kk < BK / 32; ++kk) wgmma_s8<256>(d, da + 2 * kk, db + 2 * kk, c > 0 || kk > 0);
       asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
       fence_acc(d);
       asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");

@@ -16,9 +16,10 @@ the K-major key (keys.py) or raise; a row-major key on the card is
 refused, not transposed per call.  Each step is two kernels: the digits
 of both rotated differences (``rot_diff_digits``), then a TMA + wgmma GEMM
 with 64 key columns (the 4 limbs of 16 coefficients) on wgmma's M and the
-gates on its N (``gemm_config``).  Above 16 gates the tiled GEMM (32-256
-gates per tile) reads the digits from scratch padded with zero rows to
-its gate tile (``digit_scratch``) and takes the limb combine and the
+gates on its N (``gemm_config``).  Above 16 gates the tiled GEMM (gate
+tiles of 32 to 256 gates, fitted to B in steps of 16) reads the digits
+from scratch padded with zero rows to its last gate tile
+(``digit_scratch``) and takes the limb combine and the
 ``red31`` add in its epilogue; up to 16 gates the split GEMM reads each
 key tile once per step for all output tiles and adds combined partial
 sums into a scratch sum, which the next step's digits kernel (or, after
@@ -236,16 +237,17 @@ def gemm_config(B: int, N: int, sub: int, polys: int, smem=split_smem) -> tuple[
     ``smem(NB, sub, dpg)``, the family's split GEMM block's shared memory
     (``split_smem`` here, ``ap.split_smem``) for sub = 2RT/128 (the rotated
     form) or RT/128 (the standard form, AP) digit substages and dpg
-    diagonals of ``split_groups(N, polys)``, fits; else the narrowest NB
-    >= 32 that holds B, two warpgroups sharing one 256-gate digit tile
-    above 256 gates."""
+    diagonals of ``split_groups(N, polys)``, fits.  Else the tiled GEMM
+    on ceil(B / 256) gate tiles of NB gates, NB the least multiple of 16
+    (at least 32) that they hold B in: a tile of 144 gates for 132, two of
+    160 for 300; above 256 gates two warpgroups share each digit tile.
+    wgmma takes any multiple of 16 up to 256 as its N, so each tile
+    computes fewer than 16 rows past B."""
     NB = 8 if B <= 8 else 16
     if B <= 16 and N // TILE <= 8 and smem(NB, sub, split_groups(N, polys)[0]) <= SMEM_MAX:
         return NB, 1, True
-    for nb in (32, 64, 128, 256):
-        if B <= nb:
-            return nb, 1, False
-    return 256, 2, False
+    tiles = -(-B // 256)
+    return max(32, 16 * -(-B // (16 * tiles))), 1 if tiles == 1 else 2, False
 
 
 def split_digit_box(c: int, d_lo: int, N: int) -> tuple[int, int]:

@@ -18,8 +18,10 @@ rotation's step GEMM, which the GINX wrappers pass to the kernels;
 ``rot.key_box_origin`` repeat the kernels' choices.  Here:
 
   * ``rot.gemm_config`` for each family (the rotated form, the standard
-    form at 16 and 8 planes, AP) picks the narrowest tile, and each GINX
-    wrapper's card path passes that tile and sizes its scratch by it;
+    form at 16 and 8 planes, AP) picks the narrowest tile, fitted to B in
+    steps of 16, step_gemm.cuh's gemm_tile (built with g++) agrees with
+    it, and each GINX wrapper's card path passes that tile and sizes its
+    scratch by it;
   * the K-major conversion (``keys.rev2_to``) and the K-major step blocks
     that ``build_rev2`` writes on the card equal each step's block
     transposed, for a ``keys.from_jax`` rev2 and for ``build_rev2``, and
@@ -44,6 +46,7 @@ the CUDA kernel to them on the card by chip_smoke.py (kernel, rot-step).
 
 import dataclasses
 import re
+import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -163,7 +166,10 @@ def test_gemm_config_picks_the_narrowest_tile(family):
     family: the rotated form (2RT/128 substages, 2 polys), the standard
     form's 16 planes and #8's 8 (RT/128, 4 or 2 polys) and AP's steps (RT/128,
     2 polys, its own split GEMM's shared memory); ``rot.split_groups`` and
-    ``rot.gemm_tiles`` at the family's polys."""
+    ``rot.gemm_tiles`` at the family's polys.  Above 16 gates the tiled
+    GEMM's gate tiles are fitted to B in steps of 16: ceil(B/256) tiles of
+    the least multiple of 16 (at least 32) that holds B, two warpgroups
+    exactly above 256 gates."""
     per_d, polys, smem, last_split = FAMILIES[family]
     config = lambda B, N, d: rot.gemm_config(B, N, per_d * d, polys, smem)  # noqa: E731
     N, d = STD128_OPT.N, STD128_OPT.d_g_used
@@ -172,11 +178,16 @@ def test_gemm_config_picks_the_narrowest_tile(family):
         if B <= 16:
             assert split and MW == 1 and NB == (8 if B <= 8 else 16)
             assert smem(NB, per_d * d, rot.split_groups(N, polys)[0]) <= rot.SMEM_MAX
-        elif B > 256:
-            assert (NB, MW, split) == (256, 2, False)
         else:
-            assert MW == 1 and not split and NB in (32, 64, 128, 256) and B <= NB
-            assert NB == 32 or NB // 2 < B
+            gate_tiles = -(-B // 256)
+            assert not split and NB % 16 == 0 and 32 <= NB <= 256
+            assert -(-B // NB) == gate_tiles and B <= gate_tiles * NB < B + 16 * gate_tiles
+            assert MW == (2 if B > 256 else 1)
+            assert NB == 32 or gate_tiles * (NB - 16) < B
+    assert [config(B, N, d)[:2] for B in (17, 33, 132, 180, 256, 257, 300, 512, 684, 4096)] == [
+        (32, 1), (48, 1), (144, 1), (192, 1), (256, 1), (144, 2), (160, 2), (256, 2), (240, 2), (256, 2)]
+    # where the split GEMM does not fit, the tiled one's narrowest tile
+    assert config(last_split + 1, 1024, 4)[:2] == (32, 1)
     # STD128 (exact gadget, d = 4): 16 gates' digits do not fit beside the
     # ring (or, for AP, the key tiles), except at 2 polys of 8 planes
     assert config(last_split, 1024, 4)[2] and not config(last_split + 1, 1024, 4)[2]
@@ -197,20 +208,55 @@ def test_gemm_config_picks_the_narrowest_tile(family):
         assert len(rot.gemm_tiles(17, 512, 4, 2)) == 1 * 4 * 16
 
 
+def test_gemm_tile_in_cuda_is_gemm_config(tmp_path):
+    """step_gemm.cuh's gemm_tile (AP's per-step copy of the rule), built
+    with g++ on its own, returns ``rot.gemm_config``'s NB for every B in
+    1 .. 4096 and each pair of split-GEMM fits; with_tile's instances
+    (NB = 32 .. 256 in steps of 16 with one warpgroup, NB_TWO_WG .. 256
+    with two) are every tile the rule returns."""
+    src = (Path(rot.__file__).parent.parent / "csrc" / "step_gemm.cuh").read_text()
+    body = re.search(r"inline int gemm_tile\(int B, const bool \(&fits\)\[2\]\) \{.*?\n\}\n", src, re.S).group(0)
+    prog = tmp_path / "gemm_tile.cpp"
+    prog.write_text("#include <cstdio>\n" + body + """
+int main() {
+  for (int f = 0; f < 4; ++f) {
+    const bool fits[2] = {(f & 1) != 0, (f & 2) != 0};
+    for (int B = 1; B <= 4096; ++B) std::printf("%d\\n", gemm_tile(B, fits));
+  }
+}
+""")
+    exe = tmp_path / "gemm_tile"
+    subprocess.run(["g++", "-std=c++17", "-O1", "-o", str(exe), str(prog)], check=True)
+    got = [int(v) for v in subprocess.run([str(exe)], check=True, capture_output=True, text=True).stdout.split()]
+    want = []
+    for f in range(4):
+        fits = (bool(f & 1), bool(f & 2))
+        smem = lambda NB, sub, dpg, fits=fits: 0 if fits[NB == 16] else rot.SMEM_MAX + 1  # noqa: E731
+        want += [rot.gemm_config(B, 1024, 8, 2, smem)[0] for B in range(1, 4097)]
+    assert got == want
+    two_wg = int(re.search(r"constexpr int NB_TWO_WG = (\d+);", src).group(1))
+    assert re.search(r"with_tiled<32>\(NB, B, f\)", src) and "if constexpr (NB < 256) return with_tiled<NB + 16>" in src
+    rule = {rot.gemm_config(B, 1024, 16, 2)[:2] for B in range(17, 4097)}
+    assert rule == {(nb, 1) for nb in range(32, 257, 16)} | {(nb, 2) for nb in range(two_wg, 257, 16)}
+
+
 def test_digit_scratch_runs_to_the_gate_tile_in_zeros():
     """The step loop's digit scratch: rows to the last gate tile's end,
     for the split GEMM its one tile of NB = 8 or 16 gates, for the tiled
-    one NB = 32 ... 256, the rows from B on zero, which the digits kernel
-    never writes (so no digit box reads past the map's rows)."""
+    one NB = 32, 48 ... 256 fitted to B, the rows from B on zero, which the
+    digits kernel never writes (so no digit box reads past the map's
+    rows)."""
     for p in (STD128, STD128_OPT):
         K = p.N // T * 4 * p.d_g_used * T
-        for B in (1, 4, 8, 9, 16, 17, 132, 256, 257, 4096):
+        for B in (1, 4, 8, 9, 16, 17, 132, 180, 256, 257, 300, 684, 4096):
             NB, _, split = rot.gemm_config(B, p.N, 4 * p.d_g_used, 2)
             acc = torch.zeros((B, 2, p.N), dtype=torch.int32)
             dig, sums = rot._scratch(acc, p, NB)
             assert dig.shape == (-(-B // NB) * NB, K) and dig.dtype == torch.int8
             assert not dig[B:].any() and (dig.shape[0] == NB or not split)
             assert sums.shape == ((2, B, 2, p.N) if split else (0,))
+            # a tile of 144 rows at 132 gates (not 256), 2 x 160 at 300
+            assert dig.shape[0] == {132: 144, 180: 192, 300: 320, 684: 720}.get(B, dig.shape[0])
 
 
 class _Recorder:
@@ -349,7 +395,7 @@ def test_no_early_boxes_off_the_rotation_or_in_the_tiled_gemm(p):
         assert all(prefetch(p.n, B, *form) == p.n * prefetch(1, B, *form) > 0 for form in forms)
 
 
-WIDE = (17, 33, 65, 129, 132, 200, 256, 257, 1000, 4096)
+WIDE = (17, 33, 65, 129, 132, 180, 200, 256, 257, 300, 684, 1000, 4096)
 
 
 @pytest.mark.parametrize("p", [STD128, STD128_OPT], ids=_id)

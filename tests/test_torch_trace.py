@@ -169,12 +169,10 @@ def test_key_prefetch_bytes_are_the_plans_sum(traced):
     assert tr.counters["key_prefetch_bytes"] == want > 0
 
 
-def test_linear_and_padding_counters_match_the_plan(tmp_path):
-    """A netlist of linear chains at T = 8 (levels of 24 and 48 lanes, past
-    the split GEMM's 16): ``linear_runs`` and ``linear_gates`` in each
-    level's ``level.linear`` span equal the plan's runs and gates,
-    ``padded_lanes`` the rows of gemm_config's gate tiles; with tracing
-    off the same Clock records nothing."""
+def _traced_chains(tmp_path, T_chain: int):
+    """``chain_bristol``'s netlist at MICRO GINX, T_chain cases a word
+    (levels of 3 and 6 gates), clocked once with tracing on; the Circuit
+    and its input words."""
     path = str(tmp_path / "chains.txt")
     chain_bristol(path)
     c = Circuit(set="MICRO", method="GINX", seed=21, device="cpu")
@@ -183,10 +181,20 @@ def test_linear_and_padding_counters_match_the_plan(tmp_path):
     c.setEncrypted(True)
     c.setRecovery(False)
     rng = np.random.default_rng(8)
-    words = [rng.integers(0, 2, (8, 6)) for _ in range(2)]
+    words = [rng.integers(0, 2, (T_chain, 6)) for _ in range(2)]
     c.setTrace(True)
     c.SetInput(words)
     c.Clock()
+    return c, words
+
+
+def test_linear_and_padding_counters_match_the_plan(tmp_path):
+    """A netlist of linear chains at T = 8 (levels of 24 and 48 lanes, past
+    the split GEMM's 16): ``linear_runs`` and ``linear_gates`` in each
+    level's ``level.linear`` span equal the plan's runs and gates,
+    ``padded_lanes`` the rows of gemm_config's gate tiles; with tracing
+    off the same Clock records nothing."""
+    c, words = _traced_chains(tmp_path, 8)
     tr = c.trace
     runs = [len(linear_runs(level, c._slot)) for level in c.plan.levels]
     gates = [len(level["lin_op"]) for level in c.plan.levels]
@@ -198,7 +206,7 @@ def test_linear_and_padding_counters_match_the_plan(tmp_path):
         assert s.attrs == ({"linear_runs": r, "linear_gates": g} if r else {})
     lanes = [len(level["boot_op"]) * 8 for level in c.plan.levels if len(level["boot_op"])]
     assert lanes == [24, 48]
-    assert tr.counters["padded_lanes"] == gemm_rows(24, c.params) + gemm_rows(48, c.params) == 32 + 64
+    assert tr.counters["padded_lanes"] == gemm_rows(24, c.params) + gemm_rows(48, c.params) == 32 + 48
     assert tr.counters["key_prefetch_bytes"] == 0  # the tiled GEMMs prefetch nothing
     assert tr.counters["lanes"] == sum(lanes)
     c.setTrace(False)
@@ -206,6 +214,18 @@ def test_linear_and_padding_counters_match_the_plan(tmp_path):
     c.SetInput(words)
     c.Clock()
     assert not c.trace.recording and c.trace.spans == [] and c.trace.counters == {}
+
+
+def test_padded_lanes_fit_the_gate_tile_at_132_lanes(tmp_path):
+    """The same netlist at T = 44, levels of 132 and 264 lanes: each
+    rotation counts the gate rows of tiles fitted to B in steps of 16
+    (``rot.gemm_config``), one tile of 144 and two of 144, not 256 and two
+    of 256."""
+    c, _ = _traced_chains(tmp_path, 44)
+    rots = [s for s in c.trace.spans if s.name == "boot.rotation"]
+    assert [s.attrs["lanes"] for s in rots] == [132, 264]
+    assert [s.attrs["padded_lanes"] for s in rots] == [gemm_rows(132, c.params), gemm_rows(264, c.params)]
+    assert c.trace.counters["padded_lanes"] == 144 + 2 * 144
 
 
 @pytest.mark.parametrize("traced", ["AP"], indirect=True)
